@@ -1,0 +1,141 @@
+"""Primitive layers: conv / dense, padding, resampling.
+
+Counterpart of ``de_i2i_gan_tpu/nn/layers.py``, in NCHW:
+  * parameters live in float32; activations are cast to the compute dtype at
+    every conv and dense, and the float32 bias add is rounded back to it, so
+    bfloat16 rounds in the same places as the JAX package
+  * weights use torch's layouts (conv OIHW, dense (out, in));
+    ``train/jax_import.py`` maps the flax HWIO / (in, out) kernels onto them
+  * spectral normalization comes with the training slice, where its u/v
+    state is needed; asking for it raises until then
+"""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+PaddingLike = Union[int, str, Tuple[int, int]]
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return (int(v[0]), int(v[1]))
+    return (int(v), int(v))
+
+
+def _resolve_padding(padding: PaddingLike, kernel_size: Tuple[int, int],
+                     strides: Tuple[int, int]) -> Pads:
+    """torch-compatible padding resolution.
+
+    'same'  -> total = k-1 split (left = total//2, right = total-left); torch
+               only allows this for stride 1 and so do we.
+    int/pair-> symmetric.
+    'valid' -> zero padding.
+    """
+    kh, kw = kernel_size
+    if padding == "same":
+        if strides != (1, 1):
+            raise ValueError("'same' padding requires stride 1 (torch semantics)")
+        th, tw = kh - 1, kw - 1
+        return ((th // 2, th - th // 2), (tw // 2, tw - tw // 2))
+    if padding == "valid":
+        return ((0, 0), (0, 0))
+    ph, pw = _pair(padding)
+    return ((ph, ph), (pw, pw))
+
+
+def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
+    """Source rows of a reflect pad of (lo, hi) on an axis of length n, with
+    numpy's repeated-reflection semantics when the pad is >= the axis (the
+    case where ``F.pad(mode="reflect")`` raises)."""
+    idx = torch.arange(-lo, n + hi, device=device)
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = torch.remainder(idx, period)
+    return torch.where(idx >= n, period - idx, idx)
+
+
+def pad_image(x: torch.Tensor, pads: Pads, mode: str) -> torch.Tensor:
+    """Pad an NCHW image on H and W. mode: 'zeros' | 'reflect' | 'replicate'."""
+    (pt, pb), (pl, pr) = pads
+    if pt == pb == pl == pr == 0:
+        return x
+    if mode == "zeros":
+        return F.pad(x, (pl, pr, pt, pb))
+    if mode == "replicate":
+        return F.pad(x, (pl, pr, pt, pb), mode="replicate")
+    if mode != "reflect":
+        raise ValueError(f"unknown padding mode {mode}")
+    h, w = x.shape[-2:]
+    if max(pt, pb) < h and max(pl, pr) < w:
+        return F.pad(x, (pl, pr, pt, pb), mode="reflect")
+    # pad wider than the axis (tiny feature maps): repeated reflection
+    x = x.index_select(-2, _reflect_index(h, pt, pb, x.device))
+    return x.index_select(-1, _reflect_index(w, pl, pr, x.device))
+
+
+class Conv2d(nn.Module):
+    """2-D convolution with torch-compatible padding (flax ``Conv2d``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: PaddingLike = (3, 3), strides=(1, 1),
+                 padding: PaddingLike = 0, padding_mode: str = "zeros",
+                 use_bias: bool = False, use_spectral: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if use_spectral:
+            raise NotImplementedError(
+                "spectral norm comes with the training slice (u/v state)")
+        self.kernel_size = _pair(kernel_size)
+        self.strides = _pair(strides)
+        self.pads = _resolve_padding(padding, self.kernel_size, self.strides)
+        self.padding_mode = padding_mode
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(features, in_features, *self.kernel_size).normal_(0, 0.02))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = pad_image(x, self.pads, self.padding_mode)
+        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                     stride=self.strides)
+        if self.bias is not None:
+            y = y + self.bias[:, None, None]
+        return y.to(self.dtype)
+
+
+class Dense(nn.Module):
+    """Linear layer (flax ``Dense``); weight is torch's (out, in)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 use_spectral: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if use_spectral:
+            raise NotImplementedError(
+                "spectral norm comes with the training slice (u/v state)")
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(features, in_features).normal_(0, 0.02))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsample of NCHW (torch nn.Upsample(scale_factor=2))."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def avg_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """NCHW average pooling (torch nn.AvgPool2d)."""
+    return F.avg_pool2d(x, window, stride)

@@ -1,0 +1,141 @@
+"""Weights carried across from the JAX package, and the JAX init's
+distribution for weights made from a seed.
+
+The inverse of ``de_i2i_gan_tpu/train/torch_import.py``'s layout mapping:
+flax trees arrive as nested dicts of numpy arrays (``{"stem": {"conv":
+{"kernel": ...}}}``) and fill the port's modules, whose attribute paths
+follow the flax module names (``stem.conv.weight`` <- ``stem/conv/kernel``):
+
+    Conv2d     kernel HWIO -> weight OIHW,  bias -> bias
+    Dense      kernel (in, out) -> weight (out, in),  bias -> bias
+    BatchNorm  params scale/bias -> weight/bias,
+               batch_stats mean/var -> running_mean/running_var
+
+Loading is strict: a key missing on either side, or a shape that differs,
+raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from de_i2i_gan_torch.nn.blocks import BatchNorm
+from de_i2i_gan_torch.nn.layers import Conv2d, Dense
+
+Tree = Mapping[str, Any]
+_Target = Tuple[str, torch.Tensor, str, str, Callable[[np.ndarray], np.ndarray]]
+
+
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
+
+
+def _flatten(tree: Optional[Tree], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in (tree or {}).items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path + "/"))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _targets(module: nn.Module) -> Iterator[_Target]:
+    """(port key, port tensor, collection, flax path, flax -> port transform)
+    for every parameter and buffer of ``module``."""
+    for name, mod in module.named_modules():
+        key = f"{name}." if name else ""
+        path = key.replace(".", "/")
+        if isinstance(mod, (Conv2d, Dense)):
+            to_port = ((lambda a: a.transpose(3, 2, 0, 1))
+                       if isinstance(mod, Conv2d) else (lambda a: a.T))
+            yield key + "weight", mod.weight, "params", path + "kernel", to_port
+            if mod.bias is not None:
+                yield key + "bias", mod.bias, "params", path + "bias", _same
+        elif isinstance(mod, BatchNorm):
+            yield key + "weight", mod.weight, "params", path + "scale", _same
+            yield key + "bias", mod.bias, "params", path + "bias", _same
+            yield (key + "running_mean", mod.running_mean, "batch_stats",
+                   path + "mean", _same)
+            yield (key + "running_var", mod.running_var, "batch_stats",
+                   path + "var", _same)
+
+
+def _checked_targets(module: nn.Module):
+    targets = list(_targets(module))
+    unmapped = set(module.state_dict()) - {t[0] for t in targets}
+    if unmapped:
+        raise TypeError(f"no flax mapping for {sorted(unmapped)}")
+    return targets
+
+
+def load_jax_module(module: nn.Module, params: Tree,
+                    batch_stats: Optional[Tree] = None) -> None:
+    """Fill ``module`` from a flax ``params`` tree (and ``batch_stats`` when
+    it has BatchNorm)."""
+    trees = {"params": _flatten(params), "batch_stats": _flatten(batch_stats)}
+    targets = _checked_targets(module)
+    for coll, flat in trees.items():
+        want = {t[3] for t in targets if t[2] == coll}
+        missing, extra = sorted(want - set(flat)), sorted(set(flat) - want)
+        if missing or extra:
+            raise KeyError(f"{coll}: missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for key, tensor, coll, path, to_port in targets:
+            arr = np.ascontiguousarray(to_port(trees[coll][path]), np.float32)
+            if arr.shape != tuple(tensor.shape):
+                raise ValueError(f"{path}: shape {arr.shape} does not fit "
+                                 f"{key} {tuple(tensor.shape)}")
+            tensor.copy_(torch.from_numpy(arr))
+
+
+def load_jax_generator(steps, g_params: Tree, g_batch_stats: Tree,
+                       e_params: Optional[Tree],
+                       ema_params: Optional[Tree] = None) -> None:
+    """Fill a ``DefectGanSteps`` from the JAX train state's trees:
+    ``state.G.params``, ``state.G.state["batch_stats"]``, ``state.E.params``
+    and ``state.ema_G``."""
+    if (steps.E is None) != (e_params is None):
+        raise ValueError("e_params must be given exactly when the steps "
+                         "hold a style extractor")
+    if (steps.ema_G is None) != (ema_params is None):
+        raise ValueError("ema_params must be given exactly when the steps "
+                         "hold an EMA generator")
+    load_jax_module(steps.G, g_params, g_batch_stats)
+    if steps.E is not None:
+        load_jax_module(steps.E, e_params)
+    if steps.ema_G is not None:
+        load_jax_module(steps.ema_G, ema_params, g_batch_stats)
+
+
+def _init_module(module: nn.Module, gen: torch.Generator, std: float) -> None:
+    with torch.no_grad():
+        for key, tensor, coll, path, _ in _checked_targets(module):
+            if path.endswith("kernel"):
+                draw = torch.empty(tensor.shape).normal_(0.0, std, generator=gen)
+                tensor.copy_(draw)
+            elif path.endswith(("scale", "var")):
+                tensor.fill_(1.0)
+            else:  # biases, running means
+                tensor.zero_()
+
+
+def init_weights(steps, seed: int) -> None:
+    """Weights from ``seed`` with the JAX init's distribution: normal(0.02)
+    conv and dense kernels, zero biases, BatchNorm scale 1 / bias 0 and
+    running statistics 0 / 1. Not the JAX init's numbers. Drawn on the CPU,
+    so a seed gives the same weights on every device."""
+    cfg = steps.cfg
+    if cfg.init_type != "normal" or cfg.init_variance != 0.02:
+        raise NotImplementedError(
+            "only the default normal(0.02) init is ported")
+    gen = torch.Generator().manual_seed(seed)
+    for net in (steps.G, steps.E):
+        if net is not None:
+            _init_module(net, gen, cfg.init_variance)
+    if steps.ema_G is not None:
+        steps.ema_G.load_state_dict(steps.G.state_dict())

@@ -1,0 +1,61 @@
+"""Import rules of the PyTorch port, checked in fresh interpreters.
+
+* No module of ``de_i2i_gan_torch`` (nor ``chip_smoke.py``, nor the card's
+  ``tests/test_torch_kernel_gpu.py``) pulls in jax, flax, optax or any
+  module of ``de_i2i_gan_tpu``.
+* Importing the CUDA kernel module neither needs nor runs ``nvcc``: the
+  kernel is built at first launch.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "optax", "de_i2i_gan_tpu")
+
+
+def _run(code: str, **env) -> subprocess.CompletedProcess:
+    full_env = {**os.environ, "PYTHONPATH": str(ROOT), **env}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=full_env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc
+
+
+def test_port_imports_nothing_of_jax():
+    code = f"""
+import ast, importlib, pkgutil, sys
+import de_i2i_gan_torch
+names = ["de_i2i_gan_torch"] + [m.name for m in pkgutil.walk_packages(
+    de_i2i_gan_torch.__path__, "de_i2i_gan_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 15, names
+# the files that run on the card only: check their imports statically
+card = set()
+for path in ("chip_smoke.py", "tests/test_torch_kernel_gpu.py"):
+    tree = ast.parse(open(path).read())
+    card |= {{a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+              for a in n.names}}
+    card |= {{n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}}
+bad = sorted(m for m in list(sys.modules) + sorted(card)
+             if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print(len(names))
+"""
+    _run(code)
+
+
+def test_kernel_module_import_needs_no_nvcc():
+    code = """
+import subprocess
+def refuse(*a, **k):
+    raise AssertionError("a process was started at import")
+subprocess.run = subprocess.Popen = refuse
+from de_i2i_gan_torch.ops.cuda import norm_kernels
+from de_i2i_gan_torch.ops import fused
+import de_i2i_gan_torch.train.steps
+assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
+"""
+    _run(code, PATH="/nonexistent", CUDA_HOME="/nonexistent")
