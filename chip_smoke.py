@@ -3,15 +3,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width, DefectGAN-256 with the AdaIN
-decoder in bf16, with random weights from a seed, and shows that they ran
-through the hand-written CUDA kernels (forward and backward of the
-modulated instance norm):
+Drives the port's paths at full width, DefectGAN-256 in bf16 with each of
+its three decoders, with random weights from a seed, and shows that the
+AdaIN and SEAN paths ran through the hand-written CUDA kernels (forward
+and backward of the modulated instance norm) and the SPADE path through
+none:
 
   * serving: ``DefectGanSteps.generate`` on batches of 8;
   * training: ``DefectGanSteps.super_step``, 5 D steps and one G step on
     batches of 8 (the fused 2B generator forwards give the kernels batches
     of 16).
+
+AdaIN takes the style code from E; SEAN takes ViT-sized (8, 5, 768) style
+embeddings made on the card, tracks its running statistics and adds its
+distillation terms in training; SPADE runs with spectral norm and noise
+injection. SEAN and SPADE train with DiffAugment on every policy.
 
 Phases, each of which raises on failure:
 
@@ -41,6 +47,17 @@ Phases, each of which raises on failure:
               of the unprofiled super-step
   6f. timing  backward kernel, plain version and autograd of F.instance_norm
               at each training shape, beside the memory bound
+  7a. sean    serving: 2 warm-up + 5 timed requests (the path's launch
+              counts), against the use_pallas=False path within the band
+              of phase 4; profile
+  7b. sean    training (running statistics, distillation, DiffAugment):
+              a tiny f32 super-step with spectral norm on the card against
+              the CPU; 2 warm-up + 5 timed full-width super-steps (the
+              path's launch counts), peak memory, profile; the epoch update
+              of the statistics and one request that samples them; G's SGD
+              deltas kernel path vs plain path as in 6d
+  7c. spade   serving and training with spectral norm, noise injection and
+              DiffAugment: times, peak memory, profiles; no kernel launches
 
 The line before the last two holds the kernels' JSON record, the next the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -107,6 +124,7 @@ MEAN_BAND = 1e-3
 # element in L2 (element-wise figures against the suite's rtol 2e-4 / atol
 # 1e-5 are reported)
 LOSS_RTOL = 2e-4
+DISTILL_ATOL = 1e-5
 GRAD_REL_L2 = 1e-3
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5
 # full-width G deltas, kernel path vs plain path (relative L2 norm): within
@@ -114,6 +132,9 @@ GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5
 # close to the f32 plain path as the bf16 plain path is, within a factor
 F32_DELTA_BAND = 1e-3
 BF16_DELTA_FACTOR = 1.5
+# SEAN's style embeddings: num_embeds ViT CLS tokens of embed_nc
+EMBEDS = (5, 768)
+DIFF_AUG = "color,translation,cutout"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -152,11 +173,43 @@ def full_config(**kw):
     return cfg.replace(**kw)
 
 
-def small_config():
+def sean_config(**kw):
+    """The SEAN decoder with its running statistics and distillation."""
+    return full_config(style_norm_block_type="sean", embed_nc=EMBEDS[1],
+                       num_embeds=EMBEDS[0], use_running_stats=True,
+                       style_distill=True, **kw)
+
+
+def spade_config(**kw):
+    """The default decoder, with spectral norm and noise injection."""
+    return full_config(style_norm_block_type="spade", use_spectral=True,
+                       add_noise=True, **kw)
+
+
+def small_config(**kw):
     from de_i2i_gan_torch.config import DefectGanConfig
-    return DefectGanConfig(image_size=32, label_nc=4, ngf=8, ndf=8, num_res=2,
-                           hidden_nc=16, num_layers=2,
-                           style_norm_block_type="adain", use_pallas=True)
+    cfg = DefectGanConfig(image_size=32, label_nc=4, ngf=8, ndf=8, num_res=2,
+                          hidden_nc=16, num_layers=2,
+                          style_norm_block_type="adain", use_pallas=True)
+    return cfg.replace(**kw)
+
+
+def style_input(cfg, gen, *lead):
+    """The style input the decoder takes beside the labels: SEAN's
+    embeddings, made on the card; none for AdaIN (E makes it) and SPADE."""
+    if cfg.style_norm_block_type != "sean":
+        return None
+    return torch.randn((*lead, cfg.num_embeds, cfg.embed_nc), generator=gen,
+                       device="cuda")
+
+
+def expected_launches(cfg, forwards, backwards):
+    """Kernel launches of ``forwards`` G forwards and ``backwards`` G
+    backwards: one per style norm of the decoder, none for SPADE."""
+    if cfg.style_norm_block_type == "spade" or not cfg.use_pallas:
+        return 0, 0
+    per_g = 2 * (cfg.num_res // 2) + cfg.num_scales
+    return forwards * per_g, backwards * per_g
 
 
 # ------------------------------------------------------------ 3. kernels
@@ -280,71 +333,75 @@ def phase_reference(nk, smi):
           f"[{smi}]")
 
 
-def phase_serving(nk, smi):
+def phase_serving(nk, smi, cfg, label, compare=True):
+    """Serving ``cfg``: 2 warm-up + 5 timed requests of a batch of 8, the
+    path's launch counts; with ``compare``, the same requests through the
+    plain version (cfg.use_pallas=False) agree within the band."""
     from de_i2i_gan_torch.train.jax_import import init_weights
     from de_i2i_gan_torch.train.steps import DefectGanSteps
 
-    cfg = full_config()
     steps = DefectGanSteps(cfg, device="cuda")
     init_weights(steps, SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     requests = []
+    size = cfg.image_size
     for _ in range(7):
-        data = torch.rand((BATCH, 256, 256, 3), generator=gen,
+        data = torch.rand((BATCH, size, size, 3), generator=gen,
                           device="cuda") * 2 - 1
         idx = torch.randint(0, cfg.label_nc, (BATCH,), generator=gen,
                             device="cuda")
-        requests.append((data, F.one_hot(idx, cfg.label_nc).float()))
+        requests.append((data, F.one_hot(idx, cfg.label_nc).float(),
+                         style_input(cfg, gen, BATCH)))
+    noise = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    want_fwd, _ = expected_launches(cfg, 1, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the serving path's run starts here
     latencies = []
     outputs = []
-    for i, (data, labels) in enumerate(requests):
+    for i, (data, labels, style) in enumerate(requests):
         before = nk.LAUNCHES
         t0 = time.perf_counter()
-        out, prob = steps.generate(data, labels)
+        out, prob = steps.generate(data, labels, style, generator=noise)
         torch.cuda.synchronize()
         dt_ms = (time.perf_counter() - t0) * 1e3
-        check(nk.LAUNCHES - before == FWD_PER_FORWARD,
-              f"forward {i} launched the kernel {nk.LAUNCHES - before} times, "
-              f"expected {FWD_PER_FORWARD}")
+        check(nk.LAUNCHES - before == want_fwd,
+              f"{label} forward {i} launched the kernel {nk.LAUNCHES - before} "
+              f"times, expected {want_fwd}")
         if i >= 2:
             latencies.append(dt_ms)
         outputs.append((out, prob))
     launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     check(launches["bwd"] == 0,
-          f"serving launched the backward kernel {launches['bwd']} times")
+          f"{label} serving launched the backward kernel {launches['bwd']} times")
 
     for out, prob in outputs:
-        check(out.shape == (BATCH, 256, 256, 3) and prob.shape == (BATCH, 256, 256, 1),
-              f"output shapes {tuple(out.shape)} {tuple(prob.shape)}")
-        check(out.dtype == torch.bfloat16 and prob.dtype == torch.bfloat16,
-              "outputs are not bf16")
-        check(bool(torch.isfinite(out).all() and torch.isfinite(prob).all()),
-              "non-finite output")
-        check(bool((prob >= 0).all() and (prob <= 1).all()), "prob outside [0, 1]")
-        check(out.abs().max().item() <= 1.01, "out outside [-1, 1]")
+        check_images(out, prob, BATCH, size)
     check(steps.D is None and steps.tx_G is None,
           "serving built the training state")
     mean_ms = sum(latencies) / len(latencies)
-    print(f"serving DefectGAN-256 adain bf16 batch {BATCH}: latency ms "
+    print(f"serving DefectGAN-256 {label} bf16 batch {BATCH}: latency ms "
           f"{[round(v, 3) for v in latencies]} mean {mean_ms:.3f} "
           f"({BATCH * 1e3 / mean_ms:.1f} img/s), peak memory "
           f"{peak_mb:.1f} MiB, forward kernel launches {launches['fwd']}, "
           f"backward kernel launches {launches['bwd']} over {len(requests)} "
           f"forwards [{smi}]")
+    result = dict(launches=launches, ms=mean_ms, plain_ms=None,
+                  peak_mb=peak_mb, steps=steps, request=requests[2])
+    if not compare:
+        return result
 
     # the same requests through the plain version (cfg.use_pallas=False)
     plain = DefectGanSteps(cfg.replace(use_pallas=False), device="cuda")
     plain.G.load_state_dict(steps.G.state_dict())
-    plain.E.load_state_dict(steps.E.state_dict())
+    if steps.E is not None:
+        plain.E.load_state_dict(steps.E.state_dict())
     plain_lat = []
-    for i, (data, labels) in enumerate(requests):
+    for i, (data, labels, style) in enumerate(requests):
         t0 = time.perf_counter()
-        pout, pprob = plain.generate(data, labels)
+        pout, pprob = plain.generate(data, labels, style)
         torch.cuda.synchronize()
         if i >= 2:
             plain_lat.append((time.perf_counter() - t0) * 1e3)
@@ -352,21 +409,33 @@ def phase_serving(nk, smi):
         for a, b, name in ((out, pout, "out"), (prob, pprob, "prob")):
             d = (a.float() - b.float()).abs()
             check(d.max().item() <= OUT_BAND and d.mean().item() <= MEAN_BAND,
-                  f"request {i} {name}: kernel vs plain max {d.max().item():.3e} "
-                  f"mean {d.mean().item():.3e} outside the band "
-                  f"(max {OUT_BAND}, mean {MEAN_BAND})")
+                  f"{label} request {i} {name}: kernel vs plain max "
+                  f"{d.max().item():.3e} mean {d.mean().item():.3e} outside "
+                  f"the band (max {OUT_BAND}, mean {MEAN_BAND})")
         if i == 0:
-            print(f"kernel path vs plain path, request 0: max|dout|="
+            print(f"{label} kernel path vs plain path, request 0: max|dout|="
                   f"{(out.float() - pout.float()).abs().max().item():.3e} "
                   f"max|dprob|={(prob.float() - pprob.float()).abs().max().item():.3e}"
                   f" band max {OUT_BAND} mean {MEAN_BAND}")
     check(nk.LAUNCHES == launches["fwd"], "the use_pallas=False run launched the kernel")
     pmean = sum(plain_lat) / len(plain_lat)
-    print(f"serving, plain version (use_pallas=False): latency ms "
+    print(f"serving {label}, plain version (use_pallas=False): latency ms "
           f"{[round(v, 3) for v in plain_lat]} mean {pmean:.3f} "
           f"({BATCH * 1e3 / pmean:.1f} img/s) [{smi}]")
-    return dict(launches=launches, ms=mean_ms, plain_ms=pmean,
-                peak_mb=peak_mb, steps=steps, request=requests[2])
+    result["plain_ms"] = pmean
+    return result
+
+
+def check_images(out, prob, n, size):
+    """Generated NHWC bf16 images in [-1, 1] and probabilities in [0, 1]."""
+    check(out.shape == (n, size, size, 3) and prob.shape == (n, size, size, 1),
+          f"output shapes {tuple(out.shape)} {tuple(prob.shape)}")
+    check(out.dtype == torch.bfloat16 and prob.dtype == torch.bfloat16,
+          "outputs are not bf16")
+    check(bool(torch.isfinite(out).all() and torch.isfinite(prob).all()),
+          "non-finite output")
+    check(bool((prob >= 0).all() and (prob <= 1).all()), "prob outside [0, 1]")
+    check(out.abs().max().item() <= 1.01, "out outside [-1, 1]")
 
 
 @contextlib.contextmanager
@@ -501,9 +570,13 @@ def make_batches(cfg, gen, critics=CRITICS, batch=BATCH):
     shape = (critics, batch, cfg.image_size, cfg.image_size, cfg.input_nc)
     idx = torch.randint(0, cfg.label_nc, (critics, batch), generator=gen,
                         device="cuda")
-    return {"bg": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
-            "df": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
-            "df_labels": F.one_hot(idx, cfg.label_nc).float()}
+    batches = {"bg": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+               "df": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+               "df_labels": F.one_hot(idx, cfg.label_nc).float()}
+    if cfg.style_norm_block_type == "sean":
+        batches["nm_embeds"] = style_input(cfg, gen, critics, batch)
+        batches["df_embeds"] = style_input(cfg, gen, critics, batch)
+    return batches
 
 
 def training_steps(cfg, tcfg, device="cuda"):
@@ -517,22 +590,27 @@ def training_steps(cfg, tcfg, device="cuda"):
     return steps
 
 
+def nets(steps):
+    return [n for n in ("G", "E", "D") if getattr(steps, n) is not None]
+
+
 def param_snapshot(steps):
     return {n: {k: v.detach().float().cpu().clone()
                 for k, v in getattr(steps, n).named_parameters()}
-            for n in ("G", "E", "D")}
+            for n in nets(steps)}
 
 
-def phase_train_small(nk, smi):
+def phase_train_small(nk, smi, cfg, label):
     """Tiny f32 config, SGD: the card's kernel path against the CPU's plain
     path on one super-step; losses, and (after - before) / lr per tensor as
     a relative L2 difference. The card's plain path (use_pallas=False) is
     the control: a ReLU gate whose input lies within rounding of 0 can fall
     either way on two devices and move an upstream gradient element past an
-    element-wise tolerance, kernel or no kernel."""
+    element-wise tolerance, kernel or no kernel. The path must draw no
+    random numbers (no noise, no DiffAugment): the two devices' streams
+    differ."""
     from de_i2i_gan_torch.config import TrainConfig
 
-    cfg = small_config()
     tcfg = TrainConfig(batch_size=2, num_critics=2, lr=(2e-2, 1e-2),
                        optimizer="sgd")
     cpu = training_steps(cfg, tcfg, "cpu")
@@ -540,22 +618,26 @@ def phase_train_small(nk, smi):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     batches = make_batches(cfg, gen, critics=2, batch=2)
     rmetrics = cpu.super_step({k: v.cpu() for k, v in batches.items()})
-    per_g = 2 * (cfg.num_res // 2) + cfg.num_scales
     results, deltas = {}, {}
     for use_pallas in (True, False):
         card = training_steps(cfg.replace(use_pallas=use_pallas), tcfg)
         fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
         metrics = card.super_step(batches)
         torch.cuda.synchronize()
-        want = (4 * per_g, 2 * per_g) if use_pallas else (0, 0)
+        want = expected_launches(card.cfg, 4, 2)
         got_launches = (nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0)
-        check(got_launches == want, f"small super-step use_pallas={use_pallas} "
-              f"launched {got_launches} kernels (forward, backward), expected "
-              f"{want}")
-        loss = max(abs(metrics[k].item() / v.item() - 1)
-                   for k, v in rmetrics.items())
+        check(got_launches == want, f"small {label} super-step use_pallas="
+              f"{use_pallas} launched {got_launches} kernels (forward, "
+              f"backward), expected {want}")
+        check(sorted(metrics) == sorted(rmetrics), f"loss terms {sorted(metrics)}")
+        # x the band: rtol, and for the distillation terms (KL divergences
+        # of nearly equal distributions) an atol besides
+        loss = max(abs(metrics[k].item() - v.item()) / (
+            LOSS_RTOL * abs(v.item()) + (DISTILL_ATOL if "distill" in k else 0))
+            for k, v in rmetrics.items())
         rel, elem = 0.0, 0.0
-        for n, lr in (("G", tcfg.lr_g), ("E", tcfg.lr_g), ("D", tcfg.lr_d)):
+        for n in nets(cpu):
+            lr = tcfg.lr_d if n == "D" else tcfg.lr_g
             got = dict(getattr(card, n).named_parameters())
             for k, ref in getattr(cpu, n).named_parameters():
                 gk = (got[k].detach().cpu() - before[n][k]) / lr
@@ -569,37 +651,47 @@ def phase_train_small(nk, smi):
                 elem = max(elem, ((gk - rk).abs() / (
                     GRAD_ATOL + GRAD_RTOL * rk.abs())).max().item())
         results[use_pallas] = (loss, rel, elem)
-        print(f"small super-step, card {'kernel' if use_pallas else 'plain'} "
-              f"path vs CPU plain path, 32x32 f32 SGD: max loss rel diff "
-              f"{loss:.2e} (rtol {LOSS_RTOL}); (after-before)/lr: max per-tensor "
+        state = max((b.cpu().float() - a.float()).abs().max().item()
+                    for a, b in zip(cpu.G.buffers(), card.G.buffers()))
+        check(state <= 1e-3, f"small {label} super-step: G's state (BN "
+              f"statistics, spectral u/v, SEAN statistics) differs by {state:.2e}")
+        print(f"small {label} super-step, card {'kernel' if use_pallas else 'plain'} "
+              f"path vs CPU plain path, 32x32 f32 SGD: max loss diff "
+              f"{loss:.3f} x (rtol {LOSS_RTOL}, distillation terms + atol "
+              f"{DISTILL_ATOL}); (after-before)/lr: max per-tensor "
               f"L2 diff {rel:.3f} x (band {GRAD_REL_L2} |ref| + atol "
               f"{GRAD_ATOL} sqrt(n)), max element "
-              f"diff {elem:.3f} x (atol {GRAD_ATOL} + rtol {GRAD_RTOL} |ref|) "
-              f"[{smi}]")
+              f"diff {elem:.3f} x (atol {GRAD_ATOL} + rtol {GRAD_RTOL} |ref|), "
+              f"G state max diff {state:.2e} (band 1e-3) [{smi}]")
         del card
     # the kernel alone: the card's two paths, element-wise
     alone = max(((deltas[True, n, k] - deltas[False, n, k]).abs() / (
         GRAD_ATOL + GRAD_RTOL * deltas[False, n, k].abs())).max().item()
         for _, n, k in deltas if _)
-    print(f"small super-step, card kernel path vs card plain path: max element "
+    print(f"small {label} super-step, card kernel path vs card plain path: max element "
           f"diff of (after-before)/lr {alone:.3f} x (atol {GRAD_ATOL} + rtol "
           f"{GRAD_RTOL} |ref|) [{smi}]")
     check(alone <= 1.0, f"the card's kernel and plain paths differ: {alone:.3f}")
     loss, rel, _ = results[True]
-    check(loss <= LOSS_RTOL, f"small super-step losses differ by {loss:.2e}")
+    check(loss <= 1.0, f"small super-step losses outside the band: {loss:.3f}")
     check(rel <= 1.0, f"small super-step gradients outside the band: {rel:.3f}")
 
 
-def phase_training(nk, smi, warmup=2, timed=5):
-    """The training path: full-width super-steps with the configuration's
-    optimizer settings (Adam 0.5/0.999, lr (2e-4, 1e-4), step schedule)."""
+def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
+    """The training path of ``cfg``: full-width super-steps with the
+    configuration's optimizer settings (Adam 0.5/0.999, lr (2e-4, 1e-4),
+    step schedule) and DiffAugment policy, random draws from a seeded
+    generator on the card."""
     from de_i2i_gan_torch.config import TrainConfig
 
-    cfg = full_config()
-    tcfg = TrainConfig(batch_size=BATCH, num_critics=CRITICS, lr=(2e-4, 1e-4))
+    tcfg = TrainConfig(batch_size=BATCH, num_critics=CRITICS, lr=(2e-4, 1e-4),
+                       diff_aug=diff_aug)
     steps = training_steps(cfg, tcfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     batches = [make_batches(cfg, gen) for _ in range(warmup + timed)]
+    draws = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    per_fwd, per_bwd = expected_launches(cfg, G_FORWARDS_PER_SUPER_STEP,
+                                         G_BACKWARDS_PER_SUPER_STEP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -608,13 +700,11 @@ def phase_training(nk, smi, warmup=2, timed=5):
     for i, batch in enumerate(batches):
         fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
         t0 = time.perf_counter()
-        m = steps.super_step(batch)
+        m = steps.super_step(batch, draws)
         torch.cuda.synchronize()
         dt_ms = (time.perf_counter() - t0) * 1e3
-        per_fwd = G_FORWARDS_PER_SUPER_STEP * FWD_PER_FORWARD
-        per_bwd = G_BACKWARDS_PER_SUPER_STEP * FWD_PER_FORWARD
         check(nk.LAUNCHES - fwd0 == per_fwd and nk.BWD_LAUNCHES - bwd0 == per_bwd,
-              f"super-step {i} launched {nk.LAUNCHES - fwd0} forward and "
+              f"{label} super-step {i} launched {nk.LAUNCHES - fwd0} forward and "
               f"{nk.BWD_LAUNCHES - bwd0} backward kernels, expected {per_fwd} "
               f"and {per_bwd}")
         if i >= warmup:
@@ -625,45 +715,84 @@ def phase_training(nk, smi, warmup=2, timed=5):
 
     for i, m in enumerate(metrics):
         check(all(math.isfinite(v) for v in m.values()),
-              f"super-step {i}: non-finite loss {m}")
-    for n in ("G", "E", "D"):
+              f"{label} super-step {i}: non-finite loss {m}")
+    for n in nets(steps):
         for k, p in getattr(steps, n).named_parameters():
-            check(bool(torch.isfinite(p).all()), f"{n} {k} is not finite")
+            check(bool(torch.isfinite(p).all()), f"{label} {n} {k} is not finite")
     check(steps.step == CRITICS * len(batches) and steps.tx_G.count == len(batches),
           "update counts")
     mean_ms = sum(times) / len(times)
-    print(f"training DefectGAN-256 adain bf16 batch {BATCH}, {CRITICS} critics: "
-          f"super-step ms {[round(v, 3) for v in times]} mean {mean_ms:.3f} "
+    print(f"training DefectGAN-256 {label} bf16 batch {BATCH}, {CRITICS} "
+          f"critics, diff_aug={diff_aug!r}: super-step ms "
+          f"{[round(v, 3) for v in times]} mean {mean_ms:.3f} "
           f"({BATCH * 1e3 / mean_ms:.1f} img/s through G), peak memory "
           f"{peak_mb:.1f} MiB, launches over {len(batches)} super-steps: "
           f"forward {launches['fwd']}, backward {launches['bwd']} [{smi}]")
-    print(f"losses, super-step 1: {json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}")
-    print(f"losses, super-step {len(metrics)}: "
+    print(f"{label} losses, super-step 1: "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}")
+    print(f"{label} losses, super-step {len(metrics)}: "
           f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})}")
     return dict(launches=launches, ms=mean_ms, peak_mb=peak_mb, steps=steps,
-                batch=batches[-1], super_steps=len(batches))
+                batch=batches[-1], draws=draws, super_steps=len(batches))
 
 
-def phase_train_compare(smi):
+def phase_sean_stats_request(nk, steps, smi):
+    """The epoch update of SEAN's running statistics after training, then
+    one request that samples them (``inference_stats``) with noise."""
+    from de_i2i_gan_torch.nn.normalization import SEAN
+
+    seans = [m for m in steps.G.modules() if isinstance(m, SEAN)]
+    tracked = sum(m.count.sum().item() for m in seans)
+    check(tracked > 0, "SEAN training tracked no statistics")
+    steps.update_per_epoch()
+    seen = 0
+    for m in seans:
+        check(m.count.sum().item() == 0, "accumulators not reset")
+        check(bool(torch.isfinite(m.mean).all() and torch.isfinite(m.std).all()),
+              "non-finite SEAN statistics")
+        seen += int((m.std > 0).all(dim=1).sum().item())
+    check(seen > 0, "no label combination has statistics")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    size = steps.cfg.image_size
+    data = torch.rand((BATCH, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    labels = make_batches(steps.cfg, gen, 1)["df_labels"][0]
+    noise = torch.randn((BATCH, steps.cfg.hidden_nc), generator=gen,
+                        device="cuda")
+    before = nk.LAUNCHES
+    out, prob = steps.generate(data, labels, noise, inference_stats=True)
+    torch.cuda.synchronize()
+    want, _ = expected_launches(steps.cfg, 1, 0)
+    check(nk.LAUNCHES - before == want,
+          f"the inference_stats request launched {nk.LAUNCHES - before} kernels")
+    check_images(out, prob, BATCH, size)
+    print(f"sean statistics: {tracked:.0f} style codes tracked over "
+          f"{len(seans)} layers, finalized ({seen} (layer, label combination) "
+          f"rows with statistics); one inference_stats request: {want} "
+          f"forward kernel launches, outputs finite and in range [{smi}]")
+
+
+def phase_train_compare(smi, make_cfg, label, diff_aug=""):
     """G's parameter deltas after one super-step, kernel path against the
     use_pallas=False path, at full width. SGD (lr_g 1e-2, so the deltas sit
     far above the f32 ulp of the weights) makes a delta -lr * gradient. An
     f32 control run sets what agreement means: there the two paths differ
     only by summation order; in bf16 the kernel path must land as close to
-    the f32 plain path as the bf16 plain path does."""
+    the f32 plain path as the bf16 plain path does. Every run takes the
+    same DiffAugment draws from a generator seeded alike."""
     from de_i2i_gan_torch.config import TrainConfig
 
     tcfg = TrainConfig(batch_size=BATCH, num_critics=CRITICS, lr=(2e-4, 1e-2),
-                       optimizer="sgd")
+                       optimizer="sgd", diff_aug=diff_aug)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    batch = make_batches(full_config(), gen)
+    batch = make_batches(make_cfg(), gen)
     deltas, losses = {}, {}
     for dtype in ("bfloat16", "float32"):
         for use_pallas in (True, False):
             steps = training_steps(
-                full_config(compute_dtype=dtype, use_pallas=use_pallas), tcfg)
+                make_cfg(compute_dtype=dtype, use_pallas=use_pallas), tcfg)
             before = [p.detach().clone() for p in steps.G.parameters()]
-            m = steps.super_step(batch)
+            m = steps.super_step(batch, torch.Generator(device="cuda")
+                                 .manual_seed(SEED + 8))
             deltas[dtype, use_pallas] = torch.cat(
                 [((p.detach() - b) / tcfg.lr_g).reshape(-1)
                  for p, b in zip(steps.G.parameters(), before)])
@@ -679,18 +808,18 @@ def phase_train_compare(smi):
     p16 = rel(("bfloat16", False), ("float32", False))
     kp16 = rel(("bfloat16", True), ("bfloat16", False))
     band = BF16_DELTA_FACTOR * p16 + F32_DELTA_BAND
-    print(f"G deltas after one SGD super-step, relative L2 difference: f32 "
-          f"kernel vs f32 plain {f32:.3e} (band {F32_DELTA_BAND}); bf16 kernel "
-          f"vs f32 plain {k16:.3e}, bf16 plain vs f32 plain {p16:.3e} (band "
-          f"{BF16_DELTA_FACTOR} x that + {F32_DELTA_BAND} = {band:.3e}); bf16 "
-          f"kernel vs bf16 plain {kp16:.3e} [{smi}]")
+    print(f"{label} G deltas after one SGD super-step, relative L2 difference: "
+          f"f32 kernel vs f32 plain {f32:.3e} (band {F32_DELTA_BAND}); bf16 "
+          f"kernel vs f32 plain {k16:.3e}, bf16 plain vs f32 plain {p16:.3e} "
+          f"(band {BF16_DELTA_FACTOR} x that + {F32_DELTA_BAND} = {band:.3e}); "
+          f"bf16 kernel vs bf16 plain {kp16:.3e} [{smi}]")
     for key, m in losses.items():
         print(f"  losses {key[0]} use_pallas={key[1]}: "
               f"{json.dumps({k: round(v, 5) for k, v in m.items()})}")
     check(f32 <= F32_DELTA_BAND,
-          f"f32 kernel path G deltas differ from the plain path by {f32:.3e}")
+          f"{label} f32 kernel path G deltas differ from the plain path by {f32:.3e}")
     check(k16 <= band,
-          f"bf16 kernel path G deltas differ from the f32 plain path by "
+          f"{label} bf16 kernel path G deltas differ from the f32 plain path by "
           f"{k16:.3e}, outside {band:.3e}")
     return dict(f32=f32, k16=k16, p16=p16, kp16=kp16)
 
@@ -770,6 +899,27 @@ def phase_bwd_timing(nk, fused, smi):
     return rows
 
 
+def profile_super_step(run, label, smi):
+    return profile_device(lambda: run["steps"].super_step(run["batch"],
+                                                          run["draws"]),
+                          1, f"{label} super-step", run["ms"], smi)
+
+
+def check_train_calls(calls, label):
+    """A super-step's kernel calls at each training shape: one per style
+    norm of every G forward and backward."""
+    check(calls["fwd"] == Counter(
+        {s: G_FORWARDS_PER_SUPER_STEP * c for s, c in TRAIN_SHAPES.items()})
+        and calls["bwd"] == Counter(
+        {s: G_BACKWARDS_PER_SUPER_STEP * c for s, c in TRAIN_SHAPES.items()}),
+        f"{label} super-step calls by shape {calls}")
+
+
+def launches_by_path(paths, kind):
+    """Each path's launches of one kernel, as counted while it ran."""
+    return {name: run["launches"][kind] for name, run in paths.items()}
+
+
 def with_calls(rows, calls, runs):
     """Per-call rows with the calls a run made at each shape, counted while
     ``runs`` passes of the path ran."""
@@ -839,7 +989,7 @@ def main() -> int:
 
     # 4. serving (a small input against the CPU first)
     phase_reference(nk, smi)
-    serving = phase_serving(nk, smi)
+    serving = phase_serving(nk, smi, full_config(), "adain")
     with tally_calls(nk) as serve_calls:
         profile_device(lambda: serving["steps"].generate(*serving["request"]),
                        2, "request", serving["ms"], smi)
@@ -853,26 +1003,63 @@ def main() -> int:
     fwd_train_rows = phase_fwd_timing(nk, fused, TRAIN_SHAPES, smi)
 
     # 6. training
-    phase_train_small(nk, smi)
-    training = phase_training(nk, smi)
+    phase_train_small(nk, smi, small_config(), "adain")
+    training = phase_training(nk, smi, full_config(), "adain")
     with tally_calls(nk) as train_calls:
-        busy = profile_device(
-            lambda: training["steps"].super_step(training["batch"]), 1,
-            "super-step", training["ms"], smi)
-    check(train_calls["fwd"] == Counter(
-        {s: G_FORWARDS_PER_SUPER_STEP * c for s, c in TRAIN_SHAPES.items()})
-        and train_calls["bwd"] == Counter(
-        {s: G_BACKWARDS_PER_SUPER_STEP * c for s, c in TRAIN_SHAPES.items()}),
-        f"super-step calls by shape {train_calls}")
+        busy = profile_super_step(training, "adain", smi)
+    check_train_calls(train_calls, "adain")
     print(f"calls by shape: serving forward {dict(serve_calls['fwd'])} over 2 "
           f"forwards; super-step forward {dict(train_calls['fwd'])}, backward "
           f"{dict(train_calls['bwd'])}")
     del training["steps"], training["batch"]
     free_memory()
-    compare = phase_train_compare(smi)
+    compare = phase_train_compare(smi, full_config, "adain")
     bwd_rows = phase_bwd_timing(nk, fused, smi)
 
+    # 7a. SEAN serving
+    serving_sean = phase_serving(nk, smi, sean_config(), "sean")
+    with tally_calls(nk) as sean_serve_calls:
+        profile_device(lambda: serving_sean["steps"].generate(
+            *serving_sean["request"]), 2, "sean request", serving_sean["ms"], smi)
+    check(sean_serve_calls["fwd"] == serve_calls["fwd"]
+          and not sean_serve_calls["bwd"],
+          f"sean serving calls by shape {sean_serve_calls}")
+    del serving_sean["steps"], serving_sean["request"]
+    free_memory()
+
+    # 7b. SEAN training
+    phase_train_small(nk, smi, small_config(
+        style_norm_block_type="sean", embed_nc=24, num_embeds=3,
+        use_spectral=True, use_running_stats=True, style_distill=True), "sean")
+    training_sean = phase_training(nk, smi, sean_config(), "sean", DIFF_AUG)
+    with tally_calls(nk) as sean_train_calls:
+        busy_sean = profile_super_step(training_sean, "sean", smi)
+    check_train_calls(sean_train_calls, "sean")
+    phase_sean_stats_request(nk, training_sean["steps"], smi)
+    del training_sean["steps"], training_sean["batch"]
+    free_memory()
+    compare_sean = phase_train_compare(smi, sean_config, "sean", DIFF_AUG)
+
+    # 7c. SPADE serving and training: no kernel on this path
+    serving_spade = phase_serving(nk, smi, spade_config(), "spade",
+                                  compare=False)
+    profile_device(lambda: serving_spade["steps"].generate(
+        *serving_spade["request"]), 2, "spade request", serving_spade["ms"], smi)
+    del serving_spade["steps"], serving_spade["request"]
+    free_memory()
+    training_spade = phase_training(nk, smi, spade_config(), "spade", DIFF_AUG)
+    busy_spade = profile_super_step(training_spade, "spade", smi)
+    del training_spade["steps"], training_spade["batch"]
+    free_memory()
+    for label, run in (("serving spade", serving_spade),
+                       ("training spade", training_spade)):
+        check(run["launches"] == {"fwd": 0, "bwd": 0},
+              f"{label} launched kernels: {run['launches']}")
+
     per_step = training["super_steps"]
+    paths = {"serving": serving, "training": training,
+             "serving_sean": serving_sean, "training_sean": training_sean,
+             "serving_spade": serving_spade, "training_spade": training_spade}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
@@ -882,8 +1069,7 @@ def main() -> int:
         "modulated_instance_norm_fwd",
         "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:51",
         with_calls(fwd_train_rows, train_calls["fwd"], 1),
-        {"serving": serving["launches"]["fwd"],
-         "training": training["launches"]["fwd"]}, fwd_worst, unit,
+        launches_by_path(paths, "fwd"), fwd_worst, unit,
         {"per_serving_forward": {
             "calls": sum(r["calls"] for r in fwd_serving_rows),
             **{k: summed(fwd_serving_rows, k)
@@ -893,8 +1079,7 @@ def main() -> int:
         "modulated_instance_norm_bwd",
         "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:93",
         with_calls(bwd_rows, train_calls["bwd"], 1),
-        {"serving": serving["launches"]["bwd"],
-         "training": training["launches"]["bwd"]}, bwd_worst, unit)
+        launches_by_path(paths, "bwd"), bwd_worst, unit)
     record = {"kernels": [fwd, bwd]}
     print(f"per super-step ({sum(train_calls['fwd'].values())} forward, "
           f"{sum(train_calls['bwd'].values())} backward calls): forward "
@@ -907,6 +1092,23 @@ def main() -> int:
           f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}; serving "
           f"{serving['ms']:.3f} ms (plain path {serving['plain_ms']:.3f} ms), "
           f"peak {serving['peak_mb']:.1f} MiB; G-delta agreement {compare} [{smi}]")
+
+    def busy_ms(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    print(f"sean: serving {serving_sean['ms']:.3f} ms a request (plain path "
+          f"{serving_sean['plain_ms']:.3f} ms), peak {serving_sean['peak_mb']:.1f} "
+          f"MiB, launches {serving_sean['launches']}; training "
+          f"{training_sean['ms']:.3f} ms a super-step, peak "
+          f"{training_sean['peak_mb']:.1f} MiB, kernels {busy_ms(busy_sean)}, "
+          f"launches {training_sean['launches']}; G-delta agreement "
+          f"{compare_sean} [{smi}]")
+    print(f"spade: serving {serving_spade['ms']:.3f} ms a request, peak "
+          f"{serving_spade['peak_mb']:.1f} MiB; training "
+          f"{training_spade['ms']:.3f} ms a super-step, peak "
+          f"{training_spade['peak_mb']:.1f} MiB, kernels {busy_ms(busy_spade)}; "
+          f"launches {serving_spade['launches']} and "
+          f"{training_spade['launches']} [{smi}]")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,8 @@
 StarGAN discriminator with a PatchGAN ``src`` head (3x3 conv, per-patch
 real/fake logits) and a multi-label ``cls`` head whose kernel covers the
 whole remaining spatial extent. No normalization, so a batch of 4B is the
-same as four batches of B.
+same as four batches of B. Spectral norm, where configured, covers the stem
+and the encoder convs, not the heads; it updates its u/v in train mode only.
 """
 from __future__ import annotations
 
@@ -23,16 +24,14 @@ class DefectGanDiscriminator(nn.Module):
         if ks < 1:
             raise ValueError(f"image_size {cfg.image_size} too small for "
                              f"num_layers {cfg.num_layers}")
-        if cfg.use_spectral:
-            raise NotImplementedError(
-                "spectral norm is not ported yet (a later slice)")
         crt = cfg.ndf
+        sn = cfg.use_spectral
         self.stem = ConvBlock(cfg.input_nc, crt, (4, 4), (2, 2), 1, "reflect",
-                              act="leaky_relu", dtype=dt)
+                              act="leaky_relu", use_spectral=sn, dtype=dt)
         for i in range(cfg.num_layers):
             setattr(self, f"enc_{i}",
                     ConvBlock(crt, crt * 2, (4, 4), (2, 2), 1, "reflect",
-                              act="leaky_relu", dtype=dt))
+                              act="leaky_relu", use_spectral=sn, dtype=dt))
             crt *= 2
         self.cls_clf = ConvBlock(crt, cfg.label_nc, (ks, ks), dtype=dt)
         self.src_clf = ConvBlock(crt, 1, (3, 3), (1, 1), "same", "reflect",

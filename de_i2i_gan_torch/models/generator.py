@@ -7,7 +7,12 @@ image, ``out = x * (1 - p) + fg * p``.
 inside work in NCHW and the layout changes once at each end. Train mode is
 the module's mode (``.train()``); ``bn_groups`` scopes the BatchNorm batch
 statistics of the stem and encoder to contiguous batch groups, so one fused
-2B forward equals two B forwards.
+2B forward equals two B forwards. Spectral norm, where configured, updates
+its u/v in train mode only.
+
+The decoder's style norm is SPADE (driven by the labels), AdaIN (a
+(N, hidden_nc) style code) or SEAN (labels and (N, num_embeds, embed_nc)
+style embeddings, or (N, hidden_nc) noise with ``inference_stats``).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from de_i2i_gan_torch.nn.blocks import (
     ResBlock,
 )
 from de_i2i_gan_torch.nn.layers import avg_pool
+from de_i2i_gan_torch.nn.normalization import DistillTerms
 
 
 class DefectGanGenerator(nn.Module):
@@ -35,6 +41,7 @@ class DefectGanGenerator(nn.Module):
         self.cfg = cfg
         dt = cfg.dtype
         style_kw = dict(label_nc=cfg.label_nc, hidden_nc=cfg.hidden_nc,
+                        embed_nc=cfg.embed_nc, style_distill=cfg.style_distill,
                         padding="same", padding_mode="reflect", act="relu",
                         use_spectral=cfg.use_spectral, add_noise=cfg.add_noise,
                         dtype=dt, use_pallas=cfg.use_pallas)
@@ -74,10 +81,16 @@ class DefectGanGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor,
                 style_feat: Optional[torch.Tensor] = None,
-                bn_groups: int = 1):
+                bn_groups: int = 1, *, track_stats: bool = False,
+                inference_stats: bool = False,
+                distill: Optional[DistillTerms] = None,
+                generator: Optional[torch.Generator] = None):
         """x: NHWC images in [-1, 1]; labels: (N, label_nc) one-hot;
-        style_feat: (N, hidden_nc) for adain; bn_groups: BatchNorm groups in
-        train mode. Returns NHWC (out, prob)."""
+        style_feat: the decoder's style input (None for spade); bn_groups:
+        BatchNorm groups in train mode. SEAN only: ``track_stats`` adds the
+        style codes to the running statistics, ``inference_stats`` samples
+        them, ``distill`` collects the distillation terms. ``generator``
+        drives the noise injection. Returns NHWC (out, prob)."""
         cfg = self.cfg
         scale = 2 ** cfg.num_scales
         if x.shape[1] % scale or x.shape[2] % scale:
@@ -85,6 +98,8 @@ class DefectGanGenerator(nn.Module):
                 f"image dims {x.shape[1]}x{x.shape[2]} must be divisible by "
                 f"2**num_scales={scale}")
         x = x.permute(0, 3, 1, 2).to(cfg.dtype)
+        dec_kw = dict(track_stats=track_stats, inference_stats=inference_stats,
+                      distill=distill, generator=generator)
 
         feat = self.stem(x, bn_groups)
         skips = []
@@ -94,11 +109,12 @@ class DefectGanGenerator(nn.Module):
         for i in range(cfg.num_res // 2):
             feat = getattr(self, f"enc_res_{i}")(feat, bn_groups)
         for i in range(cfg.num_res // 2):
-            feat = getattr(self, f"dec_res_{i}")(feat, labels, style_feat)
+            feat = getattr(self, f"dec_res_{i}")(feat, labels, style_feat,
+                                                  **dec_kw)
         for i in range(cfg.num_scales):
             if cfg.skip_conn:
                 feat = torch.cat([feat, _shrink_to(skips[-1 - i], feat)], dim=1)
-            feat = getattr(self, f"dec_{i}")(feat, labels, style_feat)
+            feat = getattr(self, f"dec_{i}")(feat, labels, style_feat, **dec_kw)
 
         feat = torch.nan_to_num(feat)
         foreground = self.foreground_head(feat)

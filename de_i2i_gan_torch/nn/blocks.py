@@ -9,7 +9,9 @@ Train mode is torch's module mode (``.train()`` / ``.eval()``), where the
 JAX package passes ``train=``. In train mode BatchNorm normalizes each of
 ``bn_groups`` contiguous batch groups with its own batch statistics
 (``bn_groups`` is a forward argument of the blocks that hold BatchNorm).
-``NoiseInjection`` waits for a later slice.
+``NoiseInjection`` draws its noise from the ``torch.Generator`` handed down
+as ``generator`` (None: torch's default generator of the device), where the
+JAX package draws from its 'noise' stream.
 """
 from __future__ import annotations
 
@@ -20,7 +22,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from de_i2i_gan_torch.nn.layers import Conv2d, avg_pool, upsample_nearest
-from de_i2i_gan_torch.nn.normalization import AdaIN, instance_norm
+from de_i2i_gan_torch.nn.normalization import (
+    SEAN,
+    SPADE,
+    AdaIN,
+    DistillTerms,
+    instance_norm,
+)
 
 Padding = Union[int, str]
 
@@ -38,6 +46,23 @@ def get_act(act: Optional[str]):
     if act == "tanh":
         return torch.tanh
     raise NameError(f"activation layer named {act} not defined")
+
+
+class NoiseInjection(nn.Module):
+    """StyleGAN-style noise injection: ``x + weight * noise``, with a
+    learned scalar ``weight`` (zero at init) and fresh standard-normal
+    (N, 1, H, W) noise in x's dtype at every call, train or eval."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        n, _, h, w = x.shape
+        noise = torch.randn((n, 1, h, w), generator=generator, dtype=x.dtype,
+                            device=x.device)
+        return x + self.weight.to(x.dtype) * noise
 
 
 class BatchNorm(nn.Module):
@@ -119,7 +144,7 @@ class ConvBlock(nn.Module):
 
 
 class DeConvBlock(nn.Module):
-    """(2x upsample) -> conv -> (norm) -> act."""
+    """(2x upsample) -> conv -> (noise) -> (norm) -> act."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size=(3, 3), strides=(1, 1), padding: Padding = 0,
@@ -129,20 +154,21 @@ class DeConvBlock(nn.Module):
                  add_noise: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if add_noise:
-            raise NotImplementedError(
-                "NoiseInjection is not ported yet (a later slice)")
         self.up_scale = up_scale
         self.conv = Conv2d(in_features, features, kernel_size, strides,
                            padding, padding_mode, use_bias=use_bias,
                            use_spectral=use_spectral, dtype=dtype)
+        self.noise = NoiseInjection() if add_noise else None
         self.norm = _norm_layer(norm, features)
         self.act = get_act(act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.up_scale:
             x = upsample_nearest(x)
         y = self.conv(x)
+        if self.noise is not None:
+            y = self.noise(y, generator)
         if self.norm is not None:
             y = self.norm(y)
         return self.act(y)
@@ -179,70 +205,89 @@ class ResBlock(nn.Module):
 
 
 class _StyleNorm(nn.Module):
-    """Style-norm dispatch used by NormConvBlock/NormResBlock:
-    'adain' here; 'spade' and 'sean' come in later slices."""
+    """Style-norm dispatch used by NormConvBlock/NormResBlock: 'spade' |
+    'sean' | 'adain', held as the submodule of that name."""
 
     def __init__(self, style_type: str, norm_nc: int, label_nc: int,
-                 hidden_nc: int, dtype: torch.dtype = torch.float32,
-                 use_pallas: bool = True):
+                 hidden_nc: int, embed_nc: Optional[int] = None,
+                 style_distill: bool = False,
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = True):
         super().__init__()
-        if style_type in ("spade", "sean"):
-            raise NotImplementedError(
-                f"{style_type} style norm is not ported yet; only adain is")
-        if style_type != "adain":
+        self.style_type = style_type
+        if style_type == "spade":
+            self.spade = SPADE(norm_nc, label_nc, hidden_nc, dtype=dtype)
+        elif style_type == "sean":
+            if embed_nc is None:
+                raise ValueError("embed_nc must be specified for SEAN")
+            self.sean = SEAN(embed_nc, norm_nc, label_nc, hidden_nc,
+                             style_distill=style_distill, dtype=dtype,
+                             use_pallas=use_pallas)
+        elif style_type == "adain":
+            self.adain = AdaIN(norm_nc, hidden_nc, dtype=dtype,
+                               use_pallas=use_pallas)
+        else:
             raise ValueError(f"Unknown style norm block type: {style_type}")
-        self.adain = AdaIN(norm_nc, hidden_nc, dtype=dtype,
-                           use_pallas=use_pallas)
 
-    def forward(self, x, labels, style_feat=None):
+    def forward(self, x, labels, style_feat=None, *, track_stats=False,
+                inference_stats=False, distill: Optional[DistillTerms] = None):
+        if self.style_type == "spade":
+            return self.spade(x, labels)
+        if self.style_type == "sean":
+            return self.sean(x, labels, style_feat, track_stats=track_stats,
+                             inference_stats=inference_stats, distill=distill)
         return self.adain(x, style_feat)
 
 
 class NormConvBlock(nn.Module):
-    """(2x upsample) -> style-norm -> act -> conv."""
+    """(2x upsample) -> style-norm -> act -> conv -> (noise)."""
 
     def __init__(self, style_type: str, in_features: int, features: int,
-                 label_nc: int, hidden_nc: int, kernel_size=(3, 3),
+                 label_nc: int, hidden_nc: int, embed_nc: Optional[int] = None,
+                 style_distill: bool = False, kernel_size=(3, 3),
                  padding: Padding = "same", padding_mode: str = "zeros",
                  up_scale: bool = False, act: Optional[str] = "relu",
                  use_spectral: bool = False, add_noise: bool = False,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = True):
         super().__init__()
-        if add_noise:
-            raise NotImplementedError(
-                "NoiseInjection is not ported yet (a later slice)")
         self.up_scale = up_scale
         self.norm = _StyleNorm(style_type, in_features, label_nc, hidden_nc,
-                               dtype=dtype, use_pallas=use_pallas)
+                               embed_nc, style_distill, dtype=dtype,
+                               use_pallas=use_pallas)
         self.act = get_act(act)
         self.conv = Conv2d(in_features, features, kernel_size, (1, 1), padding,
                            padding_mode, use_spectral=use_spectral, dtype=dtype)
+        self.noise = NoiseInjection() if add_noise else None
 
-    def forward(self, x, labels, style_feat=None):
+    def forward(self, x, labels, style_feat=None, *,
+                generator: Optional[torch.Generator] = None, **norm_kw):
+        """``norm_kw``: ``track_stats``, ``inference_stats``, ``distill``
+        for a SEAN norm."""
         if self.up_scale:
             x = upsample_nearest(x)
-        y = self.act(self.norm(x, labels, style_feat))
-        return self.conv(y)
+        y = self.conv(self.act(self.norm(x, labels, style_feat, **norm_kw)))
+        if self.noise is not None:
+            y = self.noise(y, generator)
+        return y
 
 
 class NormResBlock(nn.Module):
-    """Residual block of two style-norm conv branches; style-norm + conv
-    shortcut only when up-scaling."""
+    """Residual block of two style-norm conv branches, each followed by
+    noise when ``add_noise``; style-norm + conv shortcut only when
+    up-scaling."""
 
     def __init__(self, style_type: str, in_features: int, features: int,
-                 label_nc: int, hidden_nc: int, kernel_size=(3, 3),
+                 label_nc: int, hidden_nc: int, embed_nc: Optional[int] = None,
+                 style_distill: bool = False, kernel_size=(3, 3),
                  padding: Padding = "same", padding_mode: str = "zeros",
                  up_scale: bool = False, act: Optional[str] = "relu",
                  use_spectral: bool = False, add_noise: bool = False,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = True):
         super().__init__()
-        if add_noise:
-            raise NotImplementedError(
-                "NoiseInjection is not ported yet (a later slice)")
         self.up_scale = up_scale
         f_mid = min(in_features, features)
-        norm_kw = dict(label_nc=label_nc, hidden_nc=hidden_nc, dtype=dtype,
-                       use_pallas=use_pallas)
+        norm_kw = dict(label_nc=label_nc, hidden_nc=hidden_nc,
+                       embed_nc=embed_nc, style_distill=style_distill,
+                       dtype=dtype, use_pallas=use_pallas)
         conv_kw = dict(padding=padding, padding_mode=padding_mode,
                        use_spectral=use_spectral, dtype=dtype)
         if up_scale:
@@ -254,13 +299,22 @@ class NormResBlock(nn.Module):
         self.conv_0 = Conv2d(in_features, f_mid, kernel_size, (1, 1), **conv_kw)
         self.norm_1 = _StyleNorm(style_type, f_mid, **norm_kw)
         self.conv_1 = Conv2d(f_mid, features, kernel_size, (1, 1), **conv_kw)
+        self.noise_0 = NoiseInjection() if add_noise else None
+        self.noise_1 = NoiseInjection() if add_noise else None
 
-    def forward(self, x, labels, style_feat=None):
+    def forward(self, x, labels, style_feat=None, *,
+                generator: Optional[torch.Generator] = None, **norm_kw):
+        """``norm_kw``: ``track_stats``, ``inference_stats``, ``distill``
+        for SEAN norms."""
         if self.up_scale:
             x = upsample_nearest(x)
-            s = self.conv_s(self.norm_s(x, labels, style_feat))
+            s = self.conv_s(self.norm_s(x, labels, style_feat, **norm_kw))
         else:
             s = x
-        y = self.conv_0(self.act(self.norm_0(x, labels, style_feat)))
-        y = self.conv_1(self.act(self.norm_1(y, labels, style_feat)))
+        y = self.conv_0(self.act(self.norm_0(x, labels, style_feat, **norm_kw)))
+        if self.noise_0 is not None:
+            y = self.noise_0(y, generator)
+        y = self.conv_1(self.act(self.norm_1(y, labels, style_feat, **norm_kw)))
+        if self.noise_1 is not None:
+            y = self.noise_1(y, generator)
         return y + s

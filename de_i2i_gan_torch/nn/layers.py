@@ -6,8 +6,12 @@ Counterpart of ``de_i2i_gan_tpu/nn/layers.py``, in NCHW:
     bfloat16 rounds in the same places as the JAX package
   * weights use torch's layouts (conv OIHW, dense (out, in));
     ``train/jax_import.py`` maps the flax HWIO / (in, out) kernels onto them
-  * spectral normalization (with its u/v power-iteration state) waits for a
-    later slice; asking for it raises until then
+  * spectral normalization keeps its power-iteration vectors as the buffers
+    ``weight_u`` (out,) and ``weight_v`` (in*kh*kw,), the flax ``spectral``
+    collection's ``kernel_u``/``kernel_v``: one power iteration per
+    train-mode forward (``module.training``), the stored vectors in eval
+    mode. The matrix is the weight's (out, in*kh*kw) view, so ``weight_v``
+    runs over (in, kh, kw) where the flax ``kernel_v`` runs over (kh, kw, in)
 """
 from __future__ import annotations
 
@@ -79,7 +83,53 @@ def pad_image(x: torch.Tensor, pads: Pads, mode: str) -> torch.Tensor:
     return x.index_select(-1, _reflect_index(w, pl, pr, x.device))
 
 
-class Conv2d(nn.Module):
+def _unit(n: int, eps: float = 1e-12) -> torch.Tensor:
+    v = torch.randn(n)
+    return v / (torch.linalg.vector_norm(v) + eps)
+
+
+def spectral_normalize(weight: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       update: bool, eps: float = 1e-12) -> torch.Tensor:
+    """``weight / sigma`` with sigma = u . (W v), W the (out, -1) view of
+    ``weight`` (JAX ``nn/layers.py::spectral_normalize``).
+
+    With ``update``, one power iteration on the detached float32 W first
+    writes new u and v into the buffers. sigma takes u and v as constants, so
+    the gradient reaches the weight through W alone.
+    """
+    mat = weight.reshape(weight.shape[0], -1).float()
+    if update:
+        with torch.no_grad():
+            v_new = mat.T @ u
+            v_new = v_new / (torch.linalg.vector_norm(v_new) + eps)
+            u_new = mat @ v_new
+            u.copy_(u_new / (torch.linalg.vector_norm(u_new) + eps))
+            v.copy_(v_new)
+    # clones: a later forward updates the buffers in place while this
+    # forward's graph still holds them
+    sigma = u.clone() @ (mat @ v.clone())
+    return weight / sigma.to(weight.dtype)
+
+
+class _SpectralWeight(nn.Module):
+    """A float32 ``weight`` parameter, spectrally normalized when asked."""
+
+    def _init_weight(self, shape, use_spectral: bool) -> None:
+        self.use_spectral = use_spectral
+        self.weight = nn.Parameter(torch.empty(shape).normal_(0, 0.02))
+        if use_spectral:
+            d = self.weight[0].numel()
+            self.register_buffer("weight_u", _unit(shape[0]))
+            self.register_buffer("weight_v", _unit(d))
+
+    def _weight(self) -> torch.Tensor:
+        if not self.use_spectral:
+            return self.weight
+        return spectral_normalize(self.weight, self.weight_u, self.weight_v,
+                                  update=self.training)
+
+
+class Conv2d(_SpectralWeight):
     """2-D convolution with torch-compatible padding (flax ``Conv2d``)."""
 
     def __init__(self, in_features: int, features: int,
@@ -88,44 +138,37 @@ class Conv2d(nn.Module):
                  use_bias: bool = False, use_spectral: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_spectral:
-            raise NotImplementedError(
-                "spectral norm is not ported yet (a later slice)")
         self.kernel_size = _pair(kernel_size)
         self.strides = _pair(strides)
         self.pads = _resolve_padding(padding, self.kernel_size, self.strides)
         self.padding_mode = padding_mode
         self.dtype = dtype
-        self.weight = nn.Parameter(
-            torch.empty(features, in_features, *self.kernel_size).normal_(0, 0.02))
+        self._init_weight((features, in_features, *self.kernel_size),
+                          use_spectral)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = pad_image(x, self.pads, self.padding_mode)
-        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+        y = F.conv2d(x.to(self.dtype), self._weight().to(self.dtype),
                      stride=self.strides)
         if self.bias is not None:
             y = y + self.bias[:, None, None]
         return y.to(self.dtype)
 
 
-class Dense(nn.Module):
+class Dense(_SpectralWeight):
     """Linear layer (flax ``Dense``); weight is torch's (out, in)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  use_spectral: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_spectral:
-            raise NotImplementedError(
-                "spectral norm is not ported yet (a later slice)")
         self.dtype = dtype
-        self.weight = nn.Parameter(
-            torch.empty(features, in_features).normal_(0, 0.02))
+        self._init_weight((features, in_features), use_spectral)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = F.linear(x.to(self.dtype), self._weight().to(self.dtype))
         if self.bias is not None:
             y = y + self.bias
         return y.to(self.dtype)

@@ -6,13 +6,21 @@ flax trees arrive as nested dicts of numpy arrays (``{"stem": {"conv":
 {"kernel": ...}}}``) and fill the port's modules, whose attribute paths
 follow the flax module names (``stem.conv.weight`` <- ``stem/conv/kernel``):
 
-    Conv2d     kernel HWIO -> weight OIHW,  bias -> bias
-    Dense      kernel (in, out) -> weight (out, in),  bias -> bias
+    Conv2d     kernel HWIO -> weight OIHW,  bias -> bias; with spectral
+               norm, spectral kernel_u -> weight_u, and kernel_v, which
+               runs over (kh, kw, in), -> weight_v over (in, kh, kw)
+    Dense      kernel (in, out) -> weight (out, in),  bias -> bias;
+               spectral kernel_u/kernel_v -> weight_u/weight_v
     BatchNorm  params scale/bias -> weight/bias,
                batch_stats mean/var -> running_mean/running_var
+    SEAN       sean_stats mean/std/sum/sumsq/count -> the buffers of the
+               same names
+    NoiseInjection  weight -> weight
 
-Loading is strict: a key missing on either side, or a shape that differs,
-raises.
+A network's state arrives as the dict of its flax collections besides
+``params`` (``state.G.state``: ``batch_stats``, ``spectral``,
+``sean_stats``). Loading is strict: a key missing on either side, or a
+shape that differs, raises.
 """
 from __future__ import annotations
 
@@ -22,11 +30,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from de_i2i_gan_torch.nn.blocks import BatchNorm
+from de_i2i_gan_torch.nn.blocks import BatchNorm, NoiseInjection
 from de_i2i_gan_torch.nn.layers import Conv2d, Dense
+from de_i2i_gan_torch.nn.normalization import SEAN
 
 Tree = Mapping[str, Any]
 _Target = Tuple[str, torch.Tensor, str, str, Callable[[np.ndarray], np.ndarray]]
+COLLECTIONS = ("params", "batch_stats", "spectral", "sean_stats")
 
 
 def _same(a: np.ndarray) -> np.ndarray:
@@ -51,11 +61,21 @@ def _targets(module: nn.Module) -> Iterator[_Target]:
         key = f"{name}." if name else ""
         path = key.replace(".", "/")
         if isinstance(mod, (Conv2d, Dense)):
-            to_port = ((lambda a: a.transpose(3, 2, 0, 1))
-                       if isinstance(mod, Conv2d) else (lambda a: a.T))
+            conv = isinstance(mod, Conv2d)
+            to_port = ((lambda a: a.transpose(3, 2, 0, 1)) if conv
+                       else (lambda a: a.T))
             yield key + "weight", mod.weight, "params", path + "kernel", to_port
             if mod.bias is not None:
                 yield key + "bias", mod.bias, "params", path + "bias", _same
+            if mod.use_spectral:
+                # (bound now: the targets are listed before they are used)
+                v_to_port = ((lambda a, s=(*mod.kernel_size, mod.weight.shape[1]):
+                              a.reshape(s).transpose(2, 0, 1).reshape(-1))
+                             if conv else _same)
+                yield (key + "weight_u", mod.weight_u, "spectral",
+                       path + "kernel_u", _same)
+                yield (key + "weight_v", mod.weight_v, "spectral",
+                       path + "kernel_v", v_to_port)
         elif isinstance(mod, BatchNorm):
             yield key + "weight", mod.weight, "params", path + "scale", _same
             yield key + "bias", mod.bias, "params", path + "bias", _same
@@ -63,6 +83,12 @@ def _targets(module: nn.Module) -> Iterator[_Target]:
                    path + "mean", _same)
             yield (key + "running_var", mod.running_var, "batch_stats",
                    path + "var", _same)
+        elif isinstance(mod, SEAN):
+            for name in ("mean", "std", "sum", "sumsq", "count"):
+                yield (key + name, getattr(mod, name), "sean_stats",
+                       path + name, _same)
+        elif isinstance(mod, NoiseInjection):
+            yield key + "weight", mod.weight, "params", path + "weight", _same
 
 
 def _checked_targets(module: nn.Module):
@@ -74,10 +100,16 @@ def _checked_targets(module: nn.Module):
 
 
 def load_jax_module(module: nn.Module, params: Tree,
-                    batch_stats: Optional[Tree] = None) -> None:
-    """Fill ``module`` from a flax ``params`` tree (and ``batch_stats`` when
-    it has BatchNorm)."""
-    trees = {"params": _flatten(params), "batch_stats": _flatten(batch_stats)}
+                    state: Optional[Mapping[str, Tree]] = None) -> None:
+    """Fill ``module`` from a flax ``params`` tree and its ``state``, the
+    dict of its other collections (``batch_stats``, ``spectral``,
+    ``sean_stats``), where the module holds such state."""
+    state = state or {}
+    unknown = sorted(set(state) - set(COLLECTIONS))
+    if unknown:
+        raise KeyError(f"unknown collections {unknown}")
+    trees = {coll: _flatten(params if coll == "params" else state.get(coll))
+             for coll in COLLECTIONS}
     targets = _checked_targets(module)
     for coll, flat in trees.items():
         want = {t[3] for t in targets if t[2] == coll}
@@ -86,46 +118,47 @@ def load_jax_module(module: nn.Module, params: Tree,
             raise KeyError(f"{coll}: missing {missing}, unexpected {extra}")
     with torch.no_grad():
         for key, tensor, coll, path, to_port in targets:
-            arr = np.ascontiguousarray(to_port(trees[coll][path]), np.float32)
+            arr = np.array(to_port(trees[coll][path]), np.float32)  # a writable copy
             if arr.shape != tuple(tensor.shape):
                 raise ValueError(f"{path}: shape {arr.shape} does not fit "
                                  f"{key} {tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(arr))
 
 
-def load_jax_generator(steps, g_params: Tree, g_batch_stats: Tree,
+def load_jax_generator(steps, g_params: Tree, g_state: Mapping[str, Tree],
                        e_params: Optional[Tree],
                        ema_params: Optional[Tree] = None) -> None:
     """Fill a ``DefectGanSteps`` from the JAX train state's trees:
-    ``state.G.params``, ``state.G.state["batch_stats"]``, ``state.E.params``
-    and ``state.ema_G``."""
+    ``state.G.params``, ``state.G.state`` (its collections),
+    ``state.E.params`` and ``state.ema_G``."""
     if (steps.E is None) != (e_params is None):
         raise ValueError("e_params must be given exactly when the steps "
                          "hold a style extractor")
     if (steps.ema_G is None) != (ema_params is None):
         raise ValueError("ema_params must be given exactly when the steps "
                          "hold an EMA generator")
-    load_jax_module(steps.G, g_params, g_batch_stats)
+    load_jax_module(steps.G, g_params, g_state)
     if steps.E is not None:
         load_jax_module(steps.E, e_params)
     if steps.ema_G is not None:
-        load_jax_module(steps.ema_G, ema_params, g_batch_stats)
+        load_jax_module(steps.ema_G, ema_params, g_state)
 
 
-def load_jax_train_state(steps, g_params: Tree, g_batch_stats: Tree,
-                         d_params: Tree, e_params: Optional[Tree],
-                         step: int = 0,
+def load_jax_train_state(steps, g_params: Tree, g_state: Mapping[str, Tree],
+                         d_params: Tree, d_state: Mapping[str, Tree],
+                         e_params: Optional[Tree], step: int = 0,
                          ema_params: Optional[Tree] = None) -> None:
     """Fill a ``DefectGanSteps`` for training from the trees of a JAX
-    ``GANTrainState``: ``state.G.params``, ``state.G.state["batch_stats"]``,
-    ``state.D.params``, ``state.E.params``, ``int(state.step)`` and
-    ``state.ema_G``, given as numpy arrays. Builds D and the optimizers
+    ``GANTrainState``: ``state.G.params``, ``state.G.state``,
+    ``state.D.params``, ``state.D.state``, ``state.E.params``,
+    ``int(state.step)`` and ``state.ema_G``, given as numpy arrays (the
+    states as dicts of collections). Builds D and the optimizers
     first (``init_training``). Optimizer moments are not carried: the
     port's optimizers start fresh, as ``init_state`` makes them, so a
     state taken after JAX updates continues with new moments."""
     steps.init_training()
-    load_jax_generator(steps, g_params, g_batch_stats, e_params, ema_params)
-    load_jax_module(steps.D, d_params)
+    load_jax_generator(steps, g_params, g_state, e_params, ema_params)
+    load_jax_module(steps.D, d_params, d_state)
     steps.step = int(step)
 
 
@@ -135,6 +168,9 @@ def _init_module(module: nn.Module, gen: torch.Generator, std: float) -> None:
             if path.endswith("kernel"):
                 draw = torch.empty(tensor.shape).normal_(0.0, std, generator=gen)
                 tensor.copy_(draw)
+            elif coll == "spectral":  # u, v: unit vectors
+                draw = torch.randn(tensor.shape, generator=gen)
+                tensor.copy_(draw / (torch.linalg.vector_norm(draw) + 1e-12))
             elif path.endswith(("scale", "var")):
                 tensor.fill_(1.0)
             else:  # biases, running means
@@ -144,7 +180,8 @@ def _init_module(module: nn.Module, gen: torch.Generator, std: float) -> None:
 def init_weights(steps, seed: int) -> None:
     """Weights from ``seed`` with the JAX init's distribution: normal(0.02)
     conv and dense kernels, zero biases, BatchNorm scale 1 / bias 0 and
-    running statistics 0 / 1. Not the JAX init's numbers. Drawn on the CPU,
+    running statistics 0 / 1, normalized normal spectral u/v, zero SEAN
+    statistics and zero noise weights. Not the JAX init's numbers. Drawn on the CPU,
     so a seed gives the same weights on every device. G, then E, then D
     (when training has built it) draw in that order, so G's and E's weights
     do not depend on whether D exists."""

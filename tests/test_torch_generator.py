@@ -80,7 +80,7 @@ def pair():
         E=state.E.replace(params=e_params), ema_G=ema)
     steps = DefectGanSteps(DefectGanConfig(**TINY),
                            TrainConfig(ema_decay=0.999), device="cpu")
-    load_jax_generator(steps, g_params, g_stats, e_params, ema)
+    load_jax_generator(steps, g_params, {"batch_stats": g_stats}, e_params, ema)
     return jsteps, state, steps
 
 
@@ -125,8 +125,7 @@ def test_generate_bf16_matches_jax_bf16(pair):
     cfg = dict(TINY, compute_dtype="bfloat16")
     jsteps = JaxSteps(JaxConfig(**cfg), JaxTrainConfig())
     steps = DefectGanSteps(DefectGanConfig(**cfg), device="cpu")
-    load_jax_generator(steps, state.G.params, state.G.state["batch_stats"],
-                       state.E.params)
+    load_jax_generator(steps, state.G.params, state.G.state, state.E.params)
     x, labels = _inputs(seed=4)
     jout, jprob = jsteps.generate(state, jnp.asarray(x), jnp.asarray(labels))
     out, prob = steps.generate(torch.from_numpy(x), torch.from_numpy(labels))
@@ -178,7 +177,7 @@ def test_generator_variants_match_jax(switch):
                              jnp.asarray(style), rngs={"noise": key,
                                                        "latent": key})
     net = DefectGanGenerator(DefectGanConfig(**cfg)).eval()
-    load_jax_module(net, params, stats)
+    load_jax_module(net, params, {"batch_stats": stats})
     with torch.no_grad():
         out, prob = net(torch.from_numpy(x), torch.from_numpy(labels),
                         torch.from_numpy(style))
@@ -192,15 +191,13 @@ def test_load_is_strict(pair):
     g_params = dict(state.G.params)
     stem = g_params.pop("stem")
     with pytest.raises(KeyError, match="stem/conv/kernel"):
-        load_jax_generator(steps, g_params, state.G.state["batch_stats"],
-                           state.E.params)
+        load_jax_generator(steps, g_params, state.G.state, state.E.params)
     g_params["stem"] = stem
     g_params["extra"] = {"kernel": np.zeros((1,), np.float32)}
     with pytest.raises(KeyError, match="extra/kernel"):
-        load_jax_generator(steps, g_params, state.G.state["batch_stats"],
-                           state.E.params)
+        load_jax_generator(steps, g_params, state.G.state, state.E.params)
     with pytest.raises(ValueError, match="ema_params"):
-        load_jax_generator(steps, state.G.params, state.G.state["batch_stats"],
+        load_jax_generator(steps, state.G.params, state.G.state,
                            state.E.params, state.ema_G)
 
 

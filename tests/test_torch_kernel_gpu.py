@@ -200,6 +200,61 @@ def test_bwd_kernel_wrapper_raises_on_bad_input():
         bwd(x.half(), s, s, s, s, x.half())
 
 
+def _sean_pair(dtype):
+    """A SEAN layer at a decoder shape through the kernels, and the same
+    weights through the plain version (use_pallas=False)."""
+    from de_i2i_gan_torch.nn.normalization import SEAN
+    torch.manual_seed(4)
+    dt = getattr(torch, dtype)
+    kern = SEAN(768, 256, 6, 128, dtype=dt, use_pallas=True).cuda()
+    plain = SEAN(768, 256, 6, 128, dtype=dt, use_pallas=False).cuda()
+    plain.load_state_dict(kern.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn((4, 256, 32, 32), generator=gen, device="cuda") * 2 + 1).to(dt)
+    labels = torch.randint(0, 2, (4, 6), generator=gen, device="cuda").float()
+    feat = torch.randn((4, 5, 768), generator=gen, device="cuda")
+    return kern, plain, x, labels, feat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sean_norm_forward_through_kernel_matches_plain_on_card(dtype):
+    """One launch of the forward kernel, and the plain version's y."""
+    _need_card()
+    kern, plain, x, labels, feat = _sean_pair(dtype)
+    before = norm_kernels.LAUNCHES
+    with torch.no_grad():
+        y = kern(x, labels, feat)
+        torch.cuda.synchronize()
+        assert norm_kernels.LAUNCHES == before + 1
+        ref = plain(x, labels, feat)
+    assert norm_kernels.LAUNCHES == before + 1 and y.dtype == x.dtype
+    tol = (dict(atol=TOL, rtol=TOL) if dtype == "float32"
+           else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+    torch.testing.assert_close(y.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_sean_norm_backward_through_kernel_matches_plain_on_card():
+    """float32: one launch of each kernel; the gradients of x and of the
+    SEAN layer's weights match autograd through the plain version."""
+    _need_card()
+    kern, plain, x, labels, feat = _sean_pair("float32")
+    dy = torch.randn(x.shape, generator=torch.Generator(device="cuda")
+                     .manual_seed(6), device="cuda")
+    grads = []
+    for net, launches in ((kern, 1), (plain, 0)):
+        xs = x.clone().requires_grad_()
+        fwd0, bwd0 = norm_kernels.LAUNCHES, norm_kernels.BWD_LAUNCHES
+        net(xs, labels, feat).backward(dy)
+        torch.cuda.synchronize()
+        assert (norm_kernels.LAUNCHES - fwd0,
+                norm_kernels.BWD_LAUNCHES - bwd0) == (launches, launches)
+        grads.append([xs.grad] + [p.grad for p in net.parameters()])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=BWD_TOL, rtol=BWD_TOL)
+
+
 @pytest.mark.gpu
 def test_super_step_on_card_launches_both_kernels_and_matches_cpu():
     """Tiny AdaIN config, f32, SGD: one super-step on the card through both

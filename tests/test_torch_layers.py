@@ -65,13 +65,16 @@ def perturb(tree, seed):
 
 def carry(jmod, port, *args, seed=0, **kw):
     """init the flax module, perturb, load into ``port``; returns the flax
-    output for ``args``."""
+    output for ``args``. Collections other than params and batch_stats
+    (spectral u/v, SEAN statistics) are carried at their init values."""
     variables = jmod.init({"params": KEY, "noise": KEY}, *args, **kw)
     params = perturb(variables["params"], seed)
     stats = perturb(variables.get("batch_stats", {}), seed + 1)
-    load_jax_module(port, params, stats)
+    rest = {k: jax.device_get(v) for k, v in variables.items()
+            if k not in ("params", "batch_stats")}
+    load_jax_module(port, params, {"batch_stats": stats, **rest})
     port.eval()
-    full = {"params": params}
+    full = {"params": params, **rest}
     if stats:
         full["batch_stats"] = stats
     return jmod.apply(full, *args, **kw)
@@ -125,9 +128,14 @@ def test_same_padding_rejects_stride():
         layers.Conv2d(3, 4, (3, 3), (2, 2), "same")
 
 
-def test_spectral_norm_waits_for_training_slice():
-    with pytest.raises(NotImplementedError):
-        layers.Conv2d(3, 4, use_spectral=True)
+def test_spectral_conv2d_matches_flax():
+    """Eval mode: the kernel divided by u (W v) of the stored vectors."""
+    x = nhwc(14, (2, 8, 8, 3))
+    port = layers.Conv2d(3, 4, (4, 4), (2, 2), 1, "reflect", use_spectral=True)
+    jconv = jlayers.Conv2d(4, (4, 4), (2, 2), 1, "reflect", use_spectral=True)
+    ref = carry(jconv, port, jnp.asarray(x))
+    with torch.no_grad():
+        close(port(to_port(x)), ref, LAYER_TOL)
 
 
 def test_dense_matches_flax():
@@ -240,6 +248,20 @@ def test_norm_conv_block_matches_flax():
 
 
 @pytest.mark.parametrize("style_type", ["spade", "sean"])
-def test_later_slice_style_norms_raise(style_type):
-    with pytest.raises(NotImplementedError, match=style_type):
-        blocks.NormConvBlock(style_type, 8, 4, label_nc=3, hidden_nc=12)
+def test_norm_conv_block_style_types_match_flax(style_type):
+    """The SPADE and SEAN decoders' up-scaling block, eval mode (SEAN from
+    (N, num_embeds, embed_nc) embeddings)."""
+    x = nhwc(15, (2, 5, 5, 8))
+    labels = np.eye(3, dtype=np.float32)[[0, 2]]
+    style = nhwc(16, (2, 2, 10)) if style_type == "sean" else None
+    kw = dict(label_nc=3, hidden_nc=12, embed_nc=10, padding="same",
+              padding_mode="reflect", up_scale=True)
+    port = blocks.NormConvBlock(style_type, 8, 4, **kw)
+    jmod = jblocks.NormConvBlock(style_type, 4, **kw)
+    ref = carry(jmod, port, jnp.asarray(x), jnp.asarray(labels),
+                None if style is None else jnp.asarray(style), train=False)
+    with torch.no_grad():
+        got = port(to_port(x), torch.from_numpy(labels),
+                   None if style is None else torch.from_numpy(style))
+    assert got.shape == (2, 4, 10, 10)
+    close(got, ref, BLOCK_TOL)

@@ -89,7 +89,7 @@ def init_pair(jmod, port, *args, seed=0, **kw):
     variables = jmod.init({"params": KEY, "noise": KEY}, *args, **kw)
     params = perturb(variables["params"], seed)
     stats = perturb(variables.get("batch_stats", {}), seed + 1)
-    load_jax_module(port, params, stats)
+    load_jax_module(port, params, {"batch_stats": stats})
     full = {"params": params}
     if stats:
         full["batch_stats"] = stats
