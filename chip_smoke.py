@@ -58,6 +58,24 @@ Phases, each of which raises on failure:
               deltas kernel path vs plain path as in 6d
   7c. spade   serving and training with spectral norm, noise injection and
               DiffAugment: times, peak memory, profiles; no kernel launches
+  8a. cli     ``cli.train_defectgan.main`` in-process, AdaIN on the synthetic
+              dataset for one epoch (12 super-steps, fed by device_prefetch):
+              exactly 56 forward and 16 backward launches a super-step,
+              checkpoints and iter.txt written, loader-fed host-clock time
+              per super-step against phase 6d's preloaded one, the busy share
+              over 3 profiled trainer super-steps, peak memory, and the
+              super-batch copies pinned and on a side stream (profile)
+  8d. cli     ``cli.test_defectgan.main`` on 8a's epoch-1 checkpoint: grids,
+              diverse images and classifier accuracy; the PNGs counted, 8
+              forward launches a G forward
+  8b. cli     ``--continue_training`` to epoch 2: the state loaded at resume
+              equals the saved one tensor for tensor, epochs and iterations
+              go on as the JAX trainer's do, launches exact
+  8c. cli     SEAN with running statistics, distillation and an embedding
+              bank (``--embed_path``, an .npz made from a seed): launches
+              exact, statistics finalized
+  8e. feed    the CLI's super-batches through device_prefetch equal the
+              host's bit for bit; the loader's pace with and without the copies
 
 The line before the last two holds the kernels' JSON record, the next the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -70,10 +88,14 @@ import contextlib
 import gc
 import json
 import math
+import shutil
+import statistics
+import struct
 import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -135,6 +157,16 @@ BF16_DELTA_FACTOR = 1.5
 # SEAN's style embeddings: num_embeds ViT CLS tokens of embed_nc
 EMBEDS = (5, 768)
 DIFF_AUG = "color,translation,cutout"
+# phases 8a-8e: the entry points at full width (the CLI's DefectGAN
+# defaults at 256^2, batch 8, 5 critics, bf16), run files under build/
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+CLI_IMAGE = 256
+CLI_BASE = ["--dataset_name", "synthetic", "--image_size", str(CLI_IMAGE),
+            "--batch_size", str(BATCH)]
+CARD = "cuda"  # the device type the entry points run on (--gpu_ids 0)
+CLI_SEED = 123  # the CLI's default --seed
+PROFILE_AT = 6  # the first of the trainer's profiled super-steps
+PROFILED_SUPER_STEPS = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -961,6 +993,388 @@ def kernel_record(name, replaces, rows, launches_by_path, worst, unit,
     return record
 
 
+# --------------------------------------------- 8. the entry points a user calls
+
+
+def cli_args(name, *extra):
+    return ["--name", name, "--ckpt_dir", str(CLI_DIR / "ckpt"), "--log_dir",
+            str(CLI_DIR / "logs"), *CLI_BASE, *extra]
+
+
+def cli_loader():
+    """The super-batches the train CLI feeds (its datasets and seeds)."""
+    from de_i2i_gan_torch.data.pipeline import DataLoader, DualStreamLoader
+    from de_i2i_gan_torch.data.synthetic import SyntheticDefectDataset
+
+    df, bg = (SyntheticDefectDataset(CLI_IMAGE, 6, 512, dt, seed=CLI_SEED)
+              for dt in ("defects", "background"))
+    return DualStreamLoader(DataLoader(df, BATCH, seed=CLI_SEED),
+                            DataLoader(bg, BATCH, seed=CLI_SEED + 1), CRITICS)
+
+
+class SuperStepClock:
+    """Wraps ``DefectGanSteps.super_step`` while an entry point runs: every
+    call ends in ``torch.cuda.synchronize()``, and its end on the host clock,
+    the kernels' launch counts and its batch's keys and devices are kept;
+    calls ``profile_at`` .. ``profile_at + PROFILED_SUPER_STEPS - 1`` run
+    under torch.profiler."""
+
+    def __init__(self, nk, profile_at=None):
+        self.nk, self.profile_at = nk, profile_at
+        self.ends, self.launches, self.keys, self.on_card = [], [], [], []
+        self.prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        from de_i2i_gan_torch.train.steps import DefectGanSteps
+        self._real = real = DefectGanSteps.super_step
+        last = (None if self.profile_at is None
+                else self.profile_at + PROFILED_SUPER_STEPS - 1)
+
+        def timed(steps, batches, generator=None):
+            i = len(self.ends)
+            if i == self.profile_at:
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+            out = real(steps, batches, generator)
+            torch.cuda.synchronize()
+            if i == last:
+                self.prof.__exit__(None, None, None)
+            self.ends.append(time.perf_counter())
+            self.launches.append((self.nk.LAUNCHES, self.nk.BWD_LAUNCHES))
+            self.keys.append(sorted(batches))
+            self.on_card.append(all(v.device.type == CARD
+                                    for v in batches.values()))
+            return out
+
+        DefectGanSteps.super_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        from de_i2i_gan_torch.train.steps import DefectGanSteps
+        DefectGanSteps.super_step = self._real
+
+    def steady_ms(self):
+        """Host-clock ms between the ends of consecutive super-steps (data
+        wait included), from the third on, the profiled ones left out."""
+        skip = (range(0) if self.profile_at is None else
+                range(self.profile_at, self.profile_at + PROFILED_SUPER_STEPS))
+        return [(self.ends[i] - self.ends[i - 1]) * 1e3
+                for i in range(2, len(self.ends)) if i not in skip]
+
+
+def check_trainer_launches(nk, clock, label, cfg):
+    """Exact launches: 56 forward and 16 backward a super-step, no other."""
+    n = len(clock.ends)
+    per_fwd, per_bwd = expected_launches(cfg, G_FORWARDS_PER_SUPER_STEP,
+                                         G_BACKWARDS_PER_SUPER_STEP)
+    check(n > 0 and (nk.LAUNCHES, nk.BWD_LAUNCHES) == (per_fwd * n, per_bwd * n),
+          f"{label}: {nk.LAUNCHES} forward and {nk.BWD_LAUNCHES} backward "
+          f"launches over {n} super-steps, expected {per_fwd} and {per_bwd} each")
+    prev = (0, 0)
+    for i, cur in enumerate(clock.launches):
+        check((cur[0] - prev[0], cur[1] - prev[1]) == (per_fwd, per_bwd),
+              f"{label} super-step {i} launched {cur[0] - prev[0]}/"
+              f"{cur[1] - prev[1]} kernels")
+        prev = cur
+    check(all(clock.on_card), f"{label}: a super-batch reached the step "
+          "off the card")
+    return {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}
+
+
+def check_trained(trainer, label):
+    """A finished run: no rollback, finite weights."""
+    check(trainer._guard.restores == 0,
+          f"{label}: the NaN guard rolled back {trainer._guard.restores} times")
+    for n in nets(trainer.steps):
+        for k, p in getattr(trainer.steps, n).named_parameters():
+            check(bool(torch.isfinite(p).all()), f"{label}: {n} {k} not finite")
+
+
+def h2d_copies(prof, path):
+    """The host-to-device copies of a profile (name, stream, bytes) and the
+    streams its kernels ran on, from its chrome trace."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [(e["name"], e["args"].get("stream"), e["args"].get("bytes", 0))
+              for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    streams = {e["args"].get("stream") for e in events if e.get("cat") == "kernel"}
+    return copies, streams
+
+
+def flat_state(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_state(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def cpu_state(steps):
+    """A copy on the host of the steps' train state, flattened."""
+    from de_i2i_gan_torch.train.checkpoint import train_state
+    return {k: (v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor)
+                else v) for k, v in flat_state(train_state(steps)).items()}
+
+
+def same_state(a, b):
+    """Tensor for tensor equality of two train states on the host; None, or
+    the first entry that differs."""
+    fa, fb = flat_state(a), flat_state(b)
+    if fa.keys() != fb.keys():
+        return f"keys differ: {sorted(fa.keys() ^ fb.keys())[:5]}"
+    for k, v in fa.items():
+        same = (torch.equal(v, fb[k]) if isinstance(v, torch.Tensor)
+                else v == fb[k])
+        if not same:
+            return k
+    return None
+
+
+def phase_cli_train(nk, smi, preloaded_ms):
+    """8a. ``cli.train_defectgan.main`` in-process: AdaIN on the synthetic
+    dataset at full width for one epoch, through device_prefetch."""
+    from de_i2i_gan_torch.cli.train_defectgan import main as train_main
+    from de_i2i_gan_torch.train.checkpoint import read_iter_record
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the trainer's run starts here
+    t0 = time.perf_counter()
+    with SuperStepClock(nk, profile_at=PROFILE_AT) as clock:
+        trainer = train_main(cli_args("adain", "--style_norm_block_type",
+                                      "adain", "--num_epochs", "1",
+                                      "--save_ckpt_freq", "1"))
+    wall_s = time.perf_counter() - t0
+    launches = check_trainer_launches(nk, clock, "train CLI adain",
+                                      trainer.cfg)  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check_trained(trainer, "train CLI adain")
+    n = len(clock.ends)
+    check(n == 512 // BATCH // CRITICS and trainer.iters == n * CRITICS,
+          f"{n} super-steps, {trainer.iters} iterations")
+    run = CLI_DIR / "ckpt" / "adain"
+    for f in ("latest_state.pt", "1_state.pt", "iter.txt", "opt.json"):
+        check((run / f).exists(), f"the train CLI wrote no {f}")
+    check(read_iter_record(CLI_DIR / "ckpt", "adain") == (1, n * CRITICS),
+          "iter.txt")
+    steady = clock.steady_ms()
+    fed_ms = statistics.median(steady)
+    from torch.autograd import DeviceType
+    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    # every host-to-device copy in the window is a super-batch's, pinned and
+    # on the prefetch stream: the step's own torch.as_tensor copied nothing
+    copies, streams = h2d_copies(clock.prof, CLI_DIR / "trainer_trace.json")
+    keys = len(clock.keys[0])
+    check(len(copies) >= keys and all("Pinned" in c[0] and c[1] not in streams
+                                      for c in copies),
+          f"host-to-device copies {copies} vs kernel streams {streams}")
+    print(f"train CLI adain, 1 epoch: {n} super-steps in {wall_s:.1f} s "
+          f"(set-up, checkpoints and all); loader-fed super-step ms, host "
+          f"clock, median of {len(steady)} steady: {fed_ms:.3f} "
+          f"{[round(v, 3) for v in steady]}; preloaded super_step (phase 6d, "
+          f"mean of 5): {preloaded_ms:.3f}; kernels a super-step over "
+          f"{PROFILED_SUPER_STEPS} profiled trainer super-steps {dev_ms:.3f} "
+          f"ms, busy share {dev_ms / fed_ms:.1%} of the loader-fed time; peak "
+          f"memory {peak_mb:.1f} MiB; launches {launches} [{smi}]")
+    print(f"train CLI host-to-device copies in the profiled window: "
+          f"{len(copies)} ({len(copies) / keys:.0f} super-batches of {keys} "
+          f"arrays, {sum(c[2] for c in copies) / 2**20:.1f} MiB), all from "
+          f"pinned memory, on stream(s) {sorted({c[1] for c in copies})}; the "
+          f"kernels on stream(s) {sorted(streams)}: the copies ran on a side "
+          f"stream and the step copied nothing itself")
+    result = dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+                  super_steps=n, state=cpu_state(trainer.steps))
+    del trainer, clock
+    free_memory()
+    return result
+
+
+def phase_cli_test(nk, smi):
+    """8d. ``cli.test_defectgan.main`` on 8a's epoch-1 checkpoint: grids,
+    diverse images, classifier accuracy."""
+    import numpy as np
+
+    from de_i2i_gan_torch.cli.test_defectgan import main as test_main
+    from de_i2i_gan_torch.data.pipeline import DataLoader
+    from de_i2i_gan_torch.data.synthetic import SyntheticDefectDataset
+
+    # the multi-label combinations of the first test batch, counted apart:
+    # the batch of the loader's second pass (--cal_clf makes the first)
+    loader = DataLoader(SyntheticDefectDataset(CLI_IMAGE, 6, 64, "defects",
+                                               seed=CLI_SEED), BATCH,
+                        seed=CLI_SEED)
+    for _ in loader:
+        pass
+    _, labels, _ = next(iter(loader))
+    n_multi = len(np.unique(labels[labels.sum(axis=1) > 1], axis=0))
+    g_forwards = 1 + n_multi + 5  # the grid request, one a diverse grid
+    res = CLI_DIR / "results"
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the test CLI's run starts here
+    t0 = time.perf_counter()
+    out = test_main(cli_args("adain", "--style_norm_block_type", "adain",
+                             "--which_epoch", "1", "--results_dir", str(res),
+                             "--save_img_grid", "--save_diverse_images",
+                             "--cal_clf"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    want, _ = expected_launches(full_config(), g_forwards, 0)
+    check(launches == {"fwd": want, "bwd": 0},
+          f"test CLI launches {launches}, expected {want} forward "
+          f"({g_forwards} G forwards) and 0 backward")
+    pngs = sorted(res.rglob("*.png"))
+    check(len(pngs) == BATCH + n_multi + 5 and sorted(out["pngs"]) == pngs,
+          f"{len(pngs)} PNGs, expected {BATCH} grids + {n_multi} + 5")
+    for p in pngs:
+        head = p.read_bytes()[:24]
+        w, h = struct.unpack(">II", head[16:24])
+        check(head[:8] == b"\x89PNG\r\n\x1a\n" and h == CLI_IMAGE, f"{p.name}")
+        if p.name.startswith("grid_"):
+            check(w == CLI_IMAGE * (1 + 2 * 5), f"{p.name} is {w} wide")
+    acc = out["classifier_accuracy"]
+    check(0.0 <= acc <= 1.0, f"accuracy {acc}")
+    print(f"test CLI on the epoch-1 checkpoint: {len(pngs)} PNGs ({BATCH} "
+          f"grids, {n_multi} multi-label + 5 single-label), classifier "
+          f"accuracy {acc:.4f} (D after one epoch of random-weight training "
+          f"on synthetic data), {launches['fwd']} forward kernel launches over "
+          f"{g_forwards} G forwards, {wall_s:.1f} s [{smi}]")
+    free_memory()
+    return dict(launches=launches)
+
+
+def phase_cli_resume(nk, smi, trained):
+    """8b. ``--continue_training`` to epoch 2: the state loaded at resume is
+    the one saved, and the epoch and iteration counts go on as in JAX."""
+    from de_i2i_gan_torch.cli.train_defectgan import main as train_main
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint, read_iter_record
+    from de_i2i_gan_torch.train.trainer import DefectGanTrainer
+
+    saved = read_checkpoint(CLI_DIR / "ckpt", "adain", "latest")
+    diff = same_state(saved, trained["state"])
+    check(diff is None, f"the latest checkpoint differs from the trained state at {diff}")
+    entry = {}
+    real_train = DefectGanTrainer.train
+
+    def capture(self, *args, **kw):
+        entry.update(first_epoch=self.first_epoch, iters=self.iters,
+                     state=cpu_state(self.steps))
+        return real_train(self, *args, **kw)
+
+    n = trained["super_steps"]
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the resumed run starts here
+    DefectGanTrainer.train = capture
+    try:
+        with SuperStepClock(nk) as clock:
+            trainer = train_main(cli_args("adain", "--continue_training",
+                                          "--num_epochs", "2",
+                                          "--save_ckpt_freq", "4"))
+    finally:
+        DefectGanTrainer.train = real_train
+    launches = check_trainer_launches(nk, clock, "resumed train CLI",
+                                      trainer.cfg)  # ... ends here
+    check_trained(trainer, "resumed train CLI")
+    diff = same_state(entry["state"], saved)
+    check(diff is None, f"the state loaded at resume differs at {diff}")
+    # as the JAX trainer: the run restarts at the recorded epoch
+    check((entry["first_epoch"], entry["iters"]) == (1, n * CRITICS)
+          and len(clock.ends) == 2 * n
+          and trainer.iters == 3 * n * CRITICS
+          and read_iter_record(CLI_DIR / "ckpt", "adain") == (2, 3 * n * CRITICS),
+          f"resume: first_epoch {entry['first_epoch']}, iters {entry['iters']} "
+          f"-> {trainer.iters}, {len(clock.ends)} super-steps")
+    steady = clock.steady_ms()
+    print(f"resumed train CLI: state at resume equals the saved one in all "
+          f"{len(flat_state(saved))} entries; first_epoch 1, iters "
+          f"{entry['iters']} -> {trainer.iters} over {len(clock.ends)} "
+          f"super-steps, iter.txt (2, {trainer.iters}); loader-fed super-step "
+          f"ms median {statistics.median(steady):.3f}; launches {launches} "
+          f"[{smi}]")
+    del trainer, clock, entry, saved
+    free_memory()
+    return dict(launches=launches)
+
+
+def phase_cli_sean(nk, smi):
+    """8c. SEAN with running statistics, distillation and an embedding bank
+    (``--embed_path``, an .npz made here from a seed)."""
+    import numpy as np
+
+    from de_i2i_gan_torch.cli.train_defectgan import main as train_main
+    from de_i2i_gan_torch.data.embeddings import EmbeddingBank
+    from de_i2i_gan_torch.nn.normalization import SEAN
+
+    rng = np.random.default_rng(SEED)
+    bank = EmbeddingBank(6, EMBEDS[1], capacity=8)
+    for idx in range(2 ** 6):
+        for _ in range(4):
+            bank.add([(idx >> i) & 1 for i in range(6)],
+                     rng.normal(0, 1, EMBEDS[1]).astype(np.float32))
+    path = CLI_DIR / "bank.npz"
+    bank.save(path)
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the SEAN trainer's run starts here
+    with SuperStepClock(nk) as clock:
+        trainer = train_main(cli_args(
+            "sean", "--style_norm_block_type", "sean", "--use_running_stats",
+            "--style_distill", "--embed_path", str(path), "--num_epochs", "1"))
+    launches = check_trainer_launches(nk, clock, "train CLI sean",
+                                      trainer.cfg)  # ... ends here
+    check_trained(trainer, "train CLI sean")
+    check(all("df_embeds" in k and "nm_embeds" in k for k in clock.keys),
+          "the bank's embeddings did not reach the step")
+    seans = [m for m in trainer.steps.G.modules() if isinstance(m, SEAN)]
+    rows = sum(int((m.std > 0).all(dim=1).sum().item()) for m in seans)
+    check(rows > 0 and all(m.count.sum().item() == 0 for m in seans),
+          "the epoch update did not finalize SEAN's statistics")
+    steady = clock.steady_ms()
+    print(f"train CLI sean (--use_running_stats --style_distill --embed_path "
+          f"bank of {int(bank.counts.sum())} embeddings): {len(clock.ends)} "
+          f"super-steps, loader-fed super-step ms median "
+          f"{statistics.median(steady):.3f}, {rows} (layer, label) rows of "
+          f"finalized statistics, launches {launches} [{smi}]")
+    del trainer, clock
+    free_memory()
+    return dict(launches=launches)
+
+
+def phase_prefetch(smi):
+    """8e. The CLI's super-batches out of device_prefetch equal the host's
+    bit for bit; the loader's own pace with and without the copies."""
+    from de_i2i_gan_torch.data.pipeline import device_prefetch
+
+    t0 = time.perf_counter()
+    host = list(cli_loader())
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fed = []
+    for batch in device_prefetch(cli_loader(), CARD):
+        torch.cuda.current_stream().synchronize()
+        fed.append(batch)
+    fed_s = time.perf_counter() - t0
+    check(len(fed) == len(host) > 0, f"{len(fed)} of {len(host)} super-batches")
+    for i, (f, h) in enumerate(zip(fed, host)):
+        check(sorted(f) == sorted(h), f"super-batch {i} keys")
+        for k, v in h.items():
+            check(f[k].device.type == CARD and
+                  torch.equal(f[k].cpu(), torch.from_numpy(v)),
+                  f"super-batch {i} {k} differs from the host's")
+    mb = sum(v.nbytes for v in host[0].values()) / 2**20
+    print(f"device_prefetch: {len(fed)} super-batches ({mb:.1f} MiB each) equal "
+          f"the host's bit for bit; the synthetic loader alone makes one in "
+          f"{host_s * 1e3 / len(host):.1f} ms of host clock, with the pinned "
+          f"copies to the card in {fed_s * 1e3 / len(fed):.1f} ms [{smi}]")
+    result = dict(host_ms=host_s * 1e3 / len(host), fed_ms=fed_s * 1e3 / len(fed))
+    del fed, host
+    free_memory()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -968,6 +1382,7 @@ def main() -> int:
     from de_i2i_gan_torch.ops import fused
     from de_i2i_gan_torch.ops.cuda import norm_kernels as nk
 
+    started = time.perf_counter()
     # 1. device
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -1056,10 +1471,31 @@ def main() -> int:
         check(run["launches"] == {"fwd": 0, "bwd": 0},
               f"{label} launched kernels: {run['launches']}")
 
+    # 8. the entry points: the train CLI (8a), the test CLI on its
+    # checkpoint (8d, before 8b rewrites epoch 1), the resumed run (8b), SEAN
+    # with an embedding bank (8c), the feed alone (8e)
+    cli_started = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    trainer_adain = phase_cli_train(nk, smi, training["ms"])
+    test_cli = phase_cli_test(nk, smi)
+    trainer_resume = phase_cli_resume(nk, smi, trainer_adain)
+    del trainer_adain["state"]
+    trainer_sean = phase_cli_sean(nk, smi)
+    feed = phase_prefetch(smi)
+    pace = ("the synthetic loader" if feed["host_ms"] >= training["ms"]
+            else "the step (device and launches), not the loader")
+    print(f"pace: the loader makes a super-batch in {feed['host_ms']:.1f} ms, "
+          f"the preloaded super-step takes {training['ms']:.3f} ms and the "
+          f"loader-fed one {trainer_adain['ms']:.3f} ms: {pace} sets it [{smi}]")
+    cli_s = time.perf_counter() - cli_started
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
-             "serving_spade": serving_spade, "training_spade": training_spade}
+             "serving_spade": serving_spade, "training_spade": training_spade,
+             "trainer_adain": trainer_adain, "test_cli": test_cli,
+             "trainer_resume": trainer_resume, "trainer_sean": trainer_sean}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
@@ -1109,6 +1545,8 @@ def main() -> int:
           f"{training_spade['peak_mb']:.1f} MiB, kernels {busy_ms(busy_spade)}; "
           f"launches {serving_spade['launches']} and "
           f"{training_spade['launches']} [{smi}]")
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
+          f"8a-8e {cli_s:.1f} s")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,11 +17,20 @@ module paths and class names so each counterpart is easy to find:
     train/optim.py       lr schedules, optimizers, ema_update
     train/steps.py       DefectGanSteps: generate (serving), d_step, g_step,
                          super_step (training)
-    train/jax_import.py  flax trees -> these modules, init_weights
+    train/jax_import.py  flax trees and optax states -> these modules,
+                         init_weights
+    train/checkpoint.py  save_checkpoint, load_checkpoint (strict or
+                         filtered), iter.txt
+    train/trainer.py     DefectGanTrainer: the epoch loop
+    data/                datasets, loaders, device_prefetch, EmbeddingBank
+    config/options.py    the DefectGAN train/test flags
+    metrics/evaluator.py defectgan_generator_fn
+    utils/               guards (NaNGuard), seed, png, diffaug, labels
+    cli/                 train_defectgan, test_defectgan
 
 Public entry points keep the JAX layout (NHWC images, (N, label_nc)
 labels); inside, modules work in NCHW. Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"`` (the CLIs: ``--gpu_ids -1``).
 
 This package imports torch and numpy only: never jax, flax, optax or any
 module of ``de_i2i_gan_tpu``.

@@ -1,0 +1,158 @@
+"""DefectGAN test / inference entry point, counterpart of
+``de_i2i_gan_tpu/cli/test_defectgan.py`` (reference:
+defectGAN/test_defectgan.py:119-268).
+
+Loads ``<ckpt_dir>/<name>/<which_epoch>_state.pt`` (a filtered load, as the
+JAX CLI does) and runs the reference's test modes:
+  --save_img_grid          per-background label-grid panels with spatial-
+                           probability heat maps
+  --save_img               plain translated images
+  --save_diverse_images    Multiple_<combo>/Single_<class> grids
+  --cal_clf                discriminator classifier accuracy on real data
+PNGs go to ``<results_dir>/<name>/``. ``--metrics``, ``--cal_mfid`` and
+``--save_stats`` wait for ROADMAP A.11, ``--vis_style_embeds`` for A.12:
+they raise ``NotImplementedError``. ``--gpu_ids -1`` runs on the CPU.
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from de_i2i_gan_torch.utils.png import write_png
+
+
+def _save_image(arr, path: Path):
+    arr = np.clip((np.asarray(arr) + 1.0) * 127.5, 0, 255).astype(np.uint8)
+    write_png(path, arr)
+
+
+def heatmap(prob: np.ndarray) -> np.ndarray:
+    """JET-style colormap of a (H, W) probability map -> (H, W, 3) in [-1,1]
+    (the reference uses cv2.applyColorMap(COLORMAP_JET),
+    defectgan_model.py:336-338)."""
+    p = np.clip(prob, 0, 1)
+    r = np.clip(1.5 - np.abs(4 * p - 3), 0, 1)
+    g = np.clip(1.5 - np.abs(4 * p - 2), 0, 1)
+    b = np.clip(1.5 - np.abs(4 * p - 1), 0, 1)
+    return np.stack([r, g, b], axis=-1) * 2.0 - 1.0
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
+def main(argv=None):
+    """Run the asked test modes; returns the written PNGs and, with
+    --cal_clf, the classifier accuracy."""
+    from de_i2i_gan_torch.cli.train_defectgan import build_datasets
+    from de_i2i_gan_torch.config.options import (
+        Options, check_ported, device_of, to_defectgan_config, to_train_config)
+    from de_i2i_gan_torch.data.pipeline import DataLoader, InfiniteLoader
+    from de_i2i_gan_torch.data.transforms import EvalTransform
+    from de_i2i_gan_torch.metrics.evaluator import defectgan_generator_fn
+    from de_i2i_gan_torch.train.checkpoint import load_checkpoint
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+
+    opt = Options("defectgan_test").parse(argv)
+    check_ported(opt)
+    cfg = to_defectgan_config(opt)
+    datasets, clf_loss_type = build_datasets(
+        opt, "test", EvalTransform(opt.image_size))
+    tcfg = to_train_config(opt, clf_loss_type)
+
+    steps = DefectGanSteps(cfg, tcfg, device=device_of(opt))
+    steps.init_training()  # D, for --cal_clf
+    init_weights(steps, opt.seed)
+    name = opt.load_model_name or opt.name
+    load_checkpoint(opt.ckpt_dir, name, opt.which_epoch, steps, strict=False)
+
+    df_loader = DataLoader(datasets["defects"], opt.batch_size, seed=opt.seed)
+    bg_loader = InfiniteLoader(DataLoader(datasets["background"],
+                                          opt.batch_size, seed=opt.seed + 1))
+    results_dir = Path(opt.results_dir) / name
+    results_dir.mkdir(parents=True, exist_ok=True)
+    device = steps.device
+    gen = torch.Generator(device).manual_seed(opt.seed)
+    generate = defectgan_generator_fn(steps, cfg, gen)
+    result = {"pngs": []}
+
+    if opt.save_img_grid or opt.save_img:
+        labels = torch.eye(cfg.label_nc, device=device)[1:]
+        bg_imgs, _, _ = next(iter(bg_loader))
+        bg_imgs = torch.as_tensor(bg_imgs[:opt.num_display_images],
+                                  device=device)
+        feat = None
+        if cfg.style_norm_block_type == "sean":
+            n = bg_imgs.shape[0] * labels.shape[0]
+            feat = torch.zeros((n, cfg.num_embeds, cfg.embed_nc), device=device)
+        rep = torch.repeat_interleave(bg_imgs, labels.shape[0], dim=0)
+        rep_l = labels.repeat(bg_imgs.shape[0], 1)
+        out, prob = steps.generate(rep, rep_l, feat, generator=gen)
+        out = _host(out).reshape(bg_imgs.shape[0], labels.shape[0],
+                                 *out.shape[1:])
+        prob = _host(prob).reshape(bg_imgs.shape[0], labels.shape[0],
+                                   *prob.shape[1:])
+        for i in range(out.shape[0]):
+            panels = [_host(bg_imgs[i])]
+            for j in range(out.shape[1]):
+                panels.append(out[i, j])
+                if opt.save_img_grid:
+                    panels.append(heatmap(prob[i, j, :, :, 0]))
+            path = results_dir / f"grid_{i}.png"
+            _save_image(np.concatenate(panels, axis=1), path)
+            result["pngs"].append(path)
+        print(f"wrote {out.shape[0]} grids to {results_dir}")
+
+    if opt.cal_clf:
+        correct = total = 0
+        with torch.no_grad():
+            for imgs, labels, _ in df_loader:
+                _, cls = steps.D(torch.as_tensor(imgs, device=device))
+                cls, labels = _host(cls), np.asarray(labels)
+                if clf_loss_type == "bce":
+                    correct += ((cls > 0) == (labels > 0.5)).all(1).sum()
+                else:
+                    correct += (cls.argmax(1) == labels.argmax(1)).sum()
+                total += imgs.shape[0]
+        result["classifier_accuracy"] = float(correct / max(total, 1))
+        print(f"classifier accuracy: {result['classifier_accuracy']:.4f}")
+
+    if opt.save_diverse_images:
+        # Multiple_<combo>/Single_<class> grids over one background batch
+        # (test_defectgan.py:269-297): every multi-label combo seen in the
+        # defect set, plus each single defect class.
+        out_dir = results_dir / "images"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        bg_imgs, _, _ = next(iter(bg_loader))
+        bg_imgs = torch.as_tensor(bg_imgs[:opt.num_display_images],
+                                  device=device)
+
+        def grid_for(label_row, path):
+            lbl = torch.as_tensor(label_row, dtype=torch.float32,
+                                  device=device)[None].repeat(
+                                      bg_imgs.shape[0], 1)
+            out = _host(generate(bg_imgs, lbl))
+            _save_image(np.concatenate(list(out), axis=1), path)
+            result["pngs"].append(path)
+
+        _, df_labels, _ = next(iter(df_loader))
+        df_labels = np.asarray(df_labels)
+        multi = np.unique(df_labels[df_labels.sum(axis=1) > 1], axis=0)
+        for row in multi:
+            grid_for(row, out_dir /
+                     f"Multiple_{tuple(int(v) for v in row)}.png")
+        for class_idx in range(1, cfg.label_nc):
+            row = np.zeros(cfg.label_nc, np.float32)
+            row[class_idx] = 1.0
+            grid_for(row, out_dir / f"Single_{class_idx}.png")
+        print(f"wrote {len(multi)} multi-label + {cfg.label_nc - 1} "
+              f"single-label grids to {out_dir}")
+    return result
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

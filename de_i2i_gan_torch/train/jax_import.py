@@ -19,8 +19,10 @@ follow the flax module names (``stem.conv.weight`` <- ``stem/conv/kernel``):
 
 A network's state arrives as the dict of its flax collections besides
 ``params`` (``state.G.state``: ``batch_stats``, ``spectral``,
-``sean_stats``). Loading is strict: a key missing on either side, or a
-shape that differs, raises.
+``sean_stats``); an optimizer's as its optax state (Adam/AdamW ``mu``,
+``nu`` and ``count`` -> torch's ``exp_avg``, ``exp_avg_sq`` and ``step``;
+RMSprop ``nu``; the schedule's ``count`` -> ``Optimizer.count``). Loading
+is strict: a key missing on either side, or a shape that differs, raises.
 """
 from __future__ import annotations
 
@@ -144,21 +146,77 @@ def load_jax_generator(steps, g_params: Tree, g_state: Mapping[str, Tree],
         load_jax_module(steps.ema_G, ema_params, g_state)
 
 
+def _optax_fields(opt_state) -> Iterator[Dict[str, Any]]:
+    """The fields of each state of an optax chain: its named tuples, or the
+    dicts that flax's state-dict form makes of them (keyed '0', '1', ...)."""
+    parts = ([opt_state[k] for k in sorted(opt_state, key=int)]
+             if isinstance(opt_state, Mapping) else opt_state)
+    for part in parts:
+        if hasattr(part, "_asdict"):
+            yield part._asdict()
+        elif isinstance(part, Mapping):
+            yield dict(part)
+
+
+def load_jax_opt_state(tx, module: nn.Module, opt_state) -> None:
+    """Fill the port's ``Optimizer`` ``tx`` over ``module``'s parameters from
+    the optax state of the same optimizer: the schedule's update count, and
+    Adam/AdamW's ``mu``, ``nu`` and ``count`` or RMSprop's ``nu`` (trees of
+    numpy arrays in flax's layout), so the next update is the one JAX would
+    make."""
+    moments: Dict[str, Tree] = {}
+    adam_count = None
+    for fields in _optax_fields(opt_state):
+        if "mu" in fields:  # scale_by_adam
+            moments = {"exp_avg": fields["mu"], "exp_avg_sq": fields["nu"]}
+            adam_count = int(np.asarray(fields["count"]))
+        elif "nu" in fields:  # scale_by_rms
+            moments = {"nu": fields["nu"]}
+        elif "count" in fields:  # scale_by_schedule
+            tx.count = int(np.asarray(fields["count"]))
+    targets = [t for t in _checked_targets(module) if t[2] == "params"]
+    held = set(tx.opt.state[targets[0][1]]) - {"step"} if targets else set()
+    if set(moments) != held:
+        raise ValueError(f"the optax state holds {sorted(moments)}, the "
+                         f"port's optimizer {sorted(held)}")
+    with torch.no_grad():
+        for name, tree in moments.items():
+            flat = _flatten(tree)
+            want = {t[3] for t in targets}
+            if set(flat) != want:
+                raise KeyError(f"{name}: missing {sorted(want - set(flat))}, "
+                               f"unexpected {sorted(set(flat) - want)}")
+            for _, tensor, _, path, to_port in targets:
+                arr = np.array(to_port(flat[path]), np.float32)
+                tx.opt.state[tensor][name].copy_(torch.from_numpy(arr))
+        if adam_count is not None:
+            for _, tensor, _, _, _ in targets:
+                tx.opt.state[tensor]["step"].fill_(adam_count)
+
+
 def load_jax_train_state(steps, g_params: Tree, g_state: Mapping[str, Tree],
                          d_params: Tree, d_state: Mapping[str, Tree],
                          e_params: Optional[Tree], step: int = 0,
-                         ema_params: Optional[Tree] = None) -> None:
+                         ema_params: Optional[Tree] = None,
+                         g_opt_state=None, d_opt_state=None,
+                         e_opt_state=None) -> None:
     """Fill a ``DefectGanSteps`` for training from the trees of a JAX
     ``GANTrainState``: ``state.G.params``, ``state.G.state``,
     ``state.D.params``, ``state.D.state``, ``state.E.params``,
     ``int(state.step)`` and ``state.ema_G``, given as numpy arrays (the
-    states as dicts of collections). Builds D and the optimizers
-    first (``init_training``). Optimizer moments are not carried: the
-    port's optimizers start fresh, as ``init_state`` makes them, so a
-    state taken after JAX updates continues with new moments."""
+    states as dicts of collections), and, where given, the optimizer states
+    ``state.G.opt_state``, ``state.D.opt_state`` and ``state.E.opt_state``
+    (``load_jax_opt_state``). Builds D and the optimizers first
+    (``init_training``); an optimizer whose state is not given starts
+    fresh, as ``init_state`` makes it."""
     steps.init_training()
     load_jax_generator(steps, g_params, g_state, e_params, ema_params)
     load_jax_module(steps.D, d_params, d_state)
+    for tx, module, opt_state in ((steps.tx_G, steps.G, g_opt_state),
+                                  (steps.tx_D, steps.D, d_opt_state),
+                                  (steps.tx_E, steps.E, e_opt_state)):
+        if opt_state is not None:
+            load_jax_opt_state(tx, module, opt_state)
     steps.step = int(step)
 
 

@@ -87,9 +87,22 @@ def _torch_optimizer(name: str, params) -> torch.optim.Optimizer:
     raise NameError(f"optimizer named {name} not defined")
 
 
+def _zero_state(name: str, p: torch.Tensor) -> dict:
+    """The per-parameter state ``name`` keeps, under the torch optimizer's
+    own keys, as its first step would make it."""
+    if name in ("adam", "adamw"):
+        return {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
+    if name == "rmsprop":
+        return {"nu": torch.zeros_like(p)}
+    return {}
+
+
 class Optimizer:
     """A torch optimizer over ``params`` whose learning rate follows
-    ``lr_schedule`` of its own update count."""
+    ``lr_schedule`` of its own update count. Its moments exist from the
+    start, zeros at count 0, as optax's ``init`` makes them, so a
+    checkpoint or a JAX state can fill them before the first update."""
 
     def __init__(self, tcfg: TrainConfig, params: Iterable[torch.Tensor],
                  base_lr: float, iters_per_epoch: int, num_epochs: int,
@@ -98,6 +111,8 @@ class Optimizer:
         self.schedule = lr_schedule(tcfg, base_lr, iters_per_epoch,
                                     num_epochs, update_every)
         self.opt = _torch_optimizer(tcfg.optimizer, self.params)
+        for p in self.params:
+            self.opt.state[p].update(_zero_state(tcfg.optimizer, p))
         self.count = 0
 
     def step(self, grads) -> None:

@@ -5,6 +5,8 @@
   module of ``de_i2i_gan_tpu``.
 * Importing the CUDA kernel module neither needs nor runs ``nvcc``: the
   kernel is built at first launch.
+* Importing the entry points (``cli/*``) and the input feed parses no
+  arguments, starts no thread and writes nothing.
 """
 import os
 import subprocess
@@ -31,7 +33,13 @@ names = ["de_i2i_gan_torch"] + [m.name for m in pkgutil.walk_packages(
     de_i2i_gan_torch.__path__, "de_i2i_gan_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 15, names
+assert len(names) >= 40, names
+for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
+             "data.pipeline", "data.datasets", "data.synthetic",
+             "data.transforms", "data.embeddings", "metrics.evaluator",
+             "train.checkpoint", "train.trainer", "utils.guards",
+             "utils.seed", "utils.png"):
+    assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
 for path in ("chip_smoke.py", "tests/test_torch_kernel_gpu.py"):
@@ -59,3 +67,21 @@ import de_i2i_gan_torch.train.steps
 assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
 """
     _run(code, PATH="/nonexistent", CUDA_HOME="/nonexistent")
+
+
+def test_entry_points_import_without_side_effects(tmp_path):
+    code = """
+import os, sys, threading
+sys.argv = ["x", "--bogus", "--ckpt_dir", "made_at_import"]
+import de_i2i_gan_torch.cli.train_defectgan
+import de_i2i_gan_torch.cli.test_defectgan
+import de_i2i_gan_torch.data.pipeline
+import de_i2i_gan_torch.train.trainer
+assert threading.active_count() == 1, threading.enumerate()
+assert os.listdir(".") == [], os.listdir(".")
+"""
+    full_env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=full_env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

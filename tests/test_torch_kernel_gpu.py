@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card (``gpu`` marker; skips without one).
+"""The port's CUDA kernels, and ``device_prefetch``'s copies, on the card
+(``gpu`` marker; skips without one).
 
 This file imports torch and the port only, so it also runs where flax (and
 with it the JAX package's models) cannot be imported. On the card:
@@ -300,3 +301,48 @@ def test_super_step_on_card_launches_both_kernels_and_matches_cpu():
             # arithmetic (the BN bias before an instance norm)
             assert (gk - rk).norm() <= (GRAD_REL_L2 * rk.norm() + GRAD_ATOL *
                                         rk.numel() ** 0.5), f"{n} {k}"
+
+
+@pytest.mark.gpu
+def test_device_prefetch_on_card_pinned_and_on_a_side_stream(tmp_path):
+    """Super-batches out of device_prefetch equal the host's bit for bit;
+    their copies come from pinned memory, on a stream that none of the
+    consumer's kernels runs on (the profiler's trace)."""
+    _need_card()
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from de_i2i_gan_torch.data.pipeline import (
+        DataLoader, DualStreamLoader, device_prefetch)
+    from de_i2i_gan_torch.data.synthetic import SyntheticDefectDataset
+
+    def loader():
+        df = SyntheticDefectDataset(64, 6, 16, "defects", seed=1)
+        bg = SyntheticDefectDataset(64, 6, 16, "background", seed=1)
+        return DualStreamLoader(DataLoader(df, 4, seed=1),
+                                DataLoader(bg, 4, seed=2), 2)
+
+    host = list(loader())
+    fed, sums = [], []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in device_prefetch(loader(), "cuda"):
+            sums.append(sum(v.float().sum() for v in batch.values()))
+            fed.append(batch)
+        torch.cuda.synchronize()
+    assert len(fed) == len(host) == 2
+    for f, h in zip(fed, host):
+        assert sorted(f) == sorted(h)
+        for k, v in h.items():
+            assert f[k].is_cuda and torch.equal(f[k].cpu(), torch.from_numpy(v))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = {e["args"].get("stream") for e in events
+               if e.get("cat") == "kernel"}
+    assert len(copies) >= 3 * len(fed) and kernels
+    assert all("Pinned" in e["name"] for e in copies), [e["name"] for e in copies]
+    assert not {e["args"].get("stream") for e in copies} & kernels
