@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Drives the port's paths at full width, DefectGAN-256 in bf16 with each of
-its three decoders, with random weights from a seed, and shows that the
-AdaIN and SEAN paths ran through the hand-written CUDA kernels (forward
-and backward of the modulated instance norm) and the SPADE path through
-none:
+its three decoders and StarGAN v2 at 256^2 (AdaIN and SEANv2), with random
+weights from a seed, and shows that the AdaIN and SEAN paths ran through
+the hand-written CUDA kernels (forward and backward of the modulated
+instance norm) and the SPADE path through none:
 
   * serving: ``DefectGanSteps.generate`` on batches of 8;
   * training: ``DefectGanSteps.super_step``, 5 D steps and one G step on
     batches of 8 (the fused 2B generator forwards give the kernels batches
-    of 16).
+    of 16), also through the train CLI with each input feed;
+  * StarGAN v2 serving: ``StarGANv2Solver`` requests of 32 (the style code,
+    then the EMA generator; 12 forward-kernel calls a G forward).
 
 AdaIN takes the style code from E; SEAN takes ViT-sized (8, 5, 768) style
 embeddings made on the card, tracks its running statistics and adds its
@@ -54,7 +56,8 @@ Phases, each of which raises on failure:
               a tiny f32 super-step with spectral norm on the card against
               the CPU; 2 warm-up + 5 timed full-width super-steps (the
               path's launch counts), peak memory, profile; the epoch update
-              of the statistics and one request that samples them; G's SGD
+              of the statistics and one request that samples them, against
+              the use_pallas=False path within phase 4's band; G's SGD
               deltas kernel path vs plain path as in 6d
   7c. spade   serving and training with spectral norm, noise injection and
               DiffAugment: times, peak memory, profiles; no kernel launches
@@ -76,6 +79,25 @@ Phases, each of which raises on failure:
               exact, statistics finalized
   8e. feed    the CLI's super-batches through device_prefetch equal the
               host's bit for bit; the loader's pace with and without the copies
+  8f. native  the train CLI with ``--native_loader`` for one epoch: exactly
+              56/16 launches a super-step, u8 super-batches at the step,
+              pinned copies on the prefetch stream (profile), loader-fed time
+              and busy share beside 8a's; the C++ feed's u8 super-batches
+              through device_prefetch equal the host's bit for bit (one
+              thread); its pace with the CLI's four threads
+  9a. sgv2    the forward kernel against its plain version at StarGAN v2's
+              five decoder shapes (batch 32), float32 and bfloat16; kernel,
+              plain version and F.instance_norm timed beside the bound
+  9b. sgv2    AdaIN serving: 2 warm-up + 5 timed requests of 32 with latent
+              styles, then with reference styles; exactly 12 forward launches
+              a G forward at the five shapes; peak memory, profile; a
+              request, kernel path vs the plain version swapped in: f32
+              control (TF32 off) within relative L2 1e-4, bf16 no further
+              from the f32 plain path than 1.5x the bf16 plain path
+  9c. sgv2    SEANv2 serving with (32, 5, 768) embeddings: 2 warm-up + 5
+              timed requests, track_stats_step over 4 batches,
+              finalize_ema_stats, one inference_stats request; the same
+              launch and agreement checks as 9b
 
 The line before the last two holds the kernels' JSON record, the next the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -167,6 +189,17 @@ CARD = "cuda"  # the device type the entry points run on (--gpu_ids 0)
 CLI_SEED = 123  # the CLI's default --seed
 PROFILE_AT = 6  # the first of the trainer's profiled super-steps
 PROFILED_SUPER_STEPS = 3
+# phases 9a-9c: StarGAN v2 serving at the CLI's defaults, 256^2, requests of
+# --val_batch_size 32, w_hpf=0. The modulated instance norm's call sites of
+# one G forward: (N, C, H, W) -> calls (models/starganv2.py, decoder)
+SGV2_BATCH = 32
+SGV2_IMAGE = 256
+SGV2_SHAPES = {(32, 512, 16, 16): 5, (32, 512, 32, 32): 2, (32, 256, 64, 64): 2,
+               (32, 128, 128, 128): 2, (32, 64, 256, 256): 1}
+SGV2_FWD_PER_FORWARD = sum(SGV2_SHAPES.values())  # 12
+# a request, kernel path vs plain path, f32 control with TF32 off: relative L2
+SGV2_F32_BAND = 1e-4
+SGV2_TRACK_BATCHES = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -247,12 +280,13 @@ def expected_launches(cfg, forwards, backwards):
 # ------------------------------------------------------------ 3. kernels
 
 
-def phase_fwd_vs_plain(nk, fused, smi):
+def phase_fwd_vs_plain(nk, fused, smi,
+                       shapes=(*SLICE_SHAPES, *TRAIN_SHAPES, RAGGED),
+                       acts=(None, "relu", "leaky_relu")):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [(s, dt, act) for s in (*SLICE_SHAPES, *TRAIN_SHAPES, RAGGED)
-             for dt in (torch.float32, torch.bfloat16)
-             for act in (None, "relu", "leaky_relu")]
+    cases = [(s, dt, act) for s in shapes
+             for dt in (torch.float32, torch.bfloat16) for act in acts]
     worst = 0.0
     for i, (shape, dt, act) in enumerate(cases):
         x, g, b = make_norm_inputs(shape, dt, SEED + i)
@@ -770,8 +804,11 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
 
 def phase_sean_stats_request(nk, steps, smi):
     """The epoch update of SEAN's running statistics after training, then
-    one request that samples them (``inference_stats``) with noise."""
+    one request that samples them (``inference_stats``) with noise, held
+    against the same request through the use_pallas=False path within the
+    serving band of phase 4."""
     from de_i2i_gan_torch.nn.normalization import SEAN
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
 
     seans = [m for m in steps.G.modules() if isinstance(m, SEAN)]
     tracked = sum(m.count.sum().item() for m in seans)
@@ -797,10 +834,29 @@ def phase_sean_stats_request(nk, steps, smi):
     check(nk.LAUNCHES - before == want,
           f"the inference_stats request launched {nk.LAUNCHES - before} kernels")
     check_images(out, prob, BATCH, size)
+    plain = DefectGanSteps(steps.cfg.replace(use_pallas=False), device="cuda")
+    plain.G.load_state_dict(steps.G.state_dict())  # weights and statistics
+    plain.G.train(steps.G.training)
+    launched = nk.LAUNCHES
+    pout, pprob = plain.generate(data, labels, noise, inference_stats=True)
+    check(nk.LAUNCHES == launched, "the use_pallas=False request launched the kernel")
+    diffs = {}
+    for a, b, name in ((out, pout, "out"), (prob, pprob, "prob")):
+        d = (a.float() - b.float()).abs()
+        diffs[name] = (d.max().item(), d.mean().item())
+        check(diffs[name][0] <= OUT_BAND and diffs[name][1] <= MEAN_BAND,
+              f"sean inference_stats request {name}: kernel vs plain max "
+              f"{diffs[name][0]:.3e} mean {diffs[name][1]:.3e} outside the "
+              f"band (max {OUT_BAND}, mean {MEAN_BAND})")
+    del plain
     print(f"sean statistics: {tracked:.0f} style codes tracked over "
           f"{len(seans)} layers, finalized ({seen} (layer, label combination) "
           f"rows with statistics); one inference_stats request: {want} "
-          f"forward kernel launches, outputs finite and in range [{smi}]")
+          f"forward kernel launches, outputs finite and in range; against the "
+          f"use_pallas=False path max|dout|={diffs['out'][0]:.3e} (mean "
+          f"{diffs['out'][1]:.3e}) max|dprob|={diffs['prob'][0]:.3e} (mean "
+          f"{diffs['prob'][1]:.3e}), band max {OUT_BAND} mean {MEAN_BAND} "
+          f"[{smi}]")
 
 
 def phase_train_compare(smi, make_cfg, label, diff_aug=""):
@@ -1022,6 +1078,7 @@ class SuperStepClock:
     def __init__(self, nk, profile_at=None):
         self.nk, self.profile_at = nk, profile_at
         self.ends, self.launches, self.keys, self.on_card = [], [], [], []
+        self.dtypes = []
         self.prof = None
 
     def __enter__(self):
@@ -1045,6 +1102,7 @@ class SuperStepClock:
             self.ends.append(time.perf_counter())
             self.launches.append((self.nk.LAUNCHES, self.nk.BWD_LAUNCHES))
             self.keys.append(sorted(batches))
+            self.dtypes.append({k: v.dtype for k, v in batches.items()})
             self.on_card.append(all(v.device.type == CARD
                                     for v in batches.values()))
             return out
@@ -1136,33 +1194,36 @@ def same_state(a, b):
     return None
 
 
-def phase_cli_train(nk, smi, preloaded_ms):
-    """8a. ``cli.train_defectgan.main`` in-process: AdaIN on the synthetic
-    dataset at full width for one epoch, through device_prefetch."""
+def phase_cli_train(nk, smi, preloaded_ms, name="adain", *extra):
+    """8a (8f with ``--native_loader``). ``cli.train_defectgan.main``
+    in-process: AdaIN on the synthetic dataset at full width for one epoch,
+    through device_prefetch; run ``name`` with the ``extra`` flags."""
     from de_i2i_gan_torch.cli.train_defectgan import main as train_main
     from de_i2i_gan_torch.train.checkpoint import read_iter_record
 
+    label = f"train CLI {name}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the trainer's run starts here
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT) as clock:
-        trainer = train_main(cli_args("adain", "--style_norm_block_type",
+        trainer = train_main(cli_args(name, "--style_norm_block_type",
                                       "adain", "--num_epochs", "1",
-                                      "--save_ckpt_freq", "1"))
+                                      "--save_ckpt_freq", "1", *extra))
     wall_s = time.perf_counter() - t0
-    launches = check_trainer_launches(nk, clock, "train CLI adain",
+    launches = check_trainer_launches(nk, clock, label,
                                       trainer.cfg)  # ... ends here
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    check_trained(trainer, "train CLI adain")
+    check_trained(trainer, label)
     n = len(clock.ends)
     check(n == 512 // BATCH // CRITICS and trainer.iters == n * CRITICS,
           f"{n} super-steps, {trainer.iters} iterations")
-    run = CLI_DIR / "ckpt" / "adain"
+    run = CLI_DIR / "ckpt" / name
     for f in ("latest_state.pt", "1_state.pt", "iter.txt", "opt.json"):
         check((run / f).exists(), f"the train CLI wrote no {f}")
-    check(read_iter_record(CLI_DIR / "ckpt", "adain") == (1, n * CRITICS),
+    check(read_iter_record(CLI_DIR / "ckpt", name) == (1, n * CRITICS),
           "iter.txt")
+    image_dtypes = {d[k] for d in clock.dtypes for k in ("df", "bg")}
     steady = clock.steady_ms()
     fed_ms = statistics.median(steady)
     from torch.autograd import DeviceType
@@ -1170,27 +1231,30 @@ def phase_cli_train(nk, smi, preloaded_ms):
                  if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
     # every host-to-device copy in the window is a super-batch's, pinned and
     # on the prefetch stream: the step's own torch.as_tensor copied nothing
-    copies, streams = h2d_copies(clock.prof, CLI_DIR / "trainer_trace.json")
+    copies, streams = h2d_copies(clock.prof, CLI_DIR / f"{name}_trace.json")
     keys = len(clock.keys[0])
     check(len(copies) >= keys and all("Pinned" in c[0] and c[1] not in streams
                                       for c in copies),
           f"host-to-device copies {copies} vs kernel streams {streams}")
-    print(f"train CLI adain, 1 epoch: {n} super-steps in {wall_s:.1f} s "
+    print(f"{label}, 1 epoch: {n} super-steps in {wall_s:.1f} s "
           f"(set-up, checkpoints and all); loader-fed super-step ms, host "
           f"clock, median of {len(steady)} steady: {fed_ms:.3f} "
           f"{[round(v, 3) for v in steady]}; preloaded super_step (phase 6d, "
           f"mean of 5): {preloaded_ms:.3f}; kernels a super-step over "
           f"{PROFILED_SUPER_STEPS} profiled trainer super-steps {dev_ms:.3f} "
           f"ms, busy share {dev_ms / fed_ms:.1%} of the loader-fed time; peak "
-          f"memory {peak_mb:.1f} MiB; launches {launches} [{smi}]")
-    print(f"train CLI host-to-device copies in the profiled window: "
+          f"memory {peak_mb:.1f} MiB; launches {launches}; images reach the "
+          f"step as {sorted(map(str, image_dtypes))} [{smi}]")
+    print(f"{label} host-to-device copies in the profiled window: "
           f"{len(copies)} ({len(copies) / keys:.0f} super-batches of {keys} "
           f"arrays, {sum(c[2] for c in copies) / 2**20:.1f} MiB), all from "
           f"pinned memory, on stream(s) {sorted({c[1] for c in copies})}; the "
           f"kernels on stream(s) {sorted(streams)}: the copies ran on a side "
           f"stream and the step copied nothing itself")
     result = dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, peak_mb=peak_mb,
-                  super_steps=n, state=cpu_state(trainer.steps))
+                  super_steps=n, state=cpu_state(trainer.steps),
+                  image_dtypes=image_dtypes,
+                  copy_mb=sum(c[2] for c in copies) / 2**20 / (len(copies) / keys))
     del trainer, clock
     free_memory()
     return result
@@ -1343,36 +1407,344 @@ def phase_cli_sean(nk, smi):
     return dict(launches=launches)
 
 
-def phase_prefetch(smi):
-    """8e. The CLI's super-batches out of device_prefetch equal the host's
-    bit for bit; the loader's own pace with and without the copies."""
+def loader_pace(make_loader):
+    """Host-clock ms a super-batch of a fresh loader: alone, then through
+    device_prefetch with the pinned copies to the card; returns both times
+    and the batches of each run."""
     from de_i2i_gan_torch.data.pipeline import device_prefetch
 
-    t0 = time.perf_counter()
-    host = list(cli_loader())
-    host_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fed = []
-    for batch in device_prefetch(cli_loader(), CARD):
-        torch.cuda.current_stream().synchronize()
-        fed.append(batch)
-    fed_s = time.perf_counter() - t0
+    runs = []
+    for fed in (False, True):
+        loader = make_loader()
+        t0 = time.perf_counter()
+        if fed:
+            batches = []
+            for batch in device_prefetch(loader, CARD):
+                torch.cuda.current_stream().synchronize()
+                batches.append(batch)
+        else:
+            batches = list(loader)
+        runs.append(((time.perf_counter() - t0) * 1e3 / max(len(batches), 1),
+                     batches))
+        if hasattr(loader, "close"):  # the native feed's C++ threads
+            loader.close()
+    (host_ms, host), (fed_ms, fed) = runs
     check(len(fed) == len(host) > 0, f"{len(fed)} of {len(host)} super-batches")
+    return host_ms, fed_ms, host, fed
+
+
+def phase_prefetch(smi, make_loader, label):
+    """8e (and 8f's feed). Super-batches out of device_prefetch equal the
+    host's bit for bit (two loaders made alike); the loader's own pace with
+    and without the copies."""
+    host_ms, fed_ms, host, fed = loader_pace(make_loader)
     for i, (f, h) in enumerate(zip(fed, host)):
         check(sorted(f) == sorted(h), f"super-batch {i} keys")
         for k, v in h.items():
-            check(f[k].device.type == CARD and
-                  torch.equal(f[k].cpu(), torch.from_numpy(v)),
-                  f"super-batch {i} {k} differs from the host's")
+            check(f[k].device.type == CARD and f[k].dtype == torch.from_numpy(v).dtype
+                  and torch.equal(f[k].cpu(), torch.from_numpy(v)),
+                  f"{label} super-batch {i} {k} differs from the host's")
     mb = sum(v.nbytes for v in host[0].values()) / 2**20
-    print(f"device_prefetch: {len(fed)} super-batches ({mb:.1f} MiB each) equal "
-          f"the host's bit for bit; the synthetic loader alone makes one in "
-          f"{host_s * 1e3 / len(host):.1f} ms of host clock, with the pinned "
-          f"copies to the card in {fed_s * 1e3 / len(fed):.1f} ms [{smi}]")
-    result = dict(host_ms=host_s * 1e3 / len(host), fed_ms=fed_s * 1e3 / len(fed))
+    dtypes = sorted({str(v.dtype) for v in host[0].values()})
+    print(f"device_prefetch, {label}: {len(fed)} super-batches ({mb:.1f} MiB "
+          f"each, {dtypes}) equal the host's bit for bit; the loader alone "
+          f"makes one in {host_ms:.1f} ms of host clock, with the pinned "
+          f"copies to the card in {fed_ms:.1f} ms [{smi}]")
+    result = dict(host_ms=host_ms, fed_ms=fed_ms, mb=mb)
     del fed, host
     free_memory()
     return result
+
+
+def native_cli_loader(num_threads):
+    """The super-batches of the train CLI's ``--native_loader`` feed (8f's
+    cache, datasets and seed), from ``num_threads`` C++ threads."""
+    from de_i2i_gan_torch.data.synthetic import SyntheticDefectDataset
+    from de_i2i_gan_torch.runtime.native_loader import make_native_dual_stream
+
+    df, bg = (SyntheticDefectDataset(CLI_IMAGE, 6, 512, dt, seed=CLI_SEED)
+              for dt in ("defects", "background"))
+    return make_native_dual_stream(df, bg, CLI_DIR / "ckpt" / "native_cache"
+                                   / "native", CLI_IMAGE, BATCH, CRITICS,
+                                   seed=CLI_SEED, num_threads=num_threads)
+
+
+def phase_native_feed(nk, smi, preloaded_ms, synthetic):
+    """8f. ``--native_loader``: the train CLI for one epoch on the C++
+    feed; its u8 super-batches through device_prefetch equal the host's (one
+    C++ thread, so two loaders give the same stream); the feed's pace with
+    the CLI's four threads."""
+    run = phase_cli_train(nk, smi, preloaded_ms, "native", "--native_loader")
+    check(run["image_dtypes"] == {torch.uint8},
+          f"the native feed reached the step as {run['image_dtypes']}")
+    check((CLI_DIR / "ckpt" / "native_cache" / "native" / "defects" /
+           "images.u8").exists(), "no native cache under ckpt/native_cache")
+    feed = phase_prefetch(smi, lambda: native_cli_loader(1), "native, 1 thread")
+    host_ms, fed_ms, _, _ = loader_pace(lambda: native_cli_loader(4))
+    print(f"native feed, 4 threads (the CLI's): a super-batch in {host_ms:.1f} "
+          f"ms alone, {fed_ms:.1f} ms with the pinned copies [{smi}]")
+    print(f"trainer-fed AdaIN, synthetic loader (8a) vs native feed (8f): "
+          f"loader-fed super-step {synthetic['ms']:.3f} vs {run['ms']:.3f} ms "
+          f"(host clock, median of steady); busy share "
+          f"{synthetic['dev_ms'] / synthetic['ms']:.1%} vs "
+          f"{run['dev_ms'] / run['ms']:.1%}; kernels {synthetic['dev_ms']:.3f} "
+          f"vs {run['dev_ms']:.3f} ms a super-step; copied {synthetic['copy_mb']:.1f} "
+          f"vs {run['copy_mb']:.1f} MiB a super-batch; peak {synthetic['peak_mb']:.1f} "
+          f"vs {run['peak_mb']:.1f} MiB [{smi}]")
+    del run["state"]
+    free_memory()
+    return dict(run, native_1t_ms=feed["host_ms"], native_host_ms=host_ms,
+                native_fed_ms=fed_ms)
+
+
+# ------------------------------------------- 9. StarGAN v2 serving at 256^2
+
+
+def sgv2_config(**kw):
+    """The StarGAN v2 CLI's defaults (cli/starganv2_main.py) at 256^2 in
+    bf16, with w_hpf=0 (AFHQ: no FAN masks)."""
+    from de_i2i_gan_torch.train.solver import StarGANv2Config
+    return StarGANv2Config(img_size=SGV2_IMAGE, num_domains=2, latent_dim=16,
+                           hidden_nc=256, style_dim=64, embed_nc=EMBEDS[1],
+                           num_embeds=EMBEDS[0], max_conv_dim=512, w_hpf=0.0,
+                           compute_dtype="bfloat16").replace(**kw)
+
+
+def sgv2_solver(cfg):
+    from de_i2i_gan_torch.train.jax_import import init_starganv2_weights
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+    solver = StarGANv2Solver(cfg, device="cuda")
+    init_starganv2_weights(solver, SEED)
+    return solver
+
+
+def sgv2_requests(cfg, n, seed):
+    """``n`` requests of SGV2_BATCH made on the card: source and reference
+    images, target domains, latents, and ViT-sized reference embeddings."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (SGV2_BATCH, cfg.img_size, cfg.img_size, 3)
+    return [{"x_src": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+             "x_ref": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+             "y": torch.randint(0, cfg.num_domains, (SGV2_BATCH,), generator=gen,
+                                device="cuda"),
+             "z_ref": torch.randn((SGV2_BATCH, cfg.latent_dim), generator=gen,
+                                  device="cuda"),
+             "s_ref": torch.randn((SGV2_BATCH, *EMBEDS), generator=gen,
+                                  device="cuda")}
+            for _ in range(n)]
+
+
+def sgv2_request(solver, req, latent=False):
+    """One request as sampling serves it: the style code from the EMA M
+    (latent) or S (reference), or the request's embeddings (SEAN), then the
+    EMA generator."""
+    s = solver.style(req, req["y"], which="ref", latent=latent, use_ema=True)
+    return solver.generate(req["x_src"], s, req["y"])
+
+
+def check_sgv2_images(out, label):
+    check(out.shape == (SGV2_BATCH, SGV2_IMAGE, SGV2_IMAGE, 3)
+          and out.dtype == torch.bfloat16,
+          f"{label}: output {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+
+
+def check_sgv2_calls(calls, forwards, label):
+    """Exactly 12 forward-kernel calls a G forward, at the five shapes."""
+    want = Counter({s: forwards * c for s, c in SGV2_SHAPES.items()})
+    check(calls["fwd"] == want and not calls["bwd"],
+          f"{label}: calls by shape {dict(calls['fwd'])} (backward "
+          f"{dict(calls['bwd'])}), expected {dict(want)}")
+
+
+@contextlib.contextmanager
+def plain_sgv2_norm(fused):
+    """StarGAN v2's styled norms through the plain version: the script swaps
+    it into the name ``models/starganv2.py`` calls (``StyleAdaIN`` and
+    ``SEANv2`` have no switch for the kernel)."""
+    from de_i2i_gan_torch.models import starganv2 as sg
+    real = sg.modulated_instance_norm
+    sg.modulated_instance_norm = (
+        lambda x, g, b, act=None, eps=1e-5:
+        fused.modulated_instance_norm_ref(x, g, b, act, eps)[0])
+    try:
+        yield
+    finally:
+        sg.modulated_instance_norm = real
+
+
+def sgv2_agreement(nk, fused, solver, run, label, smi):
+    """The kernel path against the plain path on one request: in an f32
+    control run (TF32 off) within SGV2_F32_BAND relative L2; in bf16 the
+    kernel path no further from the f32 plain path than BF16_DELTA_FACTOR
+    times the bf16 plain path is. ``run(solver)`` serves the request."""
+    f32 = sgv2_solver_like(solver, "float32")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs = {}
+    for dt, sv in (("bfloat16", solver), ("float32", f32)):
+        outs[dt, True] = run(sv).float()
+        before = nk.LAUNCHES
+        with plain_sgv2_norm(fused):
+            outs[dt, False] = run(sv).float()
+        check(nk.LAUNCHES == before, f"{label}: the plain path launched the kernel")
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((outs[a] - outs[b]).norm() / outs[b].norm()).item()
+
+    f32_rel = rel(("float32", True), ("float32", False))
+    k16 = rel(("bfloat16", True), ("float32", False))
+    p16 = rel(("bfloat16", False), ("float32", False))
+    kp16 = rel(("bfloat16", True), ("bfloat16", False))
+    print(f"{label} kernel path vs plain path, relative L2: f32 (TF32 off) "
+          f"{f32_rel:.3e} (band {SGV2_F32_BAND}); bf16 kernel vs f32 plain "
+          f"{k16:.3e}, bf16 plain vs f32 plain {p16:.3e} (band "
+          f"{BF16_DELTA_FACTOR} x that = {BF16_DELTA_FACTOR * p16:.3e}); bf16 "
+          f"kernel vs bf16 plain {kp16:.3e} [{smi}]")
+    check(f32_rel <= SGV2_F32_BAND,
+          f"{label}: f32 kernel path differs from the plain path by {f32_rel:.3e}")
+    check(k16 <= BF16_DELTA_FACTOR * p16,
+          f"{label}: bf16 kernel path {k16:.3e} from the f32 plain path, "
+          f"outside {BF16_DELTA_FACTOR} x {p16:.3e}")
+    del f32, outs
+    free_memory()
+    return dict(f32=f32_rel, k16=k16, p16=p16, kp16=kp16)
+
+
+def sgv2_solver_like(solver, compute_dtype):
+    """A solver of another compute dtype with ``solver``'s weights and
+    running styles."""
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+    other = StarGANv2Solver(solver.cfg.replace(compute_dtype=compute_dtype),
+                            device="cuda")
+    for name, net in solver.nets().items():
+        getattr(other, name).load_state_dict(net.state_dict())
+    return other
+
+
+def timed_requests(serve, requests, label, smi, warmup=2):
+    """Host-clock ms of each request (ending in a synchronize), the first
+    ``warmup`` left out; every output checked."""
+    times = []
+    for i, req in enumerate(requests):
+        t0 = time.perf_counter()
+        out = serve(req)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        check_sgv2_images(out, f"{label} request {i}")
+    mean_ms = sum(times) / len(times)
+    print(f"{label}: {len(requests)} requests of {SGV2_BATCH} at {SGV2_IMAGE}^2, "
+          f"latency "
+          f"ms {[round(v, 3) for v in times]} mean {mean_ms:.3f} "
+          f"({SGV2_BATCH * 1e3 / mean_ms:.1f} img/s) [{smi}]")
+    return mean_ms
+
+
+def phase_sgv2_adain(nk, fused, smi):
+    """9b. StarGAN v2 AdaIN serving: 2 warm-up + 5 timed requests of 32 with
+    latent styles (EMA M), then with reference styles (EMA S); the exact
+    launch tally by shape, peak memory, a profile, and the kernel path
+    against the plain path in bf16 and in an f32 control run."""
+    cfg = sgv2_config(norm_type="adain")
+    solver = sgv2_solver(cfg)
+    reqs = sgv2_requests(cfg, 7, SEED + 11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    with tally_calls(nk) as calls:
+        ms = {mode: timed_requests(
+            lambda r, latent=(mode == "latent"): sgv2_request(solver, r, latent),
+            reqs, f"sgv2 adain {mode} styles", smi)
+            for mode in ("latent", "reference")}
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check_sgv2_calls(calls, 2 * len(reqs), "sgv2 adain")
+    check(launches == {"fwd": SGV2_FWD_PER_FORWARD * 2 * len(reqs), "bwd": 0},
+          f"sgv2 adain launches {launches}")
+    print(f"sgv2 adain serving: peak memory {peak_mb:.1f} MiB, launches "
+          f"{launches} over {2 * len(reqs)} G forwards, calls by shape "
+          f"{dict(calls['fwd'])} [{smi}]")
+    dev_ms = profile_device(lambda: sgv2_request(solver, reqs[2], True), 2,
+                            "sgv2 adain request", ms["latent"], smi)
+    agree = {mode: sgv2_agreement(
+        nk, fused, solver, lambda sv, latent=(mode == "latent"):
+        sgv2_request(sv, reqs[0], latent), f"sgv2 adain {mode}", smi)
+        for mode in ("latent", "reference")}
+    del solver, reqs
+    free_memory()
+    return dict(launches=launches, ms=ms, peak_mb=peak_mb, dev_ms=dev_ms,
+                agree=agree, calls=calls["fwd"], forwards=2 * 7)
+
+
+def phase_sgv2_sean(nk, fused, smi):
+    """9c. StarGAN v2 SEANv2 serving with (32, 5, 768) embeddings made on the
+    card: 2 warm-up + 5 timed requests; the update_stats sweep
+    (``track_stats_step`` over 4 batches, ``finalize_ema_stats``) and one
+    ``inference_stats`` request; the launch tally, peak memory, a profile,
+    and both kinds of request against the plain path as in 9b."""
+    from de_i2i_gan_torch.models.starganv2 import SEANv2
+
+    cfg = sgv2_config(norm_type="sean")
+    solver = sgv2_solver(cfg)
+    reqs = sgv2_requests(cfg, 7 + SGV2_TRACK_BATCHES + 1, SEED + 12)
+    serve, track, last = (reqs[:7], reqs[7:7 + SGV2_TRACK_BATCHES], reqs[-1])
+    noise = torch.randn((SGV2_BATCH, cfg.hidden_nc), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED + 13))
+    seans = [m for m in solver.ema_G.modules() if isinstance(m, SEANv2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    with tally_calls(nk) as calls:
+        ms = timed_requests(lambda r: sgv2_request(solver, r), serve,
+                            "sgv2 sean reference embeddings", smi)
+        for req in track:
+            solver.track_stats_step(req["x_ref"], req["s_ref"], req["y"])
+        tracked = sum(m.count.sum().item() for m in seans)
+        solver.finalize_ema_stats()
+        t0 = time.perf_counter()
+        out = solver.generate(last["x_src"], noise, last["y"],
+                              inference_stats=True)
+        torch.cuda.synchronize()
+        stats_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    forwards = len(serve) + len(track) + 1
+    check_sgv2_calls(calls, forwards, "sgv2 sean")
+    check(launches == {"fwd": SGV2_FWD_PER_FORWARD * forwards, "bwd": 0},
+          f"sgv2 sean launches {launches}")
+    check_sgv2_images(out, "sgv2 sean inference_stats request")
+    check(tracked == SGV2_TRACK_BATCHES * SGV2_BATCH * len(seans),
+          f"{tracked} style codes tracked")
+    for m in seans:
+        check(m.count.sum().item() == 0 and bool((m.std > 0).all())
+              and bool(torch.isfinite(m.mean).all()),
+              "the EMA running styles were not finalized for every domain")
+    check(all(m.count.sum().item() == 0 and not m.std.any()
+              for m in solver.G.modules() if isinstance(m, SEANv2)),
+          "the sweep touched G's own statistics")
+    print(f"sgv2 sean: update_stats over {len(track)} batches tracked "
+          f"{tracked:.0f} codes in {len(seans)} layers, finalized for both "
+          f"domains; inference_stats request {stats_ms:.3f} ms; peak memory "
+          f"{peak_mb:.1f} MiB, launches {launches} over {forwards} G forwards "
+          f"[{smi}]")
+    dev_ms = profile_device(lambda: sgv2_request(solver, serve[2]), 2,
+                            "sgv2 sean request", ms, smi)
+    agree = {
+        "embeddings": sgv2_agreement(nk, fused, solver,
+                                     lambda sv: sgv2_request(sv, serve[0]),
+                                     "sgv2 sean embeddings", smi),
+        "inference_stats": sgv2_agreement(
+            nk, fused, solver, lambda sv: sv.generate(
+                last["x_src"], noise, last["y"], inference_stats=True),
+            "sgv2 sean inference_stats", smi)}
+    del solver, reqs, serve, track, last
+    free_memory()
+    return dict(launches=launches, ms=ms, stats_ms=stats_ms, peak_mb=peak_mb,
+                dev_ms=dev_ms, agree=agree, calls=calls["fwd"],
+                forwards=forwards)
 
 
 def main() -> int:
@@ -1473,7 +1845,7 @@ def main() -> int:
 
     # 8. the entry points: the train CLI (8a), the test CLI on its
     # checkpoint (8d, before 8b rewrites epoch 1), the resumed run (8b), SEAN
-    # with an embedding bank (8c), the feed alone (8e)
+    # with an embedding bank (8c), the feed alone (8e), the native feed (8f)
     cli_started = time.perf_counter()
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     CLI_DIR.mkdir(parents=True)
@@ -1482,35 +1854,60 @@ def main() -> int:
     trainer_resume = phase_cli_resume(nk, smi, trainer_adain)
     del trainer_adain["state"]
     trainer_sean = phase_cli_sean(nk, smi)
-    feed = phase_prefetch(smi)
+    feed = phase_prefetch(smi, cli_loader, "synthetic loader")
     pace = ("the synthetic loader" if feed["host_ms"] >= training["ms"]
             else "the step (device and launches), not the loader")
     print(f"pace: the loader makes a super-batch in {feed['host_ms']:.1f} ms, "
           f"the preloaded super-step takes {training['ms']:.3f} ms and the "
           f"loader-fed one {trainer_adain['ms']:.3f} ms: {pace} sets it [{smi}]")
+    trainer_native = phase_native_feed(nk, smi, training["ms"], trainer_adain)
     cli_s = time.perf_counter() - cli_started
+
+    # 9. StarGAN v2 serving at 256^2: the forward kernel at its shapes (9a),
+    # AdaIN (9b) and SEANv2 (9c) requests of 32
+    sgv2_started = time.perf_counter()
+    sgv2_worst = phase_fwd_vs_plain(nk, fused, smi, tuple(SGV2_SHAPES), (None,))
+    fwd_sgv2_rows = phase_fwd_timing(nk, fused, SGV2_SHAPES, smi)
+    for r in fwd_sgv2_rows:
+        share = r["bound_ms"] / r["ms"]
+        print(f"sgv2 shape {tuple(r['shape'])}: kernel {r['ms']:.4f} ms, "
+              f"{share:.1%} of its bound, {r['library_ms'] / r['ms']:.2f}x the "
+              f"library call's speed: "
+              f"{'below half its bound' if share < 0.5 else 'at least half its bound'}"
+              f", {'behind' if r['ms'] > r['library_ms'] else 'ahead of'} the "
+              f"library call [{smi}]")
+    sgv2_adain = phase_sgv2_adain(nk, fused, smi)
+    sgv2_sean = phase_sgv2_sean(nk, fused, smi)
+    sgv2_s = time.perf_counter() - sgv2_started
 
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
              "serving_spade": serving_spade, "training_spade": training_spade,
              "trainer_adain": trainer_adain, "test_cli": test_cli,
-             "trainer_resume": trainer_resume, "trainer_sean": trainer_sean}
+             "trainer_resume": trainer_resume, "trainer_sean": trainer_sean,
+             "trainer_native": trainer_native, "sgv2_adain": sgv2_adain,
+             "sgv2_sean": sgv2_sean}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
-            "per_serving_forward: device ms summed over one serving forward")
+            "per_serving_forward / per_sgv2_forward: device ms summed over one "
+            "DefectGAN serving forward / one StarGAN v2 G forward at batch 32")
+    fwd_sgv2_rows = with_calls(fwd_sgv2_rows, sgv2_adain["calls"],
+                               sgv2_adain["forwards"])
     fwd_serving_rows = with_calls(fwd_serving_rows, serve_calls["fwd"], 2)
     fwd = kernel_record(
         "modulated_instance_norm_fwd",
         "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:51",
         with_calls(fwd_train_rows, train_calls["fwd"], 1),
-        launches_by_path(paths, "fwd"), fwd_worst, unit,
-        {"per_serving_forward": {
-            "calls": sum(r["calls"] for r in fwd_serving_rows),
-            **{k: summed(fwd_serving_rows, k)
+        launches_by_path(paths, "fwd"), max(fwd_worst, sgv2_worst), unit,
+        {f"per_{path}_forward": {
+            "calls": sum(r["calls"] for r in rows),
+            **{k: summed(rows, k)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "per_call": fwd_serving_rows}})
+            "per_call": rows}
+         for path, rows in (("serving", fwd_serving_rows),
+                            ("sgv2", fwd_sgv2_rows))})
     bwd = kernel_record(
         "modulated_instance_norm_bwd",
         "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:93",
@@ -1545,8 +1942,20 @@ def main() -> int:
           f"{training_spade['peak_mb']:.1f} MiB, kernels {busy_ms(busy_spade)}; "
           f"launches {serving_spade['launches']} and "
           f"{training_spade['launches']} [{smi}]")
+    print(f"sgv2: adain {sgv2_adain['ms']['latent']:.3f} ms a latent-style "
+          f"request and {sgv2_adain['ms']['reference']:.3f} ms a reference one "
+          f"(batch {SGV2_BATCH}), peak {sgv2_adain['peak_mb']:.1f} MiB, kernels "
+          f"{busy_ms(sgv2_adain['dev_ms'])} a request; sean "
+          f"{sgv2_sean['ms']:.3f} ms a request, inference_stats "
+          f"{sgv2_sean['stats_ms']:.3f} ms, peak {sgv2_sean['peak_mb']:.1f} MiB, "
+          f"kernels {busy_ms(sgv2_sean['dev_ms'])}; forward kernel "
+          f"{fwd['per_sgv2_forward']['ms']:.4f} ms a G forward (plain "
+          f"{fwd['per_sgv2_forward']['plain_ms']:.4f}, F.instance_norm "
+          f"{fwd['per_sgv2_forward']['library_ms']:.4f}, bound "
+          f"{fwd['per_sgv2_forward']['bound_ms']:.4f}); agreement "
+          f"{sgv2_adain['agree']} {sgv2_sean['agree']} [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
-          f"8a-8e {cli_s:.1f} s")
+          f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,7 +10,7 @@ JAX CLI does) and runs the reference's test modes:
   --save_diverse_images    Multiple_<combo>/Single_<class> grids
   --cal_clf                discriminator classifier accuracy on real data
 PNGs go to ``<results_dir>/<name>/``. ``--metrics``, ``--cal_mfid`` and
-``--save_stats`` wait for ROADMAP A.11, ``--vis_style_embeds`` for A.12:
+``--save_stats`` wait for ROADMAP A.8, ``--vis_style_embeds`` for A.7:
 they raise ``NotImplementedError``. ``--gpu_ids -1`` runs on the CPU.
 """
 from __future__ import annotations

@@ -15,10 +15,15 @@ iters_per_epoch from the defect loader, the trainer. Runs on CUDA device 0;
 ``<ckpt_dir>/<name>/latest_state.pt`` and ``iter.txt``;
 ``--load_model_name`` warm-starts from another run's checkpoint.
 ``--dataset_name synthetic`` trains on the procedural dataset (no files).
+``--native_loader`` feeds u8 super-batches from the C++ runtime
+(``runtime/native_loader.py``, built with g++ at first use) over a cache of
+the untransformed images under ``--native_cache_dir``, by default
+``<ckpt_dir>/native_cache/<name>``.
 """
 from __future__ import annotations
 
 import sys
+from pathlib import Path
 
 
 def build_datasets(opt, phase: str, transform):
@@ -59,10 +64,22 @@ def main(argv=None):
     cfg = to_defectgan_config(opt)
     tcfg = to_train_config(opt, clf_loss_type)
 
-    df_loader = DataLoader(datasets["defects"], opt.batch_size, seed=opt.seed)
-    bg_loader = DataLoader(datasets["background"], opt.batch_size,
-                           seed=opt.seed + 1)
-    loader = DualStreamLoader(df_loader, bg_loader, tcfg.num_critics)
+    if opt.native_loader:
+        from de_i2i_gan_torch.runtime.native_loader import make_native_dual_stream
+        # cache the untransformed images; the C++ side owns crop, flips and
+        # jitter and fills contiguous u8 super-batches in place
+        raw, _ = build_datasets(opt, "train", None)
+        root = opt.native_cache_dir or (
+            Path(opt.ckpt_dir) / "native_cache" / opt.name)
+        loader = make_native_dual_stream(
+            raw["defects"], raw["background"], root, opt.image_size,
+            opt.batch_size, tcfg.num_critics, seed=opt.seed)
+    else:
+        df_loader = DataLoader(datasets["defects"], opt.batch_size,
+                               seed=opt.seed)
+        bg_loader = DataLoader(datasets["background"], opt.batch_size,
+                               seed=opt.seed + 1)
+        loader = DualStreamLoader(df_loader, bg_loader, tcfg.num_critics)
     print(f"{len(datasets['defects'])} defect / "
           f"{len(datasets['background'])} background train images")
 
@@ -85,6 +102,8 @@ def main(argv=None):
         save_ckpt_freq=opt.save_ckpt_freq, seed=opt.seed,
         embed_bank=embed_bank, device=device_of(opt))
     trainer.train(loader)
+    if opt.native_loader:
+        loader.close()  # every epoch has drained it: no thread is inside
     return trainer
 
 

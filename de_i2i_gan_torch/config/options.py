@@ -49,7 +49,7 @@ def add_base_args(p: argparse.ArgumentParser):
     p.add_argument("--dataset_data_type", type=str, default=None)
     p.add_argument("--load_from_opt_file", type=Path, default=None)
     p.add_argument("--init_type", type=str, default="normal",
-                   help="[normal] (xavier|kaiming|orthogonal: ROADMAP A.2)")
+                   help="[normal] (xavier|kaiming|orthogonal: ROADMAP A.6)")
     p.add_argument("--init_variance", type=float, default=0.02)
     p.add_argument("--use_spectral", action="store_true")
     p.add_argument("--load_model_name", type=str, default=None)
@@ -63,7 +63,7 @@ def add_base_args(p: argparse.ArgumentParser):
                    help="CUDA device id, or -1 for the CPU "
                         "(base_options.py:19)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="devices to shard the batch over (one: ROADMAP A.12)")
+                   help="devices to shard the batch over (one: ROADMAP A.9)")
     return p
 
 
@@ -85,13 +85,14 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--num_display_images", type=int, default=8)
     p.add_argument("--ema_decay", type=float, default=0.0)
     p.add_argument("--val_metrics", type=str, nargs="+", default=None,
-                   help="in-training validation metrics (ROADMAP A.11)")
+                   help="in-training validation metrics (ROADMAP A.8)")
     p.add_argument("--native_loader", action="store_true",
-                   help="the C++ input pipeline (ROADMAP A.6)")
+                   help="the C++ input pipeline (runtime/dataloader.cc): u8 "
+                        "super-batches, cached under --native_cache_dir")
     p.add_argument("--native_cache_dir", type=Path, default=None)
     p.add_argument("--data_parallel", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="one device ('on': ROADMAP A.12)")
+                   help="one device ('on': ROADMAP A.9)")
     return p
 
 
@@ -99,7 +100,7 @@ def add_test_args(p: argparse.ArgumentParser):
     p.add_argument("--results_dir", type=Path, default=Path("./results"))
     p.set_defaults(phase="test")
     p.add_argument("--metrics", type=str, nargs="+", default=None,
-                   help="[fid|is|lpips] (ROADMAP A.11)")
+                   help="[fid|is|lpips] (ROADMAP A.8)")
     p.add_argument("--cal_mfid", action="store_true")
     p.add_argument("--save_img_grid", action="store_true")
     p.add_argument("--save_img", action="store_true")
@@ -230,18 +231,17 @@ def check_ported(opt) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature the port does
     not have yet, naming the ROADMAP item it waits for."""
     waits = [
-        (getattr(opt, "native_loader", False), "--native_loader", "A.6"),
-        (getattr(opt, "val_metrics", None), "--val_metrics", "A.11"),
-        (getattr(opt, "metrics", None), "--metrics", "A.11"),
-        (getattr(opt, "cal_mfid", False), "--cal_mfid", "A.11"),
-        (getattr(opt, "save_stats", False), "--save_stats", "A.11"),
-        (getattr(opt, "vis_style_embeds", None), "--vis_style_embeds", "A.12"),
+        (getattr(opt, "val_metrics", None), "--val_metrics", "A.8"),
+        (getattr(opt, "metrics", None), "--metrics", "A.8"),
+        (getattr(opt, "cal_mfid", False), "--cal_mfid", "A.8"),
+        (getattr(opt, "save_stats", False), "--save_stats", "A.8"),
+        (getattr(opt, "vis_style_embeds", None), "--vis_style_embeds", "A.7"),
         (getattr(opt, "data_parallel", "auto") == "on", "--data_parallel on",
-         "A.12"),
-        ((opt.num_devices or 1) > 1, "--num_devices > 1", "A.12"),
-        ("," in opt.gpu_ids.strip(","), "several --gpu_ids", "A.12"),
+         "A.9"),
+        ((opt.num_devices or 1) > 1, "--num_devices > 1", "A.9"),
+        ("," in opt.gpu_ids.strip(","), "several --gpu_ids", "A.9"),
         (opt.init_type != "normal" or opt.init_variance != 0.02,
-         "an --init_type other than normal(0.02)", "A.2"),
+         "an --init_type other than normal(0.02)", "A.6"),
     ]
     for asked, flag, item in waits:
         if asked:

@@ -18,7 +18,7 @@ defects without metadata.
 
 Items are (HWC float32 image in [-1,1], one-hot label float32, path).
 The JAX package's ``shard_for_process`` (one slice of the data per host)
-waits for the port's multi-process training (ROADMAP A.12).
+waits for the port's multi-process training (ROADMAP A.9).
 """
 from __future__ import annotations
 

@@ -13,8 +13,9 @@ iterator, loaders/infinite_loader.py:4-20):
 ``device_prefetch`` moves super-batches to the card ahead of the step:
 a producer thread copies each into pinned host buffers and issues
 ``non_blocking`` copies on a side CUDA stream, so the host fetch and the
-copy of batch k+1 overlap the step on batch k. The JAX package's C++
-loader (``--native_loader``) waits for ROADMAP A.6.
+copy of batch k+1 overlap the step on batch k. The C++ loader
+(``--native_loader``, ``runtime/native_loader.py``) feeds it u8
+super-batches, which the step normalizes on the device.
 """
 from __future__ import annotations
 

@@ -1,1 +1,1 @@
-"""Evaluation helpers (FID, IS, LPIPS wait for ROADMAP A.11)."""
+"""Evaluation helpers (FID, IS, LPIPS wait for ROADMAP A.8)."""

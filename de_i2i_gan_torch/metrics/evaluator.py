@@ -1,6 +1,6 @@
 """``defectgan_generator_fn``, counterpart of the JAX package's
 ``metrics/evaluator.py::defectgan_generator_fn``. The rest of that module
-(``Evaluator``: FID, IS, LPIPS) waits for ROADMAP A.11."""
+(``Evaluator``: FID, IS, LPIPS) waits for ROADMAP A.8."""
 from __future__ import annotations
 
 from typing import Callable, Optional

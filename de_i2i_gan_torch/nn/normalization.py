@@ -227,14 +227,20 @@ def sean_update_stats(module: nn.Module, eps: float = 1e-5) -> None:
     of the codes tracked since the last call; a label combination with no
     tracked code keeps its previous mean and std; the accumulators reset."""
     for m in module.modules():
-        if not isinstance(m, SEAN):
-            continue
-        count = m.count[:, None]
-        seen = count > 0
-        n = count.clamp_min(1.0)
-        mean = torch.where(seen, m.sum / n, m.mean)
-        var = (m.sumsq - n * mean.square()) / (count - 1.0).clamp_min(1.0)
-        m.std.copy_(torch.where(seen, (var.clamp_min(0.0) + eps).sqrt(), m.std))
-        m.mean.copy_(mean)
-        for acc in (m.sum, m.sumsq, m.count):
-            acc.zero_()
+        if isinstance(m, SEAN):
+            finalize_running_stats(m, eps)
+
+
+def finalize_running_stats(m: nn.Module, eps: float = 1e-5) -> None:
+    """One layer's ``mean``/``std`` buffers from its ``sum``, ``sumsq`` and
+    ``count`` accumulators (rows with no count keep theirs); the
+    accumulators reset."""
+    count = m.count[:, None]
+    seen = count > 0
+    n = count.clamp_min(1.0)
+    mean = torch.where(seen, m.sum / n, m.mean)
+    var = (m.sumsq - n * mean.square()) / (count - 1.0).clamp_min(1.0)
+    m.std.copy_(torch.where(seen, (var.clamp_min(0.0) + eps).sqrt(), m.std))
+    m.mean.copy_(mean)
+    for acc in (m.sum, m.sumsq, m.count):
+        acc.zero_()

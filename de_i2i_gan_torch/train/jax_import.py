@@ -13,9 +13,11 @@ follow the flax module names (``stem.conv.weight`` <- ``stem/conv/kernel``):
                spectral kernel_u/kernel_v -> weight_u/weight_v
     BatchNorm  params scale/bias -> weight/bias,
                batch_stats mean/var -> running_mean/running_var
-    SEAN       sean_stats mean/std/sum/sumsq/count -> the buffers of the
-               same names
+    SEAN, SEANv2  sean_stats mean/std/sum/sumsq/count -> the buffers of
+               the same names
     NoiseInjection  weight -> weight
+    AffineInstanceNorm  params scale/bias -> scale/bias
+    Embed      embedding (num, features) -> nn.Embedding weight, as is
 
 A network's state arrives as the dict of its flax collections besides
 ``params`` (``state.G.state``: ``batch_stats``, ``spectral``,
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from de_i2i_gan_torch.models.starganv2 import AffineInstanceNorm, SEANv2
 from de_i2i_gan_torch.nn.blocks import BatchNorm, NoiseInjection
 from de_i2i_gan_torch.nn.layers import Conv2d, Dense
 from de_i2i_gan_torch.nn.normalization import SEAN
@@ -85,12 +88,18 @@ def _targets(module: nn.Module) -> Iterator[_Target]:
                    path + "mean", _same)
             yield (key + "running_var", mod.running_var, "batch_stats",
                    path + "var", _same)
-        elif isinstance(mod, SEAN):
+        elif isinstance(mod, (SEAN, SEANv2)):
             for name in ("mean", "std", "sum", "sumsq", "count"):
                 yield (key + name, getattr(mod, name), "sean_stats",
                        path + name, _same)
         elif isinstance(mod, NoiseInjection):
             yield key + "weight", mod.weight, "params", path + "weight", _same
+        elif isinstance(mod, AffineInstanceNorm):
+            yield key + "scale", mod.scale, "params", path + "scale", _same
+            yield key + "bias", mod.bias, "params", path + "bias", _same
+        elif isinstance(mod, nn.Embedding):
+            yield (key + "weight", mod.weight, "params", path + "embedding",
+                   _same)
 
 
 def _checked_targets(module: nn.Module):
@@ -253,3 +262,55 @@ def init_weights(steps, seed: int) -> None:
             _init_module(net, gen, cfg.init_variance)
     if steps.ema_G is not None:
         steps.ema_G.load_state_dict(steps.G.state_dict())
+
+
+def load_jax_starganv2(solver, state) -> None:
+    """Fill a ``StarGANv2Solver`` from a JAX ``SolverState`` (its leaves JAX
+    or numpy arrays): G from ``state.G.params`` and ``state.G.state`` (SEAN's
+    ``sean_stats``), M and S from ``state.M.params`` and ``state.S.params``,
+    ``ema_G`` from ``state.ema_G`` with ``state.ema_sean_stats``, ``ema_M``
+    and ``ema_S`` from ``state.ema_M`` and ``state.ema_S``. Strict: a net
+    the solver holds and the state lacks, or the other way round, raises."""
+    g_state = dict(state.G.state or {})
+    ema_state = dict(g_state)
+    if state.ema_sean_stats is not None:
+        ema_state["sean_stats"] = state.ema_sean_stats
+    trees = {"G": (state.G.params, g_state), "ema_G": (state.ema_G, ema_state),
+             "M": (None if state.M is None else state.M.params, None),
+             "S": (None if state.S is None else state.S.params, None),
+             "ema_M": (state.ema_M, None), "ema_S": (state.ema_S, None)}
+    for name, (params, net_state) in trees.items():
+        net = getattr(solver, name)
+        if (net is None) != (params is None):
+            raise ValueError(f"{name} is in only one of the solver and the "
+                             "JAX state")
+        if net is not None:
+            load_jax_module(net, params, net_state)
+
+
+def init_starganv2_weights(solver, seed: int) -> None:
+    """StarGAN v2 weights from ``seed`` with the JAX init's distribution:
+    he_init conv and dense kernels, normal(0, sqrt(2 / fan_in))
+    (``nn/layers.py:29``); flax's Embed init, normal(0, sqrt(1 / features));
+    zero biases, AffineInstanceNorm scale 1, zero SEANv2 statistics. Not the
+    JAX init's numbers. Drawn on the CPU in the order G, M, S; each EMA net
+    starts as a copy of its net."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name in ("G", "M", "S"):
+            net = getattr(solver, name)
+            if net is None:
+                continue
+            for _, tensor, _, path, _ in _checked_targets(net):
+                if path.endswith(("kernel", "embedding")):
+                    fan_in = (tensor.shape[1] if path.endswith("embedding")
+                              else tensor[0].numel())
+                    gain = 1.0 if path.endswith("embedding") else 2.0
+                    draw = torch.empty(tensor.shape).normal_(
+                        0.0, (gain / fan_in) ** 0.5, generator=gen)
+                    tensor.copy_(draw)
+                elif path.endswith("scale"):
+                    tensor.fill_(1.0)
+                else:
+                    tensor.zero_()
+            getattr(solver, f"ema_{name}").load_state_dict(net.state_dict())

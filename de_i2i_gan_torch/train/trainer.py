@@ -12,8 +12,8 @@ device. The step's metrics stay on the device and are fetched every 4
 super-steps in one host copy, where the NaN guard reads them. Random draws
 (noise injection, DiffAugment, SEAN's embedding picks) come from one
 ``torch.Generator`` on the device, seeded from ``seed + 1``. The JAX
-trainer's data-parallel mesh waits for ROADMAP A.12; its MAE, pix2pix and
-WGAN trainers for A.7 and A.8.
+trainer's data-parallel mesh waits for ROADMAP A.9; its MAE, pix2pix and
+WGAN trainers for A.4, A.5 and A.6.
 """
 from __future__ import annotations
 

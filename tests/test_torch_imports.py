@@ -3,10 +3,13 @@
 * No module of ``de_i2i_gan_torch`` (nor ``chip_smoke.py``, nor the card's
   ``tests/test_torch_kernel_gpu.py``) pulls in jax, flax, optax or any
   module of ``de_i2i_gan_tpu``.
-* Importing the CUDA kernel module neither needs nor runs ``nvcc``: the
-  kernel is built at first launch.
-* Importing the entry points (``cli/*``) and the input feed parses no
-  arguments, starts no thread and writes nothing.
+* Importing the CUDA kernel module neither needs nor runs ``nvcc``, and
+  importing the native loader neither needs nor runs ``g++``: each builds
+  at first use.
+* Importing the entry points (``cli/*``), the input feeds (``data``,
+  ``runtime``) and StarGAN v2 serving (``models/starganv2.py``,
+  ``train/solver.py``) parses no arguments, starts no thread and writes
+  nothing.
 """
 import os
 import subprocess
@@ -38,7 +41,8 @@ for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
              "data.pipeline", "data.datasets", "data.synthetic",
              "data.transforms", "data.embeddings", "metrics.evaluator",
              "train.checkpoint", "train.trainer", "utils.guards",
-             "utils.seed", "utils.png"):
+             "utils.seed", "utils.png", "runtime.native_loader",
+             "models.starganv2", "train.solver"):
     assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
@@ -63,8 +67,12 @@ def refuse(*a, **k):
 subprocess.run = subprocess.Popen = refuse
 from de_i2i_gan_torch.ops.cuda import norm_kernels
 from de_i2i_gan_torch.ops import fused
+from de_i2i_gan_torch.runtime import native_loader
 import de_i2i_gan_torch.train.steps
+import de_i2i_gan_torch.train.solver
+import de_i2i_gan_torch.cli.train_defectgan
 assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
+assert native_loader._lib is None
 """
     _run(code, PATH="/nonexistent", CUDA_HOME="/nonexistent")
 
@@ -77,6 +85,9 @@ import de_i2i_gan_torch.cli.train_defectgan
 import de_i2i_gan_torch.cli.test_defectgan
 import de_i2i_gan_torch.data.pipeline
 import de_i2i_gan_torch.train.trainer
+import de_i2i_gan_torch.runtime.native_loader
+import de_i2i_gan_torch.models.starganv2
+import de_i2i_gan_torch.train.solver
 assert threading.active_count() == 1, threading.enumerate()
 assert os.listdir(".") == [], os.listdir(".")
 """

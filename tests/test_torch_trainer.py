@@ -342,7 +342,7 @@ def test_cli_train_resume_then_test(tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "train": [["--native_loader"], ["--val_metrics", "fid"],
+    "train": [["--val_metrics", "fid"],
               ["--data_parallel", "on"], ["--num_devices", "2"],
               ["--gpu_ids", "0,1"], ["--init_type", "xavier"],
               ["--init_variance", "0.05"]],
