@@ -14,7 +14,10 @@ instance norm) and the SPADE path through none:
     batches of 8 (the fused 2B generator forwards give the kernels batches
     of 16), also through the train CLI with each input feed;
   * StarGAN v2 serving: ``StarGANv2Solver`` requests of 32 (the style code,
-    then the EMA generator; 12 forward-kernel calls a G forward).
+    then the EMA generator; 12 forward-kernel calls a G forward);
+  * StarGAN v2 training: ``StarGANv2Solver.train_step`` on batches of 8 with
+    the upstream README's AFHQ flags (AdaIN, FusedProp, SEANv2), also
+    through ``cli.starganv2_main`` (train, resume, sample).
 
 AdaIN takes the style code from E; SEAN takes ViT-sized (8, 5, 768) style
 embeddings made on the card, tracks its running statistics and adds its
@@ -98,6 +101,27 @@ Phases, each of which raises on failure:
               timed requests, track_stats_step over 4 batches,
               finalize_ema_stats, one inference_stats request; the same
               launch and agreement checks as 9b
+  10a. sgv2   both kernels against their plain versions at StarGAN v2's five
+       train  batch-8 shapes, float32 and bfloat16; each timed beside its
+              bound, its plain version and F.instance_norm (its autograd)
+  10b.        2 warm-up + 5 timed AFHQ ``train_step``s on preloaded batches
+              (AdaIN: exactly 96 forward and 48 backward launches an
+              iteration at the five shapes), host-clock and profiler device
+              time an iteration, peak memory, finite losses; the same with
+              FusedProp (72/48) and with SEANv2 and (8, 5, 768) embeddings,
+              its statistics finalized every iteration (48/24)
+  10c.        G's, M's and S's gradients of one latent G loss, kernel path
+              against the plain version swapped in, relative L2 per net: f32
+              control (TF32 off) within 5e-3 + 2x the distance the f32 plain
+              path moves with its norm computed in float64; bf16 within 1.5x
+              the bf16 plain path's distance from the f32 plain path, + 5e-3
+  10d. cli    ``cli.starganv2_main.main`` on an image tree of 3 domains x 24
+              PNGs at 256^2 made from a seed: ``--mode train`` for 12
+              iterations (exact launches, loader-fed iteration time, the busy
+              share of 3 profiled iterations, a debug grid, checkpoints
+              000012 and latest), a resume with ``--resume_iter 12`` whose
+              loaded state equals the saved one, ``--mode sample`` from it
+              (grids of the expected sizes, finite pixels)
 
 The line before the last two holds the kernels' JSON record, the next the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -158,8 +182,11 @@ BWD_F32_TOL = 3e-4
 BWD_BF16_ATOL = 1e-5
 SUM_BAND = 1e-5
 # the library call's dgamma/dbeta (autograd of F.instance_norm in bf16)
-# against the plain sums, to show it computes the same function
+# against the plain sums, to show it computes the same function; at
+# StarGAN v2's 256-element rows its sums land 1.6e-3 off (H100 80GB HBM3):
+# there the band is half a bf16 ulp
 LIBRARY_SUM_BAND = 1e-3
+SGV2_LIBRARY_SUM_BAND = 2.0 ** -8
 # serving end to end, kernel path vs plain path, bf16: 4 bf16 ulps at 1
 OUT_BAND = 3.2e-2
 MEAN_BAND = 1e-3
@@ -200,6 +227,29 @@ SGV2_FWD_PER_FORWARD = sum(SGV2_SHAPES.values())  # 12
 # a request, kernel path vs plain path, f32 control with TF32 off: relative L2
 SGV2_F32_BAND = 1e-4
 SGV2_TRACK_BATCHES = 4
+# phases 10a-10d: StarGAN v2 training, the upstream README's AFHQ command
+# (clova-ai/stargan-v2, "Training networks") at the CLI's other defaults
+SGV2_AFHQ = ["--num_domains", "3", "--w_hpf", "0", "--lambda_reg", "1",
+             "--lambda_sty", "1", "--lambda_ds", "2", "--lambda_cyc", "1"]
+SGV2_TRAIN_BATCH = 8
+SGV2_TRAIN_SHAPES = {(SGV2_TRAIN_BATCH, *s[1:]): c for s, c in SGV2_SHAPES.items()}
+# G forwards and G backwards an iteration: AdaIN 2 D passes x 1 fake forward
+# without gradients + 2 G passes x 3 (x_fake, x_fake2 without gradients,
+# x_rec) and the backward of x_fake's and x_rec's; SEAN the reference
+# passes alone; FusedProp a pair a pass (the shared fake, x_fake2, x_rec)
+SGV2_G_PASSES = {"adain": (8, 4), "sean": (4, 2), "fused": (6, 4)}
+# a latent G loss's gradients, kernel path vs plain path, f32 control (TF32
+# off): relative L2 per net within this + F32_CONTROL_FACTOR x the distance
+# the plain path moves when only its norm is rounded otherwise (computed in
+# float64). G's gradient is ill-conditioned (its cycle term runs G twice,
+# its L1 terms have near-ties): the kernel's other summation order alone
+# moved it by 1.488e-3 (H100 80GB HBM3), and on the CPU the port's own G loss
+# gradients move by up to 5.8e-3 a tensor against the JAX package's
+# (tests/test_torch_starganv2_train.py)
+SGV2_TRAIN_F32_BAND = 5e-3
+F32_CONTROL_FACTOR = 2.0
+SGV2_CLI_ITERS = 12
+SGV2_CLI_IMAGES = 24  # a domain
 
 
 def check(cond: bool, msg: str) -> None:
@@ -316,10 +366,10 @@ def bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def phase_bwd_vs_plain(nk, fused, smi):
-    cases = [(s, dt, act) for s in (*TRAIN_SHAPES, RAGGED)
-             for dt in (torch.float32, torch.bfloat16)
-             for act in (None, "relu", "leaky_relu")]
+def phase_bwd_vs_plain(nk, fused, smi, shapes=(*TRAIN_SHAPES, RAGGED),
+                       acts=(None, "relu", "leaky_relu")):
+    cases = [(s, dt, act) for s in shapes
+             for dt in (torch.float32, torch.bfloat16) for act in acts]
     worst = 0.0
     for i, (shape, dt, act) in enumerate(cases):
         x, g, b = make_norm_inputs(shape, dt, SEED + 100 + i)
@@ -528,13 +578,15 @@ def tally_calls(nk):
         nk.modulated_instance_norm_bwd = bwd
 
 
-def profile_device(fn, runs, label, wall_ms, smi):
+def profile_device(fn, runs, label, wall_ms, smi, conv_shapes=False):
     """Where the device time of ``fn`` goes: torch.profiler over ``runs``
-    calls, device kernels summed by name."""
+    calls, device kernels summed by name; with ``conv_shapes`` also the
+    convolution ops with the most device time, by their input shapes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=conv_shapes) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
@@ -552,6 +604,14 @@ def profile_device(fn, runs, label, wall_ms, smi):
     for e in kernels[:15]:
         print(f"  {e.self_device_time_total / (1e3 * runs):8.3f} ms "
               f"x{e.count // runs:<4d} {e.key[:100]}")
+    if conv_shapes:
+        convs = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                        if e.key in ("aten::convolution",
+                                     "aten::convolution_backward")),
+                       key=lambda e: e.device_time_total, reverse=True)
+        for e in convs[:6]:
+            print(f"  conv op {e.device_time_total / (1e3 * runs):8.3f} ms "
+                  f"x{e.count // runs:<4d} {e.key} {str(e.input_shapes)[:160]}")
     return dev_ms
 
 
@@ -912,9 +972,10 @@ def phase_train_compare(smi, make_cfg, label, diff_aug=""):
     return dict(f32=f32, k16=k16, p16=p16, kp16=kp16)
 
 
-def phase_bwd_timing(nk, fused, smi):
+def phase_bwd_timing(nk, fused, smi, shapes=TRAIN_SHAPES,
+                     library_band=LIBRARY_SUM_BAND):
     rows = []
-    for shape in TRAIN_SHAPES:
+    for shape in shapes:
         n, c, h, w = shape
         x, g, b = make_norm_inputs(shape, torch.bfloat16, SEED)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -961,8 +1022,8 @@ def phase_bwd_timing(nk, fused, smi):
             (x.float() - m).abs() + m, g, b, mean, inv, dy.float().abs())
         lib_rel = max(((ldg.view(n, c) - rdg).abs() / abs_dg).max().item(),
                       ((ldb.view(n, c) - rdb).abs() / abs_db).max().item())
-        check(lib_rel <= LIBRARY_SUM_BAND, f"the library's dgamma/dbeta differ "
-              f"by {lib_rel:.2e} of the absolute sums")
+        check(lib_rel <= library_band, f"the library's dgamma/dbeta differ "
+              f"by {lib_rel:.2e} of the absolute sums (band {library_band:.2e})")
         p1 = device_ms(plain, iters)
         k1 = device_ms(kernel, iters)
         l1 = device_ms(library, iters)
@@ -1069,14 +1130,16 @@ def cli_loader():
 
 
 class SuperStepClock:
-    """Wraps ``DefectGanSteps.super_step`` while an entry point runs: every
-    call ends in ``torch.cuda.synchronize()``, and its end on the host clock,
-    the kernels' launch counts and its batch's keys and devices are kept;
-    calls ``profile_at`` .. ``profile_at + PROFILED_SUPER_STEPS - 1`` run
-    under torch.profiler."""
+    """Wraps ``DefectGanSteps.super_step`` (or ``target``, a (class, method
+    name) pair whose method takes a batch dict and a generator) while an
+    entry point runs: every call ends in ``torch.cuda.synchronize()``, and
+    its end on the host clock, the kernels' launch counts and its batch's
+    keys and devices are kept; calls ``profile_at`` .. ``profile_at +
+    PROFILED_SUPER_STEPS - 1`` run under torch.profiler."""
 
-    def __init__(self, nk, profile_at=None):
+    def __init__(self, nk, profile_at=None, target=None):
         self.nk, self.profile_at = nk, profile_at
+        self.target = target
         self.ends, self.launches, self.keys, self.on_card = [], [], [], []
         self.dtypes = []
         self.prof = None
@@ -1084,8 +1147,11 @@ class SuperStepClock:
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
 
-        from de_i2i_gan_torch.train.steps import DefectGanSteps
-        self._real = real = DefectGanSteps.super_step
+        if self.target is None:
+            from de_i2i_gan_torch.train.steps import DefectGanSteps
+            self.target = (DefectGanSteps, "super_step")
+        cls, method = self.target
+        self._real = real = getattr(cls, method)
         last = (None if self.profile_at is None
                 else self.profile_at + PROFILED_SUPER_STEPS - 1)
 
@@ -1107,12 +1173,11 @@ class SuperStepClock:
                                     for v in batches.values()))
             return out
 
-        DefectGanSteps.super_step = timed
+        setattr(cls, method, timed)
         return self
 
     def __exit__(self, *exc):
-        from de_i2i_gan_torch.train.steps import DefectGanSteps
-        DefectGanSteps.super_step = self._real
+        setattr(*self.target, self._real)
 
     def steady_ms(self):
         """Host-clock ms between the ends of consecutive super-steps (data
@@ -1558,19 +1623,23 @@ def check_sgv2_calls(calls, forwards, label):
 
 
 @contextlib.contextmanager
-def plain_sgv2_norm(fused):
-    """StarGAN v2's styled norms through the plain version: the script swaps
-    it into the name ``models/starganv2.py`` calls (``StyleAdaIN`` and
-    ``SEANv2`` have no switch for the kernel)."""
+def sgv2_norm(fn):
+    """StarGAN v2's styled norms through ``fn``: the script swaps it into the
+    name ``models/starganv2.py`` calls (``StyleAdaIN`` and ``SEANv2`` have
+    no switch for the kernel)."""
     from de_i2i_gan_torch.models import starganv2 as sg
     real = sg.modulated_instance_norm
-    sg.modulated_instance_norm = (
-        lambda x, g, b, act=None, eps=1e-5:
-        fused.modulated_instance_norm_ref(x, g, b, act, eps)[0])
+    sg.modulated_instance_norm = fn
     try:
         yield
     finally:
         sg.modulated_instance_norm = real
+
+
+def plain_sgv2_norm(fused):
+    """StarGAN v2's styled norms through the plain version."""
+    return sgv2_norm(lambda x, g, b, act=None, eps=1e-5:
+                     fused.modulated_instance_norm_ref(x, g, b, act, eps)[0])
 
 
 def sgv2_agreement(nk, fused, solver, run, label, smi):
@@ -1747,6 +1816,427 @@ def phase_sgv2_sean(nk, fused, smi):
                 forwards=forwards)
 
 
+# ------------------------------------------ 10. StarGAN v2 training at 256^2
+
+
+def sgv2_train_config(norm_type="adain", **kw):
+    """The upstream README's AFHQ training command (SGV2_AFHQ) at the CLI's
+    other defaults: 256^2, batch 8, latent_dim 16, style_dim 64,
+    max_conv_dim 512, Adam (0, 0.99), lr 1e-4, f_lr 1e-6, weight decay
+    1e-4, EMA 0.999, bf16. SEAN (no frozen ViT: its style term inactive)
+    takes ViT-sized embeddings made on the card."""
+    from de_i2i_gan_torch.train.solver import StarGANv2Config
+    return StarGANv2Config(
+        img_size=SGV2_IMAGE, num_domains=3, latent_dim=16, hidden_nc=256,
+        style_dim=64, embed_nc=EMBEDS[1], num_embeds=EMBEDS[0],
+        max_conv_dim=512, w_hpf=0.0, lambda_reg=1.0, lambda_sty=1.0,
+        lambda_ds=2.0, lambda_cyc=1.0, batch_size=SGV2_TRAIN_BATCH,
+        compute_dtype="bfloat16", norm_type=norm_type,
+        allow_degraded_losses=norm_type == "sean").replace(**kw)
+
+
+def sgv2_trainer(cfg):
+    """A solver with D and the optimizers built, weights from SEED."""
+    from de_i2i_gan_torch.train.jax_import import init_starganv2_weights
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+    solver = StarGANv2Solver(cfg, device="cuda")
+    solver.init_training()
+    init_starganv2_weights(solver, SEED)
+    return solver
+
+
+def sgv2_train_batches(cfg, n, seed):
+    """``n`` training batches made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, size = SGV2_TRAIN_BATCH, cfg.img_size
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def domains():
+        return torch.randint(0, cfg.num_domains, (b,), generator=gen,
+                             device="cuda")
+
+    batches = []
+    for _ in range(n):
+        batch = {k: rand(b, size, size, 3) * 2 - 1
+                 for k in ("x_src", "x_ref", "x_ref2")}
+        batch.update(y_src=domains(), y_ref=domains(),
+                     z_ref=randn(b, cfg.latent_dim),
+                     z_ref2=randn(b, cfg.latent_dim))
+        if cfg.norm_type == "sean":
+            batch.update({k: randn(b, *EMBEDS)
+                          for k in ("s_ref", "s_ref2", "s_src")})
+        batches.append(batch)
+    return batches
+
+
+def check_sgv2_train_calls(calls, kind, iterations, label):
+    """Exactly 12 kernel calls a G forward and a G backward, at the five
+    batch-8 shapes."""
+    fwd, bwd = SGV2_G_PASSES[kind]
+    want = (Counter({s: iterations * fwd * c for s, c in SGV2_TRAIN_SHAPES.items()}),
+            Counter({s: iterations * bwd * c for s, c in SGV2_TRAIN_SHAPES.items()}))
+    check((calls["fwd"], calls["bwd"]) == want,
+          f"{label}: calls by shape {dict(calls['fwd'])} / "
+          f"{dict(calls['bwd'])}, expected {dict(want[0])} / {dict(want[1])}")
+
+
+def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
+    """10b. Timed StarGAN v2 ``train_step``s on preloaded batches: AdaIN
+    (``kind`` adain), FusedProp (fused) or SEANv2 with its statistics
+    finalized every iteration, as the CLI does (sean). The exact launch
+    tally by shape, host-clock and profiler device time an iteration, peak
+    memory, finite losses and weights, the update counts."""
+    cfg = sgv2_train_config("sean" if kind == "sean" else "adain",
+                            fused_prop=kind == "fused")
+    solver = sgv2_trainer(cfg)
+    batches = sgv2_train_batches(cfg, warmup + timed, SEED + 20)
+    draws = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    per_fwd, per_bwd = (SGV2_FWD_PER_FORWARD * n for n in SGV2_G_PASSES[kind])
+    label = f"sgv2 train {kind}"
+
+    def step(batch):
+        metrics = solver.train_step(batch, draws)
+        if kind == "sean":
+            solver.update_sean_stats()
+        return metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    times, metrics = [], []
+    with tally_calls(nk) as calls:
+        for i, batch in enumerate(batches):
+            fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == (per_fwd, per_bwd),
+                  f"{label} iteration {i} launched {nk.LAUNCHES - fwd0} forward "
+                  f"and {nk.BWD_LAUNCHES - bwd0} backward kernels, expected "
+                  f"{per_fwd} and {per_bwd}")
+            if i >= warmup:
+                times.append(dt_ms)
+            metrics.append({k: v.item() for k, v in m.items()})
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n = len(batches)
+    check_sgv2_train_calls(calls, kind, n, label)
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{label} iteration {i}: non-finite loss {m}")
+    for name in ("G", "D", "M", "S"):
+        net = getattr(solver, name)
+        for k, p in ([] if net is None else net.named_parameters()):
+            check(bool(torch.isfinite(p).all()), f"{label} {name} {k} is not finite")
+    passes = 1 if kind == "sean" else 2
+    check(solver.step == n and solver.tx_G.count == solver.tx_D.count == passes * n
+          and (kind == "sean" or solver.tx_M.count == solver.tx_S.count == n),
+          f"{label}: update counts")
+    mean_ms = sum(times) / len(times)
+    print(f"training StarGAN v2 AFHQ {kind} {SGV2_IMAGE}^2 bf16 batch "
+          f"{SGV2_TRAIN_BATCH}: iteration ms {[round(v, 3) for v in times]} "
+          f"mean {mean_ms:.3f} ({SGV2_TRAIN_BATCH * 1e3 / mean_ms:.1f} img/s), "
+          f"peak memory {peak_mb:.1f} MiB, launches over {n} iterations: "
+          f"forward {launches['fwd']}, backward {launches['bwd']} "
+          f"({per_fwd}/{per_bwd} an iteration) [{smi}]")
+    print(f"{label} losses, iteration 1: "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}")
+    print(f"{label} losses, iteration {n}: "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})}")
+    dev_ms = profile_device(lambda: step(batches[-1]), 1, f"{label} iteration",
+                            mean_ms, smi, conv_shapes=kind == "adain")
+    del solver, batches
+    free_memory()
+    return dict(launches=launches, ms=mean_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+                calls=calls, iterations=n)
+
+
+def sgv2_trainer_like(solver, compute_dtype):
+    """A training solver of another compute dtype with ``solver``'s weights."""
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+    other = StarGANv2Solver(solver.cfg.replace(compute_dtype=compute_dtype),
+                            device="cuda")
+    other.init_training()
+    for name in solver.STATE_NETS:
+        net = getattr(solver, name)
+        if net is not None:
+            getattr(other, name).load_state_dict(net.state_dict())
+    return other
+
+
+def norm_in_float64(x, g, b, act=None, eps=1e-5):
+    """The modulated instance norm computed in float64 and rounded to x's
+    dtype once: the plain version with only the norm's rounding changed."""
+    xd = x.double()
+    mean = xd.mean(dim=(2, 3), keepdim=True)
+    var = (xd - mean).square().mean(dim=(2, 3), keepdim=True)
+    y = ((xd - mean) * torch.rsqrt(var + eps) * (1.0 + g.double()[:, :, None, None])
+         + b.double()[:, :, None, None])
+    if act == "leaky_relu":
+        y = torch.where(y >= 0, y, 0.2 * y)
+    elif act == "relu":
+        y = y.clamp_min(0.0)
+    return y.to(x.dtype)
+
+
+def phase_sgv2_train_agreement(nk, fused, smi):
+    """10c. G's, M's and S's gradients of one latent G loss at full width,
+    kernel path against the plain version swapped into
+    ``models/starganv2.py``'s name, relative L2 per net: the f32 control
+    (TF32 off) within SGV2_TRAIN_F32_BAND + F32_CONTROL_FACTOR x the f32
+    plain path's distance from itself with the norm computed in float64; in
+    bf16 the kernel path no further from the f32 plain path than
+    BF16_DELTA_FACTOR times the bf16 plain path is, + SGV2_TRAIN_F32_BAND."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = sgv2_train_config("adain")
+    solvers = {"bfloat16": sgv2_trainer(cfg)}
+    solvers["float32"] = sgv2_trainer_like(solvers["bfloat16"], "float32")
+    raw = sgv2_train_batches(cfg, 1, SEED + 22)[0]
+    per_fwd, per_bwd = 3 * SGV2_FWD_PER_FORWARD, 2 * SGV2_FWD_PER_FORWARD
+    grads, losses = {}, {}
+    paths = {"kernel": contextlib.nullcontext, "plain": lambda: plain_sgv2_norm(fused),
+             "plain64": lambda: sgv2_norm(norm_in_float64)}
+    for dt, solver in solvers.items():
+        batch = solver._batch(raw)
+        nets = {n: list(getattr(solver, n).parameters()) for n in ("G", "M", "S")}
+        for path, ctx in paths.items():
+            if dt == "bfloat16" and path == "plain64":
+                continue
+            fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+            with ctx():
+                loss, _ = solver.g_loss_fn(batch, latent=True)
+                flat = torch.autograd.grad(
+                    loss, [p for ps in nets.values() for p in ps],
+                    allow_unused=True, materialize_grads=True)
+            torch.cuda.synchronize()
+            want = (per_fwd, per_bwd) if path == "kernel" else (0, 0)
+            check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == want,
+                  f"sgv2 G loss {dt} {path} path: launches "
+                  f"{nk.LAUNCHES - fwd0}/{nk.BWD_LAUNCHES - bwd0}, expected {want}")
+            start = 0
+            for name, ps in nets.items():
+                grads[dt, path, name] = torch.cat(
+                    [g.float().reshape(-1) for g in flat[start:start + len(ps)]])
+                start += len(ps)
+            losses[dt, path] = loss.item()
+            del flat, loss
+    result = {}
+    for name in ("G", "M", "S"):
+        def rel(a, b):
+            return ((grads[(*a, name)] - grads[(*b, name)]).norm()
+                    / grads[(*b, name)].norm()).item()
+
+        f32 = rel(("float32", "kernel"), ("float32", "plain"))
+        c32 = rel(("float32", "plain64"), ("float32", "plain"))
+        k16 = rel(("bfloat16", "kernel"), ("float32", "plain"))
+        p16 = rel(("bfloat16", "plain"), ("float32", "plain"))
+        band32 = SGV2_TRAIN_F32_BAND + F32_CONTROL_FACTOR * c32
+        band = BF16_DELTA_FACTOR * p16 + SGV2_TRAIN_F32_BAND
+        result[name] = dict(f32=f32, c32=c32, k16=k16, p16=p16)
+        print(f"sgv2 latent G loss, {name}'s gradient, kernel path vs plain "
+              f"path, relative L2: f32 (TF32 off) {f32:.3e}, the f32 plain "
+              f"path with the norm in float64 vs the f32 plain path {c32:.3e} "
+              f"(band {SGV2_TRAIN_F32_BAND} + {F32_CONTROL_FACTOR} x that = "
+              f"{band32:.3e}); bf16 kernel vs f32 plain {k16:.3e}, "
+              f"bf16 plain vs f32 plain {p16:.3e} (band {BF16_DELTA_FACTOR} x "
+              f"that + {SGV2_TRAIN_F32_BAND} = {band:.3e}) [{smi}]")
+        check(f32 <= band32,
+              f"sgv2 {name} f32 kernel path gradient differs by {f32:.3e}, "
+              f"outside {band32:.3e}")
+        check(k16 <= band, f"sgv2 {name} bf16 kernel path gradient {k16:.3e} "
+              f"from the f32 plain path, outside {band:.3e}")
+    print(f"  losses: {json.dumps({f'{k[0]} {k[1]}': round(v, 6) for k, v in losses.items()})}")
+    del solvers, grads
+    free_memory()
+    return result
+
+
+def sgv2_image_tree(root, seed):
+    """SGV2_CLI_IMAGES PNGs of 256^2 in each of 3 domains, smooth random
+    images from a seed."""
+    from de_i2i_gan_torch.utils.png import write_png
+    gen = torch.Generator().manual_seed(seed)
+    for domain in ("cat", "dog", "wild"):
+        (root / domain).mkdir(parents=True)
+        for i in range(SGV2_CLI_IMAGES):
+            low = torch.rand((1, 3, 8, 8), generator=gen)
+            img = F.interpolate(low, size=(SGV2_IMAGE, SGV2_IMAGE),
+                                mode="bilinear", align_corners=False)[0]
+            img = img + 0.05 * torch.randn(img.shape, generator=gen)
+            write_png(root / domain / f"{i:03d}.png",
+                      (img.clamp(0, 1) * 255).byte().permute(1, 2, 0).numpy())
+    return root
+
+
+@contextlib.contextmanager
+def grids_checked():
+    """Every grid the sample code assembles holds finite pixels (a NaN
+    would not survive the PNG's uint8 cast)."""
+    from de_i2i_gan_torch.utils import translate
+    real, seen = translate.make_grid, []
+
+    def checked(images, *args, **kw):
+        seen.append(bool(torch.isfinite(torch.as_tensor(images)).all()))
+        return real(images, *args, **kw)
+
+    translate.make_grid = checked
+    try:
+        yield seen
+    finally:
+        translate.make_grid = real
+
+
+def png_shape(path):
+    """(H, W) of a PNG, from its header."""
+    head = Path(path).read_bytes()[16:24]
+    w, h = struct.unpack(">II", head)
+    return h, w
+
+
+def phase_sgv2_cli(nk, smi, preloaded_ms):
+    """10d. ``cli.starganv2_main.main`` in-process on an image tree of 3
+    domains x SGV2_CLI_IMAGES PNGs: ``--mode train`` for SGV2_CLI_ITERS
+    iterations with the AFHQ flags (exact launches, loader-fed iteration
+    time, the busy share of 3 profiled iterations, one debug grid, the
+    checkpoints), a resume with ``--resume_iter`` whose loaded state equals
+    the saved one, then ``--mode sample`` from it."""
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+
+    started = time.perf_counter()
+    root = CLI_DIR / "sgv2"
+    shutil.rmtree(root, ignore_errors=True)
+    tree = sgv2_image_tree(root / "afhq", SEED + 23)
+    tag = f"{SGV2_CLI_ITERS:06d}"
+    base = [*SGV2_AFHQ, "--img_size", str(SGV2_IMAGE), "--batch_size",
+            str(SGV2_TRAIN_BATCH), "--train_img_dir", str(tree), "--val_img_dir",
+            str(tree), "--checkpoint_dir", str(root / "ckpt"), "--sample_dir",
+            str(root / "samples"), "--device", CARD]
+    per_fwd, per_bwd = (SGV2_FWD_PER_FORWARD * n for n in SGV2_G_PASSES["adain"])
+    val_calls = Counter({(SGV2_BATCH, *s[1:]): c for s, c in SGV2_SHAPES.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's runs start here
+    t0 = time.perf_counter()
+    with SuperStepClock(nk, profile_at=PROFILE_AT,
+                        target=(StarGANv2Solver, "train_step")) as clock, \
+            tally_calls(nk) as calls:
+        solver = sgv2_cli.main(base + [
+            "--mode", "train", "--total_iters", str(SGV2_CLI_ITERS),
+            "--save_every", str(SGV2_CLI_ITERS), "--sample_every",
+            str(SGV2_CLI_ITERS), "--print_every", str(SGV2_CLI_ITERS)])
+    wall_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n = len(clock.ends)
+    check(n == SGV2_CLI_ITERS and solver.step == n, f"{n} iterations")
+    tree_s = t0 - started
+    prev = (0, 0)
+    for i, cur in enumerate(clock.launches):
+        check((cur[0] - prev[0], cur[1] - prev[1]) == (per_fwd, per_bwd),
+              f"sgv2 CLI iteration {i} launched {cur[0] - prev[0]}/"
+              f"{cur[1] - prev[1]} kernels, expected {per_fwd}/{per_bwd}")
+        prev = cur
+    check(all(clock.on_card), "sgv2 CLI: a batch reached the step off the card")
+    # the iterations, then the debug grid's two G forwards of the val batch
+    want = Counter({s: n * 8 * c for s, c in SGV2_TRAIN_SHAPES.items()})
+    want.update({s: 2 * c for s, c in val_calls.items()})
+    check(calls["fwd"] == want and calls["bwd"] == Counter(
+        {s: n * 4 * c for s, c in SGV2_TRAIN_SHAPES.items()}),
+        f"sgv2 CLI calls by shape {dict(calls['fwd'])} / {dict(calls['bwd'])}")
+    for name in ("G", "D", "M", "S"):
+        for k, p in getattr(solver, name).named_parameters():
+            check(bool(torch.isfinite(p).all()), f"sgv2 CLI {name} {k} not finite")
+    run = root / "ckpt" / "starganv2"
+    for f in (f"{tag}_state.pt", "latest_state.pt"):
+        check((run / f).exists(), f"the sgv2 CLI wrote no {f}")
+    cycle = root / "samples" / f"{tag}_cycle.png"
+    check(png_shape(cycle) == (4 * (SGV2_IMAGE + 2) + 2,
+                               SGV2_BATCH * (SGV2_IMAGE + 2) + 2),
+          f"debug grid {png_shape(cycle)}")
+    steady = clock.steady_ms()
+    fed_ms = statistics.median(steady)
+    from torch.autograd import DeviceType
+    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    train_launches = (nk.LAUNCHES, nk.BWD_LAUNCHES)
+    print(f"sgv2 train CLI (AFHQ flags, {SGV2_CLI_ITERS} iterations, batch "
+          f"{SGV2_TRAIN_BATCH}, {SGV2_IMAGE}^2, bf16) in {wall_s:.1f} s: loader-fed "
+          f"iteration, median of {len(steady)} steady "
+          f"{fed_ms:.3f} ms ({[round(v, 1) for v in steady]}); preloaded "
+          f"iteration (10b, this call) {preloaded_ms:.3f} ms; kernels "
+          f"{dev_ms:.3f} ms an iteration over {PROFILED_SUPER_STEPS} profiled "
+          f"iterations, busy share {dev_ms / fed_ms:.1%}; peak "
+          f"{peak_mb:.1f} MiB; launches {train_launches[0]}/{train_launches[1]} "
+          f"({per_fwd}/{per_bwd} an iteration + {2 * SGV2_FWD_PER_FORWARD} "
+          f"for the debug grid) [{smi}]")
+    del solver
+    free_memory()
+
+    # the resume: the state the loop starts from is the one saved
+    loaded, real_train = [], sgv2_cli.train
+
+    def spy(args, solver_):
+        loaded.append(cpu_state(solver_))
+        real_train(args, solver_)
+
+    sgv2_cli.train = spy
+    before = (nk.LAUNCHES, nk.BWD_LAUNCHES)
+    t1 = time.perf_counter()
+    try:
+        resumed = sgv2_cli.main(base + [
+            "--mode", "train", "--resume_iter", str(SGV2_CLI_ITERS),
+            "--total_iters", str(SGV2_CLI_ITERS + 1), "--save_every", "1000",
+            "--sample_every", "1000", "--print_every", "1"])
+    finally:
+        sgv2_cli.train = real_train
+    torch.cuda.synchronize()
+    differs = same_state(read_checkpoint(root / "ckpt", "starganv2", tag),
+                         loaded[0])
+    check(differs is None, f"sgv2 resume: the loaded state differs at {differs}")
+    check(resumed.step == SGV2_CLI_ITERS + 1 and
+          (nk.LAUNCHES - before[0], nk.BWD_LAUNCHES - before[1]) == (per_fwd, per_bwd),
+          "sgv2 resume: one more iteration")
+    del resumed, loaded
+    free_memory()
+
+    # sampling from the checkpoint: the cycle grid (2 G forwards of the val
+    # batch) and the latent grid (3 latents x 3 domains of 4 sources)
+    before = (nk.LAUNCHES, nk.BWD_LAUNCHES)
+    t2 = time.perf_counter()
+    out = root / "sample"
+    with grids_checked() as finite:
+        sgv2_cli.main(base + ["--mode", "sample", "--resume_iter",
+                              str(SGV2_CLI_ITERS), "--result_dir", str(out)])
+    torch.cuda.synchronize()
+    sample_launches = (nk.LAUNCHES - before[0], nk.BWD_LAUNCHES - before[1])
+    check(sample_launches == (2 * SGV2_FWD_PER_FORWARD + 9 * SGV2_FWD_PER_FORWARD, 0),
+          f"sgv2 sample launches {sample_launches}")
+    check(finite == [True, True], f"sgv2 sample grids finite: {finite}")
+    shapes = {f: png_shape(out / f) for f in (f"{tag}_cycle.png", "latent_grid.png")}
+    check(shapes == {f"{tag}_cycle.png": (4 * (SGV2_IMAGE + 2) + 2,
+                                          SGV2_BATCH * (SGV2_IMAGE + 2) + 2),
+                     "latent_grid.png": (10 * (SGV2_IMAGE + 2) + 2,
+                                         4 * (SGV2_IMAGE + 2) + 2)},
+          f"sgv2 sample grids {shapes}")
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+    print(f"sgv2 CLI resume at {tag}: the loaded state equals the saved one "
+          f"tensor for tensor; one more iteration; sample: grids {shapes}, "
+          f"finite, {sample_launches[0]} forward launches; the CLI's launches "
+          f"{launches}; host seconds: image tree {tree_s:.1f}, train "
+          f"{wall_s:.1f}, resume {t2 - t1:.1f}, sample "
+          f"{time.perf_counter() - t2:.1f} [{smi}]")
+    return dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+                preloaded_ms=preloaded_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1880,6 +2370,38 @@ def main() -> int:
     sgv2_sean = phase_sgv2_sean(nk, fused, smi)
     sgv2_s = time.perf_counter() - sgv2_started
 
+    # 10. StarGAN v2 training at 256^2 (the AFHQ command): both kernels at
+    # its batch-8 shapes (10a), timed train_steps of AdaIN, FusedProp and
+    # SEAN (10b), a latent G loss's gradients kernel vs plain (10c), the CLI
+    # (10d)
+    train_started = time.perf_counter()
+    t_shapes = tuple(SGV2_TRAIN_SHAPES)
+    sgv2t_fwd_worst = phase_fwd_vs_plain(nk, fused, smi, t_shapes, (None,))
+    sgv2t_bwd_worst = phase_bwd_vs_plain(nk, fused, smi, t_shapes, (None,))
+    fwd_sgv2t_rows = phase_fwd_timing(nk, fused, SGV2_TRAIN_SHAPES, smi)
+    bwd_sgv2t_rows = phase_bwd_timing(nk, fused, smi, SGV2_TRAIN_SHAPES,
+                                      SGV2_LIBRARY_SUM_BAND)
+    for kind, rows in (("fwd", fwd_sgv2t_rows), ("bwd", bwd_sgv2t_rows)):
+        for r in rows:
+            share = r["bound_ms"] / r["ms"]
+            print(f"sgv2 train shape {tuple(r['shape'])} {kind}: kernel "
+                  f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, {share:.1%} "
+                  f"of it, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']:.4f} ms: "
+                  f"{'below half its bound' if share < 0.5 else 'at least half its bound'}"
+                  f", {'behind' if r['ms'] > r['library_ms'] else 'ahead of'} the "
+                  f"library call [{smi}]")
+    split = {"10a": time.perf_counter() - train_started}
+    sgv2_train = phase_sgv2_train(nk, smi, "adain")
+    sgv2_fused = phase_sgv2_train(nk, smi, "fused")
+    sgv2_train_sean = phase_sgv2_train(nk, smi, "sean")
+    split["10b"] = time.perf_counter() - train_started - sum(split.values())
+    sgv2_agree = phase_sgv2_train_agreement(nk, fused, smi)
+    split["10c"] = time.perf_counter() - train_started - sum(split.values())
+    sgv2_cli = phase_sgv2_cli(nk, smi, sgv2_train["ms"])
+    train_s = time.perf_counter() - train_started
+    split["10d"] = train_s - sum(split.values())
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
@@ -1887,32 +2409,51 @@ def main() -> int:
              "trainer_adain": trainer_adain, "test_cli": test_cli,
              "trainer_resume": trainer_resume, "trainer_sean": trainer_sean,
              "trainer_native": trainer_native, "sgv2_adain": sgv2_adain,
-             "sgv2_sean": sgv2_sean}
+             "sgv2_sean": sgv2_sean, "sgv2_train": sgv2_train,
+             "sgv2_train_sean": sgv2_train_sean, "sgv2_fused": sgv2_fused,
+             "sgv2_cli": sgv2_cli}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
             "per_serving_forward / per_sgv2_forward: device ms summed over one "
-            "DefectGAN serving forward / one StarGAN v2 G forward at batch 32")
+            "DefectGAN serving forward / one StarGAN v2 G forward at batch 32; "
+            "per_sgv2_train_iteration: device ms summed over one StarGAN v2 "
+            "AdaIN training iteration at batch 8")
     fwd_sgv2_rows = with_calls(fwd_sgv2_rows, sgv2_adain["calls"],
                                sgv2_adain["forwards"])
+    sgv2t_rows = {kind: with_calls(rows, sgv2_train["calls"][kind],
+                                   sgv2_train["iterations"])
+                  for kind, rows in (("fwd", fwd_sgv2t_rows),
+                                     ("bwd", bwd_sgv2t_rows))}
+
+    def per_iteration(rows):
+        return {"per_sgv2_train_iteration": {
+            "calls": sum(r["calls"] for r in rows),
+            **{k: summed(rows, k)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "per_call": rows}}
+
     fwd_serving_rows = with_calls(fwd_serving_rows, serve_calls["fwd"], 2)
     fwd = kernel_record(
         "modulated_instance_norm_fwd",
         "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:51",
         with_calls(fwd_train_rows, train_calls["fwd"], 1),
-        launches_by_path(paths, "fwd"), max(fwd_worst, sgv2_worst), unit,
-        {f"per_{path}_forward": {
+        launches_by_path(paths, "fwd"),
+        max(fwd_worst, sgv2_worst, sgv2t_fwd_worst), unit,
+        {**{f"per_{path}_forward": {
             "calls": sum(r["calls"] for r in rows),
             **{k: summed(rows, k)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "per_call": rows}
-         for path, rows in (("serving", fwd_serving_rows),
-                            ("sgv2", fwd_sgv2_rows))})
+            for path, rows in (("serving", fwd_serving_rows),
+                               ("sgv2", fwd_sgv2_rows))},
+         **per_iteration(sgv2t_rows["fwd"])})
     bwd = kernel_record(
         "modulated_instance_norm_bwd",
         "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:93",
         with_calls(bwd_rows, train_calls["bwd"], 1),
-        launches_by_path(paths, "bwd"), bwd_worst, unit)
+        launches_by_path(paths, "bwd"), max(bwd_worst, sgv2t_bwd_worst), unit,
+        per_iteration(sgv2t_rows["bwd"]))
     record = {"kernels": [fwd, bwd]}
     print(f"per super-step ({sum(train_calls['fwd'].values())} forward, "
           f"{sum(train_calls['bwd'].values())} backward calls): forward "
@@ -1954,8 +2495,25 @@ def main() -> int:
           f"{fwd['per_sgv2_forward']['library_ms']:.4f}, bound "
           f"{fwd['per_sgv2_forward']['bound_ms']:.4f}); agreement "
           f"{sgv2_adain['agree']} {sgv2_sean['agree']} [{smi}]")
+    fi, bi = fwd["per_sgv2_train_iteration"], bwd["per_sgv2_train_iteration"]
+    print(f"sgv2 training (AFHQ, batch {SGV2_TRAIN_BATCH}): AdaIN "
+          f"{sgv2_train['ms']:.3f} ms an iteration (kernels "
+          f"{busy_ms(sgv2_train['dev_ms'])}), peak {sgv2_train['peak_mb']:.1f} "
+          f"MiB; FusedProp {sgv2_fused['ms']:.3f} ms (kernels "
+          f"{busy_ms(sgv2_fused['dev_ms'])}), peak {sgv2_fused['peak_mb']:.1f} "
+          f"MiB; SEAN {sgv2_train_sean['ms']:.3f} ms (kernels "
+          f"{busy_ms(sgv2_train_sean['dev_ms'])}), peak "
+          f"{sgv2_train_sean['peak_mb']:.1f} MiB; CLI loader-fed "
+          f"{sgv2_cli['ms']:.3f} ms, busy {sgv2_cli['dev_ms'] / sgv2_cli['ms']:.1%}"
+          f"; forward kernel {fi['ms']:.4f} ms an iteration ({fi['calls']} calls;"
+          f" plain {fi['plain_ms']:.4f}, F.instance_norm {fi['library_ms']:.4f},"
+          f" bound {fi['bound_ms']:.4f}); backward kernel {bi['ms']:.4f} ms "
+          f"({bi['calls']} calls; plain {bi['plain_ms']:.4f}, autograd of "
+          f"F.instance_norm {bi['library_ms']:.4f}, bound {bi['bound_ms']:.4f}); "
+          f"gradient agreement {sgv2_agree} [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
-          f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s")
+          f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s, 10a-10d {train_s:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())})")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

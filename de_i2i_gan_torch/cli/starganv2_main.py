@@ -1,0 +1,302 @@
+"""StarGAN v2 entry point, counterpart of
+``de_i2i_gan_tpu/cli/starganv2_main.py`` (reference: stargan-v2/main.py:33-268).
+
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode train \
+        --train_img_dir data/afhq/train --val_img_dir data/afhq/val \
+        --num_domains 3 --w_hpf 0 --lambda_reg 1 --lambda_sty 1 \
+        --lambda_ds 2 --lambda_cyc 1
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode sample \
+        --resume_iter 100000 --num_domains 3 --w_hpf 0 ...
+
+Modes ``train`` (the AdaIN decoder) and ``sample``. The nets run on CUDA
+device 0; ``--device cpu`` runs them on the CPU. Checkpoints go to
+``<checkpoint_dir>/starganv2/<%06d iteration | latest>_state.pt``;
+``--resume_iter`` restores one strictly. It takes every flag of the JAX CLI;
+a mode or flag whose feature the port does not have yet raises
+``NotImplementedError`` naming the ROADMAP item it waits for.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("--mode", type=str, default="train",
+                   choices=["train", "pretrain", "sample", "eval",
+                            "update_stats", "align"])
+    p.add_argument("--img_size", type=int, default=256)
+    p.add_argument("--num_domains", type=int, default=2)
+    p.add_argument("--latent_dim", type=int, default=16)
+    p.add_argument("--hidden_dim", type=int, default=512)
+    p.add_argument("--hidden_nc", type=int, default=256)
+    p.add_argument("--style_dim", type=int, default=64)
+    p.add_argument("--embed_nc", type=int, default=768)
+    p.add_argument("--norm_type", type=str, default="adain",
+                   choices=["adain", "sean"])
+    p.add_argument("--w_hpf", type=float, default=1.0)
+    p.add_argument("--max_conv_dim", type=int, default=512)
+    p.add_argument("--lambda_reg", type=float, default=1.0)
+    p.add_argument("--lambda_cyc", type=float, default=1.0)
+    p.add_argument("--lambda_sty", type=float, default=1.0)
+    p.add_argument("--lambda_ds", type=float, default=1.0)
+    p.add_argument("--lambda_rec", type=float, default=10.0,
+                   help="MAE pretrain reconstruction weight")
+    p.add_argument("--ds_iter", type=int, default=100000)
+    p.add_argument("--total_iters", type=int, default=100000)
+    p.add_argument("--resume_iter", type=int, default=0)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--val_batch_size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--f_lr", type=float, default=1e-6)
+    p.add_argument("--beta1", type=float, default=0.0)
+    p.add_argument("--beta2", type=float, default=0.99)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--num_embeds", type=int, default=5)
+    p.add_argument("--num_outs_per_domain", type=int, default=10)
+    p.add_argument("--seed", type=int, default=777)
+    p.add_argument("--train_img_dir", type=Path,
+                   default=Path("data/celeba_hq/train"))
+    p.add_argument("--val_img_dir", type=Path,
+                   default=Path("data/celeba_hq/val"))
+    p.add_argument("--sample_dir", type=Path, default=Path("expr/samples"))
+    p.add_argument("--checkpoint_dir", type=Path,
+                   default=Path("expr/checkpoints"))
+    p.add_argument("--eval_dir", type=Path, default=Path("expr/eval"))
+    p.add_argument("--print_every", type=int, default=10)
+    p.add_argument("--sample_every", type=int, default=5000)
+    p.add_argument("--save_every", type=int, default=10000)
+    p.add_argument("--eval_every", type=int, default=50000)
+    p.add_argument("--wing_ckpt", "--wing_path", dest="wing_ckpt",
+                   type=Path, default=None)
+    p.add_argument("--pretrain_dir", type=Path, default=None,
+                   help="warm-start nets from a MAE pretrain checkpoint dir")
+    p.add_argument("--pretrain_iter", type=int, default=None)
+    p.add_argument("--randcrop_prob", type=float, default=0.5)
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="host loader threads")
+    p.add_argument("--num_val_refs", type=int, default=4)
+    p.add_argument("--update_sean_every", type=int, default=1,
+                   help="fold SEAN running-style stats every N iters; 1 "
+                        "matches the reference (core/solver.py:301 calls "
+                        "update_stats() every iteration)")
+    p.add_argument("--src_dir", type=Path, default=None,
+                   help="sample mode: source image folder (default "
+                        "val_img_dir)")
+    p.add_argument("--ref_dir", type=Path, default=None,
+                   help="sample mode: reference image folder (default "
+                        "val_img_dir)")
+    p.add_argument("--result_dir", type=Path, default=None,
+                   help="sample mode output dir (default sample_dir)")
+    p.add_argument("--allow_degraded_losses", action="store_true",
+                   help="proceed even when a loss term would silently "
+                        "degrade. Off = hard error")
+    p.add_argument("--make_video", action="store_true",
+                   help="sample mode: also render the reference-guided "
+                        "interpolation video (ROADMAP A.9)")
+    p.add_argument("--vit_path", type=str, default=None,
+                   help="HF ViT name/local path for the frozen sean-mode "
+                        "feature extractor (ROADMAP A.7)")
+    p.add_argument("--DiffAugment", type=str, default="")
+    p.add_argument("--fused_prop", action="store_true",
+                   help="FusedProp joint D+G update (arxiv 2004.03335; "
+                        "simultaneous-update semantics). Opt-in because the "
+                        "update semantics differ from the reference's "
+                        "alternating schedule")
+    p.add_argument("--data_parallel", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="'auto' runs on the one device; 'on' (the batch "
+                        "sharded over several) waits for ROADMAP A.9")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    # MAE pretrain mode (main.py:171-175)
+    p.add_argument("--patch_size", type=int, default=32)
+    p.add_argument("--mask_ratio", type=float, default=0.65)
+    p.add_argument("--mask_token_type", type=str, default="position")
+    # update_stats mode: tracked styles required per domain (solver.py:391)
+    p.add_argument("--num_stats_samples", type=int, default=10000)
+    # align mode (main.py:143-145 -> core/wing.py align_faces)
+    p.add_argument("--inp_dir", type=Path, default=None)
+    p.add_argument("--out_dir", type=Path, default=None)
+    p.add_argument("--lm_path", type=Path, default=None,
+                   help="CelebA mean-landmarks file for FaceAligner")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where the nets run: cuda (device 0) or cpu")
+    return p
+
+
+WAITS = {"pretrain": "A.4", "eval": "A.8", "update_stats": "A.7",
+         "align": "A.7"}
+
+
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` for a mode or flag whose feature the
+    port does not have yet, naming the ROADMAP item it waits for."""
+    waits = [
+        (args.mode in WAITS, f"--mode {args.mode}", WAITS.get(args.mode)),
+        (args.pretrain_dir is not None, "--pretrain_dir", "A.4"),
+        (args.norm_type == "sean",
+         "--norm_type sean (its fetcher embeds the references with the "
+         "frozen ViT)", "A.7"),
+        (args.vit_path is not None, "--vit_path", "A.7"),
+        (args.wing_ckpt is not None, "--wing_ckpt", "A.7"),
+        (args.make_video, "--make_video", "A.9"),
+        (args.data_parallel == "on", "--data_parallel on", "A.9"),
+    ]
+    for asked, flag, item in waits:
+        if asked:
+            raise NotImplementedError(
+                f"{flag} is not ported to the PyTorch package yet "
+                f"(ROADMAP {item})")
+
+
+def to_config(args):
+    from de_i2i_gan_torch.train.solver import StarGANv2Config
+    return StarGANv2Config(
+        img_size=args.img_size, num_domains=args.num_domains,
+        latent_dim=args.latent_dim, hidden_nc=args.hidden_nc,
+        style_dim=args.style_dim, embed_nc=args.embed_nc,
+        norm_type=args.norm_type, w_hpf=args.w_hpf,
+        max_conv_dim=args.max_conv_dim,
+        lambda_reg=args.lambda_reg, lambda_cyc=args.lambda_cyc,
+        lambda_sty=args.lambda_sty, lambda_ds=args.lambda_ds,
+        lambda_rec=args.lambda_rec,
+        ds_iter=args.ds_iter, total_iters=args.total_iters,
+        batch_size=args.batch_size, lr=args.lr, f_lr=args.f_lr,
+        beta1=args.beta1, beta2=args.beta2, weight_decay=args.weight_decay,
+        num_embeds=args.num_embeds, diff_aug=args.DiffAugment,
+        fused_prop=args.fused_prop,
+        allow_degraded_losses=args.allow_degraded_losses,
+        compute_dtype=args.compute_dtype)
+
+
+def make_fetcher(args, root, transform, batch_size, ref_root=None):
+    """Source + reference fetcher over the domain folders under ``root``
+    (the references under ``ref_root`` when given)."""
+    from de_i2i_gan_torch.data.starganv2_data import (
+        BalancedLoader, ImageFolderDataset, InputFetcher, ReferenceDataset,
+        make_reference_loader)
+    src = BalancedLoader(ImageFolderDataset(root, transform, args.seed),
+                         batch_size, seed=args.seed,
+                         num_threads=args.num_workers)
+    ref = make_reference_loader(ReferenceDataset(ref_root or root, transform,
+                                                 args.seed),
+                                batch_size, seed=args.seed + 1,
+                                num_threads=args.num_workers)
+    return InputFetcher(src, ref, args.latent_dim, args.norm_type,
+                        args.hidden_nc, args.seed)
+
+
+def train(args, solver) -> None:
+    """The training loop (main.py / solver.py:258-349): fetcher ->
+    device_prefetch -> ``train_step``, SEAN's statistics, running-mean
+    prints, debug grids, checkpoints, ``latest`` at the end."""
+    import torch
+
+    from de_i2i_gan_torch.data.pipeline import device_prefetch
+    from de_i2i_gan_torch.data.transforms import EvalTransform, TrainTransform
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+
+    tf = TrainTransform(args.img_size, jitter=False, vflip=False,
+                        randcrop_prob=args.randcrop_prob)
+    fetcher = make_fetcher(args, args.train_img_dir, tf, args.batch_size)
+    # fixed val inputs for the periodic debug grids (core/solver.py:228-229)
+    if Path(args.val_img_dir).is_dir():
+        inputs_val = next(make_fetcher(args, args.val_img_dir,
+                                       EvalTransform(args.img_size),
+                                       args.val_batch_size))
+    else:
+        inputs_val = next(fetcher)
+
+    # DiffAugment draws; the JAX CLI's PRNGKey(seed) stream
+    generator = torch.Generator(device=solver.device).manual_seed(args.seed)
+    running = defaultdict(float)
+    feed = device_prefetch(fetcher, solver.device)
+    try:
+        for i, batch in zip(range(args.resume_iter, args.total_iters), feed):
+            run_iteration(args, solver, i, batch, generator, running,
+                          inputs_val)
+    finally:
+        feed.close()  # stops the prefetch thread
+    save_checkpoint(args.checkpoint_dir, "starganv2", "latest", solver)
+
+
+def run_iteration(args, solver, i, batch, generator, running, inputs_val):
+    """Iteration ``i``: the step, then what the loop does at its cadences."""
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.utils.translate import debug_image
+
+    metrics = solver.train_step(batch, generator)
+    if solver.cfg.norm_type == "sean" and \
+            (i + 1) % max(args.update_sean_every, 1) == 0:
+        solver.update_sean_stats()
+    for k, v in metrics.items():
+        running[k] += float(v)
+    if (i + 1) % args.print_every == 0:
+        log = " ".join(f"{k}: [{running[k] / args.print_every:.4f}]"
+                       for k in sorted(running))
+        print(f"Iteration [{i + 1}/{args.total_iters}] {log}")
+        running.clear()
+    if (i + 1) % args.sample_every == 0:
+        debug_image(solver, inputs_val, i + 1, args.sample_dir)
+    if (i + 1) % args.save_every == 0:
+        save_checkpoint(args.checkpoint_dir, "starganv2", f"{i + 1:06d}",
+                        solver)
+    if (i + 1) % args.eval_every == 0:
+        raise NotImplementedError(
+            "--eval_every (the in-training metrics) is not ported to the "
+            "PyTorch package yet (ROADMAP A.8)")
+
+
+def sample(args, solver) -> None:
+    """Reference-guided cycle grid and the latent grid (stargan-v2
+    utils.py:110-174)."""
+    from de_i2i_gan_torch.data.transforms import EvalTransform
+    from de_i2i_gan_torch.utils.png import write_png
+    from de_i2i_gan_torch.utils.translate import (
+        debug_image, translate_using_latent)
+
+    if args.result_dir is not None:
+        args.sample_dir = args.result_dir
+    tf = EvalTransform(args.img_size)
+    inputs = next(make_fetcher(args, args.src_dir or args.val_img_dir, tf,
+                               args.val_batch_size,
+                               ref_root=args.ref_dir or args.val_img_dir))
+    debug_image(solver, inputs, args.resume_iter, args.sample_dir)
+    z_list = [np.random.default_rng(i).standard_normal(
+        args.latent_dim).astype(np.float32) for i in range(3)]
+    grid = translate_using_latent(solver, inputs["x_src"][:4],
+                                  list(range(args.num_domains)), z_list)
+    write_png(Path(args.sample_dir) / "latent_grid.png",
+              (np.clip(grid, 0, 1) * 255).astype(np.uint8))
+    print(f"samples written to {args.sample_dir}")
+
+
+def main(argv=None):
+    """Run a mode; returns the solver."""
+    from de_i2i_gan_torch.train.checkpoint import load_checkpoint
+    from de_i2i_gan_torch.train.jax_import import init_starganv2_weights
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    solver = StarGANv2Solver(to_config(args), device=args.device)
+    solver.init_training()
+    init_starganv2_weights(solver, args.seed)
+    if args.resume_iter > 0:
+        load_checkpoint(args.checkpoint_dir, "starganv2",
+                        f"{args.resume_iter:06d}", solver, strict=True)
+    if args.mode == "train":
+        train(args, solver)
+    else:
+        sample(args, solver)
+    return solver
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,6 +1,6 @@
 """Primitive loss functions, counterpart of ``de_i2i_gan_tpu/losses/common.py``:
-bce/cce on raw logits, l1, l2 and the ``cal_loss`` dispatch. All reductions
-are means in float32. (``r1_penalty`` comes with StarGAN v2.)
+bce/cce on raw logits, l1, l2, the ``cal_loss`` dispatch and StarGAN v2's
+``r1_penalty``. All reductions are means in float32.
 """
 from __future__ import annotations
 
@@ -48,3 +48,14 @@ def cal_loss(logits: torch.Tensor, targets: torch.Tensor,
     except KeyError:
         raise ValueError(f"loss_type: {loss_type} is invalid") from None
     return fn(logits, targets)
+
+
+def r1_penalty(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Zero-centered gradient penalty on real images (solver.py:573-583):
+    0.5 * E[ ||d sum(D(x)) / d x||^2 ], the square taken in float32.
+
+    ``out`` is D's output on ``x``, which requires grad. The gradient keeps
+    its graph (``create_graph``), so the penalty is differentiable in D's
+    parameters: one D forward serves both the logits and the penalty."""
+    (grad,) = torch.autograd.grad(out.sum(), x, create_graph=True)
+    return 0.5 * grad.float().square().sum() / x.shape[0]

@@ -1,5 +1,5 @@
 """StarGAN v2 networks (with the author's SEAN), counterpart of
-``de_i2i_gan_tpu/models/starganv2.py``, serving side.
+``de_i2i_gan_tpu/models/starganv2.py``.
 
 Mirrors stargan-v2/core/model.py:
   ResBlk        (:26-67)   pre-act residual, sqrt(2) scaling, optional
@@ -13,6 +13,7 @@ Mirrors stargan-v2/core/model.py:
   Generator     (:321-393) from_rgb -> encoder ResBlks -> styled decoder
                            -> to_rgb, layer_split_index style control
   MappingNetwork (:442-471), StyleEncoder (:474-505)
+  StarGANv2Discriminator (:508-532) per-domain real/fake logits
 
 ``Generator``, ``MappingNetwork`` and ``StyleEncoder`` take and return NHWC
 images, as the JAX modules do; the blocks inside work in NCHW. Domain labels
@@ -20,8 +21,7 @@ are integer ids (N,). ``StyleAdaIN`` and ``SEANv2`` end in the fused
 modulated instance norm (``ops/fused.py``), which launches the hand-written
 CUDA kernel for a CUDA tensor; in the JAX package they have no switch for
 it, and here neither. The FAN-mask high-pass path of ``Generator``
-(``masks``) waits for ROADMAP A.7; ``w_hpf > 0`` without masks runs. The
-discriminator comes with training (ROADMAP A.3).
+(``masks``) waits for ROADMAP A.7; ``w_hpf > 0`` without masks runs.
 """
 from __future__ import annotations
 
@@ -361,6 +361,37 @@ class StyleEncoder(nn.Module):
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         outs = [getattr(self, f"unshared_{i}")(h) for i in range(self.num_domains)]
         return _select(torch.stack(outs, dim=1), y)
+
+
+class StarGANv2Discriminator(nn.Module):
+    """model.py:508-532: NHWC image x and domain y -> the real/fake logit of
+    each row's domain (N,). No normalization, so R1's double backward never
+    reaches the modulated instance norm."""
+
+    def __init__(self, img_size: int = 256, num_domains: int = 2,
+                 max_conv_dim: int = 512, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        dim_in = 2 ** 14 // img_size
+        self.from_rgb = _conv3(3, dim_in, dtype)
+        self.num_blocks = int(math.log2(img_size)) - 2
+        d = dim_in
+        for i in range(self.num_blocks):
+            out = min(d * 2, max_conv_dim)
+            setattr(self, f"block_{i}", ResBlk(d, out, downsample=True,
+                                               dtype=dtype))
+            d = out
+        self.conv4 = Conv2d(d, d, (4, 4), use_bias=True, dtype=dtype)
+        self.head = Conv2d(d, num_domains, (1, 1), use_bias=True, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        h = self.from_rgb(x.permute(0, 3, 1, 2).contiguous().to(self.dtype))
+        for i in range(self.num_blocks):
+            h = getattr(self, f"block_{i}")(h)
+        h = self.head(_leaky(self.conv4(_leaky(h))))
+        # flattened in NHWC order, as the JAX reshape does
+        out = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        return out[torch.arange(y.shape[0], device=y.device), y]
 
 
 @torch.no_grad()

@@ -25,6 +25,7 @@ from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "modulated_instance_norm.cu"
@@ -210,7 +211,9 @@ def modulated_instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor,
 
 class _ModulatedInstanceNorm(torch.autograd.Function):
     """The forward kernel's y; its backward is the backward kernel, fed the
-    forward kernel's own mean and inv."""
+    forward kernel's own mean and inv. Once differentiable: a double
+    backward through it (a gradient penalty through a styled norm) raises
+    rather than return a dx without a graph."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, act, eps):
@@ -220,6 +223,7 @@ class _ModulatedInstanceNorm(torch.autograd.Function):
         return y
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dy):
         x, gamma, beta, mean, inv = ctx.saved_tensors
         dx, dg, db = modulated_instance_norm_bwd(

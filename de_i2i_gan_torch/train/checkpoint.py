@@ -13,7 +13,11 @@ The state of a ``DefectGanSteps`` (``train_state``) is one nested dict:
 the ``state_dict`` of G, E, D and ema_G (parameters and buffers: BatchNorm
 statistics, spectral u/v, SEAN statistics), each optimizer's update
 ``count`` (the learning-rate schedules read it) and its moments by
-parameter name, and ``step``, the count of D updates.
+parameter name, and ``step``, the count of D updates. A
+``StarGANv2Solver``'s has the same form over the nets and optimizers its
+``STATE_NETS`` and ``STATE_OPTIMIZERS`` name (G, D, M, S, the EMA nets with
+ema_G's SEAN statistics; ``step`` counts iterations), under
+``ckpt_dir/starganv2/<%06d iteration | latest>_state.pt``.
 """
 from __future__ import annotations
 
@@ -32,14 +36,15 @@ def _ckpt_path(ckpt_dir: Path, name: str, tag: str) -> Path:
 
 
 def train_state(steps) -> Dict[str, Any]:
-    """The live state of ``steps``: tensors are views of its parameters,
-    buffers and optimizer moments (not copies)."""
+    """The live state of ``steps`` (a ``DefectGanSteps`` or a
+    ``StarGANv2Solver``): tensors are views of its parameters, buffers and
+    optimizer moments (not copies)."""
     state: Dict[str, Any] = {"step": steps.step}
-    for net in NETS:
+    for net in getattr(steps, "STATE_NETS", NETS):
         module = getattr(steps, net)
         if module is not None:
             state[net] = module.state_dict()
-    for net in OPTIMIZERS:
+    for net in getattr(steps, "STATE_OPTIMIZERS", OPTIMIZERS):
         tx = getattr(steps, f"tx_{net}")
         if tx is not None:
             names = {id(p): k for k, p in getattr(steps, net).named_parameters()}
@@ -113,8 +118,8 @@ def load_train_state(steps, state: Dict[str, Any], strict: bool = True
             steps.step = value
         else:  # tx_<net>/count
             getattr(steps, path.split("/")[0]).count = value
-    if steps.ema_G is not None:
-        steps._sync_ema_state()
+    if steps.ema_G is not None and hasattr(steps, "_sync_ema_state"):
+        steps._sync_ema_state()  # DefectGAN's EMA generator shares G's state
     return stats
 
 

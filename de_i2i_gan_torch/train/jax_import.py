@@ -169,12 +169,12 @@ def _optax_fields(opt_state) -> Iterator[Dict[str, Any]]:
 
 def load_jax_opt_state(tx, module: nn.Module, opt_state) -> None:
     """Fill the port's ``Optimizer`` ``tx`` over ``module``'s parameters from
-    the optax state of the same optimizer: the schedule's update count, and
-    Adam/AdamW's ``mu``, ``nu`` and ``count`` or RMSprop's ``nu`` (trees of
+    the optax state of the same optimizer: the update count (the schedule's,
+    or Adam's in a chain without one), and Adam/AdamW's ``mu``, ``nu`` and ``count`` or RMSprop's ``nu`` (trees of
     numpy arrays in flax's layout), so the next update is the one JAX would
     make."""
     moments: Dict[str, Tree] = {}
-    adam_count = None
+    adam_count = schedule_count = None
     for fields in _optax_fields(opt_state):
         if "mu" in fields:  # scale_by_adam
             moments = {"exp_avg": fields["mu"], "exp_avg_sq": fields["nu"]}
@@ -182,7 +182,7 @@ def load_jax_opt_state(tx, module: nn.Module, opt_state) -> None:
         elif "nu" in fields:  # scale_by_rms
             moments = {"nu": fields["nu"]}
         elif "count" in fields:  # scale_by_schedule
-            tx.count = int(np.asarray(fields["count"]))
+            schedule_count = int(np.asarray(fields["count"]))
     targets = [t for t in _checked_targets(module) if t[2] == "params"]
     held = set(tx.opt.state[targets[0][1]]) - {"step"} if targets else set()
     if set(moments) != held:
@@ -201,6 +201,11 @@ def load_jax_opt_state(tx, module: nn.Module, opt_state) -> None:
         if adam_count is not None:
             for _, tensor, _, _, _ in targets:
                 tx.opt.state[tensor]["step"].fill_(adam_count)
+    # a chain without a schedule (the StarGAN v2 solver's constant lr)
+    # counts its updates in scale_by_adam alone
+    count = schedule_count if schedule_count is not None else adam_count
+    if count is not None:
+        tx.count = count
 
 
 def load_jax_train_state(steps, g_params: Tree, g_state: Mapping[str, Tree],
@@ -267,15 +272,19 @@ def init_weights(steps, seed: int) -> None:
 def load_jax_starganv2(solver, state) -> None:
     """Fill a ``StarGANv2Solver`` from a JAX ``SolverState`` (its leaves JAX
     or numpy arrays): G from ``state.G.params`` and ``state.G.state`` (SEAN's
-    ``sean_stats``), M and S from ``state.M.params`` and ``state.S.params``,
-    ``ema_G`` from ``state.ema_G`` with ``state.ema_sean_stats``, ``ema_M``
-    and ``ema_S`` from ``state.ema_M`` and ``state.ema_S``. Strict: a net
-    the solver holds and the state lacks, or the other way round, raises."""
+    ``sean_stats``), D, M and S from their params, ``ema_G`` from
+    ``state.ema_G`` with ``state.ema_sean_stats``, ``ema_M`` and ``ema_S``
+    from ``state.ema_M`` and ``state.ema_S``; each optimizer's moments and
+    count from its ``opt_state`` (``load_jax_opt_state``), and ``step``.
+    Builds D and the optimizers first (``init_training``). Strict: a net the
+    solver holds and the state lacks, or the other way round, raises."""
+    solver.init_training()
     g_state = dict(state.G.state or {})
     ema_state = dict(g_state)
     if state.ema_sean_stats is not None:
         ema_state["sean_stats"] = state.ema_sean_stats
-    trees = {"G": (state.G.params, g_state), "ema_G": (state.ema_G, ema_state),
+    trees = {"G": (state.G.params, g_state), "D": (state.D.params, None),
+             "ema_G": (state.ema_G, ema_state),
              "M": (None if state.M is None else state.M.params, None),
              "S": (None if state.S is None else state.S.params, None),
              "ema_M": (state.ema_M, None), "ema_S": (state.ema_S, None)}
@@ -286,6 +295,12 @@ def load_jax_starganv2(solver, state) -> None:
                              "JAX state")
         if net is not None:
             load_jax_module(net, params, net_state)
+    for name in ("G", "D", "M", "S"):
+        net_state = getattr(state, name)
+        if net_state is not None:
+            load_jax_opt_state(getattr(solver, f"tx_{name}"),
+                               getattr(solver, name), net_state.opt_state)
+    solver.step = int(np.asarray(state.step))
 
 
 def init_starganv2_weights(solver, seed: int) -> None:
@@ -293,11 +308,12 @@ def init_starganv2_weights(solver, seed: int) -> None:
     he_init conv and dense kernels, normal(0, sqrt(2 / fan_in))
     (``nn/layers.py:29``); flax's Embed init, normal(0, sqrt(1 / features));
     zero biases, AffineInstanceNorm scale 1, zero SEANv2 statistics. Not the
-    JAX init's numbers. Drawn on the CPU in the order G, M, S; each EMA net
-    starts as a copy of its net."""
+    JAX init's numbers. Drawn on the CPU in the order G, M, S, then D when
+    training has built it, so G's, M's and S's weights do not depend on
+    whether D exists; each EMA net starts as a copy of its net."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name in ("G", "M", "S"):
+        for name in ("G", "M", "S", "D"):
             net = getattr(solver, name)
             if net is None:
                 continue
@@ -313,4 +329,6 @@ def init_starganv2_weights(solver, seed: int) -> None:
                     tensor.fill_(1.0)
                 else:
                     tensor.zero_()
-            getattr(solver, f"ema_{name}").load_state_dict(net.state_dict())
+            ema = getattr(solver, f"ema_{name}", None)
+            if ema is not None:
+                ema.load_state_dict(net.state_dict())

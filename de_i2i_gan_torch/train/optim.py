@@ -2,6 +2,8 @@
 ``de_i2i_gan_tpu/train/optim.py``:
 
   * sgd | rmsprop | adam (betas 0.5/0.999) | adamw (betas 0.9/0.95), eps 1e-8
+  * the StarGAN v2 solver's Adam with coupled weight decay and a constant
+    learning rate (``make_solver_optimizer``)
   * per-network learning rates (TTUR)
   * schedules are functions of the optimizer's update count; a network
     updated every ``update_every`` iterations (the generator under
@@ -87,32 +89,30 @@ def _torch_optimizer(name: str, params) -> torch.optim.Optimizer:
     raise NameError(f"optimizer named {name} not defined")
 
 
-def _zero_state(name: str, p: torch.Tensor) -> dict:
-    """The per-parameter state ``name`` keeps, under the torch optimizer's
+def _zero_state(opt: torch.optim.Optimizer, p: torch.Tensor) -> dict:
+    """The per-parameter state ``opt`` keeps, under the torch optimizer's
     own keys, as its first step would make it."""
-    if name in ("adam", "adamw"):
+    if isinstance(opt, torch.optim.Adam | torch.optim.AdamW):
         return {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
                 "exp_avg_sq": torch.zeros_like(p)}
-    if name == "rmsprop":
+    if isinstance(opt, _RMSprop):
         return {"nu": torch.zeros_like(p)}
     return {}
 
 
 class Optimizer:
-    """A torch optimizer over ``params`` whose learning rate follows
-    ``lr_schedule`` of its own update count. Its moments exist from the
-    start, zeros at count 0, as optax's ``init`` makes them, so a
-    checkpoint or a JAX state can fill them before the first update."""
+    """A torch optimizer whose learning rate follows ``schedule`` of its own
+    update count. Its moments exist from the start, zeros at count 0, as
+    optax's ``init`` makes them, so a checkpoint or a JAX state can fill
+    them before the first update."""
 
-    def __init__(self, tcfg: TrainConfig, params: Iterable[torch.Tensor],
-                 base_lr: float, iters_per_epoch: int, num_epochs: int,
-                 update_every: int = 1):
-        self.params = list(params)
-        self.schedule = lr_schedule(tcfg, base_lr, iters_per_epoch,
-                                    num_epochs, update_every)
-        self.opt = _torch_optimizer(tcfg.optimizer, self.params)
+    def __init__(self, opt: torch.optim.Optimizer,
+                 schedule: Callable[[int], float]):
+        self.opt = opt
+        self.params = [p for group in opt.param_groups for p in group["params"]]
+        self.schedule = schedule
         for p in self.params:
-            self.opt.state[p].update(_zero_state(tcfg.optimizer, p))
+            self.opt.state[p].update(_zero_state(opt, p))
         self.count = 0
 
     def step(self, grads) -> None:
@@ -131,8 +131,21 @@ class Optimizer:
 def make_optimizer(tcfg: TrainConfig, params: Iterable[torch.Tensor],
                    base_lr: float, iters_per_epoch: int, num_epochs: int,
                    update_every: int = 1) -> Optimizer:
-    return Optimizer(tcfg, params, base_lr, iters_per_epoch, num_epochs,
-                     update_every)
+    return Optimizer(_torch_optimizer(tcfg.optimizer, list(params)),
+                     lr_schedule(tcfg, base_lr, iters_per_epoch, num_epochs,
+                                 update_every))
+
+
+def make_solver_optimizer(params: Iterable[torch.Tensor], lr: float,
+                          betas: tuple, weight_decay: float) -> Optimizer:
+    """The StarGAN v2 solver's per-net Adam at a constant ``lr``
+    (``de_i2i_gan_tpu/train/solver.py:121-134``): optax's
+    ``add_decayed_weights`` -> ``scale_by_adam`` -> ``scale(-lr)`` adds the
+    L2 term to the gradient before the adaptive scaling, which is
+    ``torch.optim.Adam``'s coupled ``weight_decay`` (not ``AdamW``)."""
+    return Optimizer(torch.optim.Adam(list(params), lr=lr, betas=betas,
+                                      eps=1e-8, weight_decay=weight_decay),
+                     lambda count: lr)
 
 
 @torch.no_grad()

@@ -1,28 +1,58 @@
-"""StarGAN v2 serving, counterpart of the sampling side of
-``de_i2i_gan_tpu/train/solver.py::StarGANv2Solver``.
+"""StarGAN v2 solver, counterpart of ``de_i2i_gan_tpu/train/solver.py``.
+
+Mirrors stargan-v2/core/solver.py:
+  * per-net Adam (betas 0/0.99, coupled weight decay 1e-4; ``f_lr`` for the
+    mapping network; solver.py:48-56, main.py defaults)
+  * D loss = BCE(real->1) + BCE(fake->0) + lambda_reg * R1 (solver.py:467-491)
+  * G loss = adv + lambda_sty * style-recon - lambda_ds * diversity +
+    lambda_cyc * cycle (solver.py:494-546)
+  * AdaIN runs a latent-guided and a reference-guided pass an iteration
+    (solver.py:266-298); SEAN runs the reference pass only
+  * EMA of G (and M, S for AdaIN) with beta 0.999 (solver.py:549-563), and
+    of SEAN's statistics; lambda_ds decays linearly to 0 over ds_iter
+    iterations, read from the step counter
+  * FusedProp (``cfg.fused_prop``, opt-in): each D+G pair shares one fake
+    forward, with simultaneous-update semantics
 
 The solver holds the generator G, the mapping network M and the style
-encoder S (AdaIN only), and their EMA copies, in eval mode on one device.
-Style codes (core/utils.py:485-516 get_style_code): AdaIN takes M(z, y)
-for a latent style or S(x_ref, y) for a reference style; SEAN takes the
-caller's frozen-ViT embeddings of the reference images, or noise that
-samples its running styles (``inference_stats``). SEAN's running styles
-are buffers of each generator: G's hold the JAX state's
-``G.state["sean_stats"]``, ``ema_G``'s its ``ema_sean_stats``.
+encoder S (AdaIN only) and their EMA copies on one device; the first
+training call builds the discriminator D and the four optimizers
+(``init_training``), so a solver that only serves holds neither. Style
+codes (core/utils.py:485-516 get_style_code): AdaIN takes M(z, y) for a
+latent style or S(x_ref, y) for a reference style; SEAN takes the caller's
+frozen-ViT embeddings of the reference images (``s_ref``, ``s_ref2``,
+``s_src`` in the batch), or noise that samples its running styles
+(``inference_stats``). SEAN's running styles are buffers of each
+generator: G's hold the JAX state's ``G.state["sean_stats"]``, ``ema_G``'s
+its ``ema_sean_stats``.
 
-Every method runs under ``torch.inference_mode()``. Training (D, R1, the
-losses, the EMA updates), the data and the CLI wait for ROADMAP A.3.
+JAX threads an immutable ``SolverState`` through pure functions; here the
+modules and optimizers hold the state and the steps update it in place.
+``step`` counts iterations, as ``state.step`` does. DiffAugment draws come
+from the ``generator`` a call is given, or torch's default generator of the
+device. The serving methods (``style``, ``generate``, ``track_stats_step``,
+``finalize_ema_stats``) run under ``torch.inference_mode()``. SEAN's
+lambda_sty needs the frozen ViT and the FAN masks of ``w_hpf > 0`` need the
+FAN (ROADMAP A.7); the MAE pretraining step waits for ROADMAP A.4.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional
+import logging
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from de_i2i_gan_torch.losses.common import bce_logits, l1, r1_penalty
 from de_i2i_gan_torch.models.starganv2 import (
-    Generator, MappingNetwork, StyleEncoder, sean_v2_update_stats)
+    Generator, MappingNetwork, SEANv2, StarGANv2Discriminator, StyleEncoder,
+    sean_v2_update_stats)
+from de_i2i_gan_torch.train.optim import ema_update, make_solver_optimizer
+from de_i2i_gan_torch.utils.diffaug import diff_augment
+
+Batch = Dict[str, torch.Tensor]
+SEAN_STATS = ("mean", "std", "sum", "sumsq", "count")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +101,10 @@ class StarGANv2Config:
 
 
 class StarGANv2Solver:
+    # what a checkpoint holds (train/checkpoint.py::train_state)
+    STATE_NETS = ("G", "D", "M", "S", "ema_G", "ema_M", "ema_S")
+    STATE_OPTIMIZERS = ("G", "D", "M", "S")
+
     def __init__(self, cfg: StarGANv2Config, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -85,11 +119,18 @@ class StarGANv2Solver:
         for name in ("G", "M", "S"):
             net = getattr(self, name)
             if net is not None:
-                net.to(self.device).eval().requires_grad_(False)
-            setattr(self, f"ema_{name}", copy.deepcopy(net))
+                net.to(self.device).eval()
+            ema = copy.deepcopy(net)
+            setattr(self, f"ema_{name}",
+                    None if ema is None else ema.requires_grad_(False))
+        self.D = None
+        self.tx_G = self.tx_D = self.tx_M = self.tx_S = None
+        self.step = 0  # iterations
+        self._warned = set()
 
     def nets(self) -> Dict[str, torch.nn.Module]:
-        """The solver's networks by name: G, M, S and their EMA copies."""
+        """The solver's serving networks by name: G, M, S and their EMA
+        copies."""
         return {name: getattr(self, name)
                 for name in ("G", "M", "S", "ema_G", "ema_M", "ema_S")
                 if getattr(self, name) is not None}
@@ -98,6 +139,7 @@ class StarGANv2Solver:
         return None if t is None else torch.as_tensor(t, dtype=dtype,
                                                       device=self.device)
 
+    # ------------------------------------------------------------- serving
     @torch.inference_mode()
     def style(self, batch: Dict[str, torch.Tensor], y_trg: torch.Tensor, *,
               which: str = "ref", latent: bool, use_ema: bool = False
@@ -140,3 +182,235 @@ class StarGANv2Solver:
     def finalize_ema_stats(self) -> None:
         """Finalize the EMA running styles after an update_stats sweep."""
         sean_v2_update_stats(self.ema_G)
+
+    # ------------------------------------------------------------ training
+    def init_training(self) -> None:
+        """Build D and the optimizers; a no-op once they exist."""
+        if self.D is not None:
+            return
+        cfg = self.cfg
+        self.D = StarGANv2Discriminator(cfg.img_size, cfg.num_domains,
+                                        cfg.max_conv_dim, dtype=cfg.dtype
+                                        ).to(self.device).eval()
+
+        def adam(net, lr):
+            return make_solver_optimizer(net.parameters(), lr,
+                                         (cfg.beta1, cfg.beta2),
+                                         cfg.weight_decay)
+
+        self.tx_G, self.tx_D = adam(self.G, cfg.lr), adam(self.D, cfg.lr)
+        if self.M is not None:
+            self.tx_M, self.tx_S = adam(self.M, cfg.f_lr), adam(self.S, cfg.lr)
+
+    def _batch(self, batch) -> Batch:
+        """The batch's arrays on the device, domain labels as int64."""
+        return {k: torch.as_tensor(v, device=self.device).long()
+                if k.startswith("y_") else torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    def _warn_once(self, key: str, msg: str) -> None:
+        if key not in self._warned:
+            self._warned.add(key)
+            logging.getLogger(__name__).warning(msg)
+
+    def _code(self, batch: Batch, y: torch.Tensor, which: str,
+              latent: bool) -> torch.Tensor:
+        """The training nets' style code (the JAX ``_style``)."""
+        if self.cfg.norm_type == "adain":
+            if latent:
+                return self.M(batch[f"z_{which}"], y)
+            return self.S(batch[f"x_{which}"], y)
+        return batch[f"s_{which}"]
+
+    def _lambda_ds(self, step: int) -> float:
+        cfg = self.cfg
+        return max(0.0, cfg.lambda_ds * (1.0 - step / max(cfg.ds_iter, 1)))
+
+    def d_loss_fn(self, batch: Batch, *, latent: bool,
+                  x_fake: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """As the JAX ``d_loss_fn``: (loss, {real, fake, reg}) with D's graph.
+        R1 takes the gradient of D's real logits w.r.t. the augmented real
+        images in one D forward. The fakes come from G without gradients
+        unless ``x_fake`` (FusedProp's shared forward, detached) is given."""
+        cfg = self.cfg
+        x_real, y_org, y_trg = batch["x_src"], batch["y_src"], batch["y_ref"]
+        x_real_aug = diff_augment(x_real, cfg.diff_aug, generator
+                                  ).detach().requires_grad_()
+        out_real = self.D(x_real_aug, y_org)
+        loss_real = bce_logits(out_real, torch.ones_like(out_real))
+        loss_reg = r1_penalty(out_real, x_real_aug)
+        if x_fake is None:
+            with torch.no_grad():
+                s_trg = self._code(batch, y_trg, "ref", latent)
+                x_fake = self.G(x_real, s_trg, batch.get("masks"), labels=y_trg)
+        x_fake = diff_augment(x_fake.detach(), cfg.diff_aug, generator)
+        out_fake = self.D(x_fake, y_trg)
+        loss_fake = bce_logits(out_fake, torch.zeros_like(out_fake))
+        loss = loss_real + loss_fake + cfg.lambda_reg * loss_reg
+        return loss, {"real": loss_real, "fake": loss_fake, "reg": loss_reg}
+
+    def g_loss_fn(self, batch: Batch, *, latent: bool,
+                  shared_fake: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """As the JAX ``g_loss_fn``: (loss, {adv, sty, ds, cyc}) with the graph
+        of G (and M, S for AdaIN). D and S score the fakes; D's parameters
+        are not differentiated by the caller. The SEAN reference pass tracks
+        its statistics on x_fake and x_fake2. ``shared_fake``: FusedProp's
+        (s_trg, x_fake)."""
+        cfg = self.cfg
+        adain = cfg.norm_type == "adain"
+        x_real, y_org, y_trg = batch["x_src"], batch["y_src"], batch["y_ref"]
+        masks = batch.get("masks")
+        track = not latent and not adain
+        if shared_fake is None:
+            s_trg = self._code(batch, y_trg, "ref", latent)
+            x_fake = self.G(x_real, s_trg, masks, labels=y_trg,
+                            track_stats=track)
+        else:
+            s_trg, x_fake = shared_fake
+        out = self.D(diff_augment(x_fake, cfg.diff_aug, generator), y_trg)
+        loss_adv = bce_logits(out, torch.ones_like(out))
+
+        # style reconstruction (solver.py:515-517)
+        if adain:
+            loss_sty = l1(self.S(x_fake, y_trg), s_trg)
+        else:
+            s_pred = batch.get("s_fake_pred")
+            if s_pred is None:
+                msg = ("sean mode without the frozen ViT: the lambda_sty "
+                       "style-reconstruction loss is INACTIVE (reference "
+                       "solver.py:515 embeds x_fake through it; ROADMAP A.7)")
+                if not cfg.allow_degraded_losses:
+                    raise ValueError(
+                        msg + ". Refusing to train with a silently zeroed "
+                        "loss term; set StarGANv2Config.allow_degraded_losses "
+                        "to proceed.")
+                self._warn_once("sean_sty", msg)
+                loss_sty = torch.zeros((), device=self.device)
+            else:
+                loss_sty = l1(s_pred, s_trg)
+
+        # diversity-sensitive loss (solver.py:519-527); x_fake2 takes no
+        # gradient (the JAX stop_gradient), so its forward keeps no graph
+        with torch.no_grad():
+            x_fake2 = self.G(x_real, self._code(batch, y_trg, "ref2", latent),
+                             masks, labels=y_trg, track_stats=track)
+        loss_ds = l1(x_fake, x_fake2)
+
+        # cycle consistency (solver.py:529-533)
+        s_org = self.S(x_real, y_org) if adain else batch["s_src"]
+        x_rec = self.G(x_fake, s_org, masks, labels=y_org)
+        loss_cyc = l1(x_rec, x_real)
+
+        loss = (loss_adv + cfg.lambda_sty * loss_sty -
+                self._lambda_ds(self.step) * loss_ds +
+                cfg.lambda_cyc * loss_cyc)
+        return loss, {"adv": loss_adv, "sty": loss_sty, "ds": loss_ds,
+                      "cyc": loss_cyc}
+
+    def _step_generators(self, loss: torch.Tensor, latent: bool) -> None:
+        """Update G, and M and S on the AdaIN latent pass (solver.py:283-298)
+        only; the reference pass's S gradient is not taken."""
+        txs = [self.tx_G]
+        if latent and self.M is not None:
+            txs += [self.tx_M, self.tx_S]
+        grads = torch.autograd.grad(loss, [p for tx in txs for p in tx.params],
+                                    allow_unused=True, materialize_grads=True)
+        start = 0
+        for tx in txs:
+            tx.step(grads[start:start + len(tx.params)])
+            start += len(tx.params)
+
+    def d_step(self, batch: Batch, latent: bool,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+        """One D update on the pass ``latent`` picks; the loss terms."""
+        loss, metrics = self.d_loss_fn(batch, latent=latent, generator=generator)
+        self.tx_D.step(torch.autograd.grad(loss, self.tx_D.params))
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def g_step(self, batch: Batch, latent: bool,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+        """One G (and M, S) update against the current D; the loss terms."""
+        loss, metrics = self.g_loss_fn(batch, latent=latent, generator=generator)
+        self._step_generators(loss, latent)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def fused_pair_step(self, batch: Batch, latent: bool,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """FusedProp D+G pair (arxiv 2004.03335): one fake forward shared by
+        both terms; D's gradients from the D term on the detached fakes,
+        G's (and M's, S's) from the G term, each taken by its own
+        ``torch.autograd.grad`` before any update (simultaneous-update
+        semantics: the G term sees the D before its update)."""
+        cfg = self.cfg
+        x_real, y_trg = batch["x_src"], batch["y_ref"]
+        track = not latent and cfg.norm_type == "sean"
+        s_trg = self._code(batch, y_trg, "ref", latent)
+        x_fake = self.G(x_real, s_trg, batch.get("masks"), labels=y_trg,
+                        track_stats=track)
+        ld, dm = self.d_loss_fn(batch, latent=latent, x_fake=x_fake.detach(),
+                                generator=generator)
+        lg, gm = self.g_loss_fn(batch, latent=latent,
+                                shared_fake=(s_trg, x_fake), generator=generator)
+        d_grads = torch.autograd.grad(ld, self.tx_D.params)
+        self._step_generators(lg, latent)
+        self.tx_D.step(d_grads)
+        return ({k: v.detach() for k, v in dm.items()},
+                {k: v.detach() for k, v in gm.items()})
+
+    @torch.no_grad()
+    def _ema(self) -> None:
+        """EMA of the nets (solver.py:549-563) and of all five SEAN
+        statistics of G (accumulators included)."""
+        beta = self.cfg.ema_beta
+        for name in ("G", "M", "S"):
+            net = getattr(self, name)
+            if net is not None:
+                ema_update(getattr(self, f"ema_{name}").parameters(),
+                           net.parameters(), beta)
+        for e, g in zip(self.ema_G.modules(), self.G.modules()):
+            if isinstance(g, SEANv2):
+                for stat in SEAN_STATS:
+                    getattr(e, stat).lerp_(getattr(g, stat), 1.0 - beta)
+
+    def train_step(self, batch, generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One reference iteration (solver.py:258-313): AdaIN runs D latent,
+        D ref, G latent, G ref; SEAN D ref and G ref; FusedProp a pair per
+        pass. Then the EMA updates and the step count. ``batch``: NHWC
+        ``x_src``, ``x_ref``, ``x_ref2``, domains ``y_src``, ``y_ref``, and
+        ``z_ref``, ``z_ref2`` (AdaIN) or ``s_ref``, ``s_ref2``, ``s_src``
+        (SEAN). Returns the loss terms under the JAX names as 0-d tensors."""
+        self.init_training()
+        batch = self._batch(batch)
+        passes = ((True, "latent"), (False, "ref")) if self.M is not None \
+            else ((False, "ref"),)
+        metrics = {}
+        if self.cfg.fused_prop:
+            for latent, tag in passes:
+                dm, gm = self.fused_pair_step(batch, latent, generator)
+                metrics.update({f"D/{tag}_{k}": v for k, v in dm.items()})
+                metrics.update({f"G/{tag}_{k}": v for k, v in gm.items()})
+        else:
+            for latent, tag in passes:
+                m = self.d_step(batch, latent, generator)
+                metrics.update({f"D/{tag}_{k}": v for k, v in m.items()})
+            for latent, tag in passes:
+                m = self.g_step(batch, latent, generator)
+                metrics.update({f"G/{tag}_{k}": v for k, v in m.items()})
+        self._ema()
+        self.step += 1
+        metrics["G/lambda_ds"] = torch.tensor(self._lambda_ds(self.step))
+        return metrics
+
+    @torch.no_grad()
+    def update_sean_stats(self) -> None:
+        """Finalize G's SEAN running styles (solver.py:552), after the
+        iteration's EMA of the statistics."""
+        sean_v2_update_stats(self.G)

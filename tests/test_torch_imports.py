@@ -7,9 +7,9 @@
   importing the native loader neither needs nor runs ``g++``: each builds
   at first use.
 * Importing the entry points (``cli/*``), the input feeds (``data``,
-  ``runtime``) and StarGAN v2 serving (``models/starganv2.py``,
-  ``train/solver.py``) parses no arguments, starts no thread and writes
-  nothing.
+  ``runtime``) and StarGAN v2 (``models/starganv2.py``, ``train/solver.py``,
+  ``data/starganv2_data.py``, ``utils/translate.py``) parses no arguments,
+  starts no thread and writes nothing.
 """
 import os
 import subprocess
@@ -42,7 +42,8 @@ for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
              "data.transforms", "data.embeddings", "metrics.evaluator",
              "train.checkpoint", "train.trainer", "utils.guards",
              "utils.seed", "utils.png", "runtime.native_loader",
-             "models.starganv2", "train.solver"):
+             "models.starganv2", "train.solver", "cli.starganv2_main",
+             "data.starganv2_data", "utils.translate", "utils.visualize"):
     assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
@@ -71,6 +72,7 @@ from de_i2i_gan_torch.runtime import native_loader
 import de_i2i_gan_torch.train.steps
 import de_i2i_gan_torch.train.solver
 import de_i2i_gan_torch.cli.train_defectgan
+import de_i2i_gan_torch.cli.starganv2_main
 assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
 assert native_loader._lib is None
 """
@@ -88,6 +90,9 @@ import de_i2i_gan_torch.train.trainer
 import de_i2i_gan_torch.runtime.native_loader
 import de_i2i_gan_torch.models.starganv2
 import de_i2i_gan_torch.train.solver
+import de_i2i_gan_torch.cli.starganv2_main
+import de_i2i_gan_torch.data.starganv2_data
+import de_i2i_gan_torch.utils.translate
 assert threading.active_count() == 1, threading.enumerate()
 assert os.listdir(".") == [], os.listdir(".")
 """

@@ -416,3 +416,85 @@ def test_starganv2_generate_on_card_goes_through_kernel(norm_type):
         assert launched == (8 * (2 * len(out) - 1) if solver is card else 0)
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.gpu
+def test_kernel_backward_is_once_differentiable():
+    """A double backward through the kernel (a gradient penalty through a
+    styled norm) raises instead of returning a dx without a graph."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, g, b, _ = _bwd_inputs((2, 8, 16, 16), torch.float32, gen)
+    x.requires_grad_()
+    y = fused.modulated_instance_norm(x, g, b, "leaky_relu")
+    (dx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    # dx's graph ends in the error node, not at x: a backward over the whole
+    # graph reaches it
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dx.square().sum().backward()
+
+
+def _continued(solver):
+    """Every optimizer of ``solver`` as if 3 updates had run: nu from a seed
+    (so the next update is a smooth function of the gradient, not about
+    lr * sign(g) as from a fresh state)."""
+    gen = torch.Generator().manual_seed(8)
+    for name in ("G", "D", "M", "S"):
+        tx = getattr(solver, f"tx_{name}")
+        tx.count = 3
+        for p in tx.params:
+            st = tx.opt.state[p]
+            st["step"].fill_(3)
+            st["exp_avg_sq"].copy_(torch.rand(p.shape, generator=gen) * 1.5e-2
+                                   + 0.5e-2)
+
+
+@pytest.mark.gpu
+def test_starganv2_train_step_on_card_matches_cpu():
+    """One tiny AdaIN train_step (f32, the JAX suite's tiny config, batch 2)
+    on the card through both kernels against the CPU through the plain
+    version, from one state with continued Adam moments: 8 G forwards (64
+    forward-kernel launches) and 4 G backwards (32 backward launches); the
+    losses within rtol 2e-4; each net's update per tensor within the bands
+    of ``tests/test_torch_starganv2_train_step.py`` (D 1e-3, M and S 1e-2,
+    G 2e-2 of its L2 norm: the reference pass runs on nets the earlier
+    updates moved slightly apart, and its gradient has L1 near-ties)."""
+    _need_card()
+    from de_i2i_gan_torch.train.jax_import import init_starganv2_weights
+    from de_i2i_gan_torch.train.solver import StarGANv2Config, StarGANv2Solver
+
+    cfg = StarGANv2Config(img_size=64, num_domains=3, style_dim=8,
+                          latent_dim=4, hidden_nc=16, embed_nc=12, w_hpf=0.0,
+                          max_conv_dim=64, ds_iter=10, norm_type="adain")
+    runs = []
+    for device in ("cuda", "cpu"):
+        solver = StarGANv2Solver(cfg, device)
+        solver.init_training()
+        init_starganv2_weights(solver, 0)
+        _continued(solver)
+        runs.append(solver)
+    card, cpu = runs
+    before = {n: [p.detach().cpu().clone() for p in getattr(cpu, n).parameters()]
+              for n in "GDMS"}
+    gen = torch.Generator().manual_seed(9)
+    batch = {k: torch.rand((2, 64, 64, 3), generator=gen) * 2 - 1
+             for k in ("x_src", "x_ref", "x_ref2")}
+    batch.update(y_src=torch.tensor([0, 1]), y_ref=torch.tensor([2, 0]),
+                 z_ref=torch.randn((2, 4), generator=gen),
+                 z_ref2=torch.randn((2, 4), generator=gen))
+    fwd0, bwd0 = norm_kernels.LAUNCHES, norm_kernels.BWD_LAUNCHES
+    metrics = card.train_step(batch)
+    torch.cuda.synchronize()
+    assert (norm_kernels.LAUNCHES - fwd0, norm_kernels.BWD_LAUNCHES - bwd0) == (
+        8 * 8, 4 * 8)
+    rmetrics = cpu.train_step(batch)
+    for k in rmetrics:
+        torch.testing.assert_close(metrics[k].cpu(), rmetrics[k], rtol=2e-4,
+                                   atol=1e-7, msg=k)
+    bands = {"G": 2e-2, "D": 1e-3, "M": 1e-2, "S": 1e-2}
+    for n, rel in bands.items():
+        for start, got, ref in zip(before[n], getattr(card, n).parameters(),
+                                   getattr(cpu, n).parameters()):
+            gk, rk = got.detach().cpu() - start, ref.detach() - start
+            assert (gk - rk).norm() <= rel * rk.norm() + 1e-9 * rk.numel() ** 0.5, n
+    assert card.step == cpu.step == 1 and card.tx_M.count == 4

@@ -21,7 +21,9 @@ CLIs, on the CPU at the tiny size.
     shows for the JAX guard; the trainer's rollback leaves the state of the
     last clean window.
 (d) The CLIs with ``--gpu_ids -1``: train, resume, then test with grids and
-    ``--cal_clf``; every flag not yet ported raises ``NotImplementedError``.
+    ``--cal_clf``; every flag not yet ported raises ``NotImplementedError``;
+    the test CLI's grids against the JAX test CLI's from one converted
+    checkpoint.
 """
 import math
 
@@ -358,3 +360,38 @@ def test_unported_flags_raise(cli, flags, tmp_path):
     main = train_defectgan.main if cli == "train" else test_defectgan.main
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.\d+"):
         main(["--name", "x"] + _tiny_argv(tmp_path) + flags)
+
+
+def test_cli_test_grids_match_the_jax_clis(tmp_path):
+    """One JAX checkpoint (a perturbed init state, SPADE, which draws no
+    random numbers), converted to the port's format; both packages' test
+    CLIs write ``--save_img_grid`` panels from it in float32: the same
+    grids, pixel for pixel within 1 of 255 (a float32 difference near a
+    rounding boundary of the uint8 cast), 99% of them equal."""
+    from PIL import Image
+
+    from de_i2i_gan_tpu.cli import test_defectgan as jax_test_cli
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+
+    cfg_kw = dict(TINY, style_norm_block_type="spade")
+    jsteps = JaxSteps(JaxConfig(**cfg_kw), JaxTrainConfig(**SGD))
+    state = _perturbed_state(jsteps.init_state(jax.random.PRNGKey(0)), SEED)
+    jcheckpoint.save_checkpoint(tmp_path / "jax", "dg", 1, state)
+    steps = DefectGanSteps(DefectGanConfig(**cfg_kw), TrainConfig(**SGD),
+                           device="cpu")
+    load_jax_train_state(steps, **_trees(state))
+    save_checkpoint(tmp_path / "torch", "dg", 1, steps)
+
+    argv = ["--name", "dg", "--which_epoch", "1", "--save_img_grid",
+            "--num_display_images", "2"] + _tiny_argv(tmp_path)[4:] + [
+        "--style_norm_block_type", "spade", "--compute_dtype", "float32"]
+    for pkg, cli in (("jax", jax_test_cli), ("torch", test_defectgan)):
+        cli.main(argv + ["--ckpt_dir", str(tmp_path / pkg), "--results_dir",
+                         str(tmp_path / f"res_{pkg}")])
+    for i in range(2):
+        ref, got = (np.asarray(Image.open(tmp_path / f"res_{pkg}" / "dg" /
+                                          f"grid_{i}.png")).astype(int)
+                    for pkg in ("jax", "torch"))
+        assert got.shape == ref.shape == (32, 32 * 7, 3)
+        assert np.abs(got - ref).max() <= 1
+        assert (got == ref).mean() > 0.99
