@@ -27,20 +27,30 @@ injection. SEAN and SPADE train with DiffAugment on every policy.
 Phases, each of which raises on failure:
 
   1. device   card name, count, torch/CUDA versions, nvidia-smi name + power
-  2. build    nvcc builds both kernels, one library, from the checkout
+  2. build    nvcc builds both kernels, one library, from the checkout;
+              ptxas's lines for every instantiation, failing on any spill;
+              each tier's occupancy at the paths' row lengths (blocks an SM,
+              and cudaOccupancyMaxActiveClusters for each cluster plan)
   3a. fwd     the forward kernel against its plain version at the serving
               and the training shapes, float32 and bfloat16, every
-              activation, and a ragged shape
-  3b. bwd     the backward kernel against its plain version at the training
-              shapes and a ragged shape, float32 and bfloat16, every
-              activation; mean and inv come from the forward kernel and are
-              first checked against the plain forward's
+              activation, a ragged shape and the planner's tier boundaries
+              (the longest row of a warp, of a block and of each cluster
+              size, and the next aligned lengths), in every tier the
+              planner can run there: W (a warp a row), B (a block a row),
+              C (a cluster a row), S (streaming)
+  3b. bwd     the backward kernel the same way at the training shapes, a
+              ragged shape and the boundaries; mean and inv come from the
+              forward kernel and are first checked against the plain
+              forward's; each tier run twice, dx, dgamma and dbeta
+              bit-identical
   4. serving  a small f32 input against the port on the CPU, then 2 warm-up
               + 5 timed requests (the serving path's launch counts); the
               same batches with use_pallas=False agree within a stated band
      profile  torch.profiler breakdown of a serving forward's kernels
-  5. timing   forward kernel, plain version and F.instance_norm at each
-              serving and training shape, beside the memory bound
+  5. timing   forward kernel at each serving and training shape: tier S,
+              the planned tier, every other tier the planner could run
+              there, the planned tier, tier S in turns, beside the plain
+              version, F.instance_norm and the memory bound
   6c. small   a tiny f32 super-step through both kernels on the card against
               the same super-step on the CPU (plain version): losses and
               (after - before) / lr under SGD
@@ -50,8 +60,8 @@ Phases, each of which raises on failure:
               use_pallas=False path, in bf16 and in an f32 control run
   6e. profile torch.profiler breakdown of one super-step, and the busy share
               of the unprofiled super-step
-  6f. timing  backward kernel, plain version and autograd of F.instance_norm
-              at each training shape, beside the memory bound
+  6f. timing  backward kernel at each training shape as in 5, beside the
+              plain version, autograd of F.instance_norm and the bound
   7a. sean    serving: 2 warm-up + 5 timed requests (the path's launch
               counts), against the use_pallas=False path within the band
               of phase 4; profile
@@ -89,8 +99,8 @@ Phases, each of which raises on failure:
               through device_prefetch equal the host's bit for bit (one
               thread); its pace with the CLI's four threads
   9a. sgv2    the forward kernel against its plain version at StarGAN v2's
-              five decoder shapes (batch 32), float32 and bfloat16; kernel,
-              plain version and F.instance_norm timed beside the bound
+              five decoder shapes (batch 32), float32 and bfloat16, in every
+              tier; timed as in 5
   9b. sgv2    AdaIN serving: 2 warm-up + 5 timed requests of 32 with latent
               styles, then with reference styles; exactly 12 forward launches
               a G forward at the five shapes; peak memory, profile; a
@@ -102,8 +112,10 @@ Phases, each of which raises on failure:
               finalize_ema_stats, one inference_stats request; the same
               launch and agreement checks as 9b
   10a. sgv2   both kernels against their plain versions at StarGAN v2's five
-       train  batch-8 shapes, float32 and bfloat16; each timed beside its
-              bound, its plain version and F.instance_norm (its autograd)
+       train  batch-8 shapes, float32 and bfloat16, in every tier; each timed
+              as in 5 beside its bound, its plain version and F.instance_norm
+              (its autograd); a launch with next to no work, timed the same
+              way (the floor under the short rows)
   10b.        2 warm-up + 5 timed AFHQ ``train_step``s on preloaded batches
               (AdaIN: exactly 96 forward and 48 backward launches an
               iteration at the five shapes), host-clock and profiler device
@@ -123,8 +135,11 @@ Phases, each of which raises on failure:
               loaded state equals the saved one, ``--mode sample`` from it
               (grids of the expected sizes, finite pixels)
 
-The line before the last two holds the kernels' JSON record, the next the
-card's name and power limit; the last line is ``{"ok": true, "device":
+Then each timed shape's planned tier against tier S and the fastest tier,
+and each path's share of the bound. The line before the last two holds the
+kernels' JSON record (per shape: the tier, its cluster size, tier S's time
+as ``streaming_ms`` and the other tiers' as ``other_tiers_ms``), the next
+the card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the package beside it, the
 script exits non-zero before printing any result.
 """
@@ -134,6 +149,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import shutil
 import statistics
 import struct
@@ -327,35 +343,104 @@ def expected_launches(cfg, forwards, backwards):
     return forwards * per_g, backwards * per_g
 
 
+# ------------------------------------------------------------- 2. build
+
+
+def phase_build_report(nk, info, smi):
+    """ptxas's lines for every kernel instantiation (failing on any spill),
+    and the occupancy of each tier the planner can run at the paths' row
+    lengths: blocks resident on an SM and, for a cluster plan, the clusters
+    cudaOccupancyMaxActiveClusters finds room for on the card."""
+    entries = spills = 0
+    for line in info.log.splitlines():
+        if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+            print(f"  ptxas: {line.strip()}")
+        entries += "Compiling entry" in line
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills += 1
+            check(m.group(1) == m.group(2) == "0", f"ptxas spilled: {line.strip()}")
+    check(entries > 0 and spills >= entries,
+          f"ptxas reported spills for {spills} of {entries} kernels")
+    print(f"build: {entries} kernel instantiations, 0 spill bytes in each")
+    lengths = sorted({h * w for shapes in (SLICE_SHAPES, SGV2_SHAPES)
+                      for _, _, h, w in shapes})
+    for op in ("fwd", "bwd"):
+        for dt in (torch.bfloat16, torch.float32):
+            for hw in lengths:
+                for tier in nk.feasible_tiers(op, hw, dt):
+                    p, blocks, clusters = nk.occupancy(op, hw, dt, tier=tier)
+                    planned = p == nk.plan(op, hw, dt, True)
+                    check(blocks >= (2 if p.tier == "C" else 1),
+                          f"{op} {p} at rows of {hw}: {blocks} blocks an SM")
+                    check(p.cluster == 1 or clusters > 0,
+                          f"{op} {p}: no cluster fits the card")
+                    cl = (f", {clusters} clusters of {p.cluster} resident on the "
+                          f"card" if p.tier == "C" else "")
+                    print(f"occupancy {op} {str(dt)[6:]} rows of {hw}: tier "
+                          f"{tier_label(p)}{' (planned)' if planned else ''}, "
+                          f"{p.smem} B shared, {blocks} blocks an SM{cl} [{smi}]")
+
+
 # ------------------------------------------------------------ 3. kernels
+
+
+def boundary_shapes(nk, op, dtype):
+    """Rows at the planner's tier boundaries, 12 of them: the longest a warp
+    holds and the next aligned length; the same for a block; the longest
+    each cluster size holds and the next (the next cluster size, or
+    streaming past 8)."""
+    v = nk.VECTOR_ELEMS[dtype]
+    lengths = [nk.WARP_ROW_MAX, nk.WARP_ROW_MAX + v,
+               nk.BLOCK_ROW_VECTORS * v, (nk.BLOCK_ROW_VECTORS + 1) * v]
+    for cs in nk.CLUSTER_SIZES:
+        longest = nk.longest_cluster_row(op, dtype, cs)
+        lengths += [longest, longest + v]
+    return [(2, 3, 1, hw) for hw in lengths]
+
+
+def tier_label(p):
+    return f"{p.tier}{p.cluster}" if p.tier == "C" else p.tier
 
 
 def phase_fwd_vs_plain(nk, fused, smi,
                        shapes=(*SLICE_SHAPES, *TRAIN_SHAPES, RAGGED),
-                       acts=(None, "relu", "leaky_relu")):
+                       acts=(None, "relu", "leaky_relu"), boundaries=True):
+    """Every tier the planner can run at each shape (the planned one first,
+    tier S last) against the plain version; with ``boundaries`` also at the
+    tier boundaries of each dtype."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [(s, dt, act) for s in shapes
-             for dt in (torch.float32, torch.bfloat16) for act in acts]
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(s, dt, act) for s in shapes for dt in dtypes for act in acts]
+    if boundaries:
+        cases += [(s, dt, act) for dt in dtypes
+                  for s in boundary_shapes(nk, "fwd", dt) for act in acts]
     worst = 0.0
     for i, (shape, dt, act) in enumerate(cases):
         x, g, b = make_norm_inputs(shape, dt, SEED + i)
-        y, mean, inv = nk.modulated_instance_norm_fwd(x, g, b, act)
-        torch.cuda.synchronize()
         ry, rmean, rinv = fused.modulated_instance_norm_ref(x, g, b, act)
-        check(y.dtype == dt and y.shape == x.shape, "kernel output dtype/shape")
         tol = (dict(atol=F32_TOL, rtol=F32_TOL) if dt == torch.float32
                else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
-        torch.testing.assert_close(y.float(), ry.float(), **tol)
-        torch.testing.assert_close(mean, rmean, atol=F32_TOL, rtol=F32_TOL)
-        torch.testing.assert_close(inv, rinv, atol=F32_TOL, rtol=F32_TOL)
-        err = (y.float() - ry.float()).abs().max().item()
-        worst = max(worst, err)
+        hw = shape[2] * shape[3]
+        errs = []
+        for tier in nk.feasible_tiers("fwd", hw, dt, x.data_ptr() % 16 == 0):
+            p = nk.plan("fwd", hw, dt, True, tier)
+            y, mean, inv = nk.modulated_instance_norm_fwd(x, g, b, act, tier=tier)
+            torch.cuda.synchronize()
+            check(y.dtype == dt and y.shape == x.shape, "kernel output dtype/shape")
+            torch.testing.assert_close(y.float(), ry.float(), **tol)
+            torch.testing.assert_close(mean, rmean, atol=F32_TOL, rtol=F32_TOL)
+            torch.testing.assert_close(inv, rinv, atol=F32_TOL, rtol=F32_TOL)
+            err = (y.float() - ry.float()).abs().max().item()
+            worst = max(worst, err)
+            errs.append(f"{tier_label(p)} max|dy|={err:.3e} max|dmean|="
+                        f"{(mean - rmean).abs().max().item():.3e} max|dinv|="
+                        f"{(inv - rinv).abs().max().item():.3e}")
+            del y
         print(f"fwd kernel-vs-plain {tuple(shape)} {str(dt)[6:]} act={act}: "
-              f"max|dy|={err:.3e} max|dmean|="
-              f"{(mean - rmean).abs().max().item():.3e} max|dinv|="
-              f"{(inv - rinv).abs().max().item():.3e} tol={tol} [{smi}]")
-        del x, y, ry
+              f"{'; '.join(errs)} tol={tol} [{smi}]")
+        del x, ry
     free_memory()
     return worst
 
@@ -367,9 +452,15 @@ def bf16_ulp(t):
 
 
 def phase_bwd_vs_plain(nk, fused, smi, shapes=(*TRAIN_SHAPES, RAGGED),
-                       acts=(None, "relu", "leaky_relu")):
-    cases = [(s, dt, act) for s in shapes
-             for dt in (torch.float32, torch.bfloat16) for act in acts]
+                       acts=(None, "relu", "leaky_relu"), boundaries=True):
+    """Every tier the planner can run at each shape against the plain
+    version, each run twice: dx, dgamma and dbeta bit-identical from run to
+    run; with ``boundaries`` also at the tier boundaries of each dtype."""
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(s, dt, act) for s in shapes for dt in dtypes for act in acts]
+    if boundaries:
+        cases += [(s, dt, act) for dt in dtypes
+                  for s in boundary_shapes(nk, "bwd", dt) for act in acts]
     worst = 0.0
     for i, (shape, dt, act) in enumerate(cases):
         x, g, b = make_norm_inputs(shape, dt, SEED + 100 + i)
@@ -381,41 +472,55 @@ def phase_bwd_vs_plain(nk, fused, smi, shapes=(*TRAIN_SHAPES, RAGGED),
         _, rmean, rinv = fused.modulated_instance_norm_ref(x, g, b, act)
         torch.testing.assert_close(mean, rmean, atol=F32_TOL, rtol=F32_TOL)
         torch.testing.assert_close(inv, rinv, atol=F32_TOL, rtol=F32_TOL)
-        dx, dg, db = nk.modulated_instance_norm_bwd(x, g, b, mean, inv, dy, act)
-        torch.cuda.synchronize()
         rdx, rdg, rdb = fused.modulated_instance_norm_bwd_ref(x, g, b, mean,
                                                               inv, dy, act)
-        check(dx.dtype == dt and dx.shape == x.shape and dg.shape == (
-            shape[0], shape[1]), "backward kernel output dtype/shape")
-        if dt == torch.float32:
-            tol = f"atol = rtol = {BWD_F32_TOL}"
-            torch.testing.assert_close(dx, rdx, atol=BWD_F32_TOL,
-                                       rtol=BWD_F32_TOL)
-        else:
-            tol = f"1 bf16 ulp + {BWD_BF16_ATOL}"
-            used = ((dx.float() - rdx.float()).abs() /
-                    (bf16_ulp(rdx) + BWD_BF16_ATOL)).max().item()
-            check(used <= 1.0, f"bf16 dx differs from the plain version's by "
-                  f"{used:.2f} x (1 bf16 ulp + {BWD_BF16_ATOL})")
         # the sums' scale: sum |dy| and sum |dy * xhat| (the gate only shrinks
         # terms), from the plain backward fed |dy| and |x - mean|
         m = mean[:, :, None, None]
         _, abs_dg, abs_db = fused.modulated_instance_norm_bwd_ref(
             (x.float() - m).abs() + m, g, b, mean, inv, dy.float().abs())
-        dg_rel = ((dg - rdg).abs() / abs_dg.clamp_min(1e-30)).max().item()
-        db_rel = ((db - rdb).abs() / abs_db.clamp_min(1e-30)).max().item()
-        check(dg_rel <= SUM_BAND and db_rel <= SUM_BAND,
-              f"dgamma/dbeta outside the band: {dg_rel:.3e} {db_rel:.3e} of "
-              f"the absolute sums (band {SUM_BAND})")
-        err = (dx.float() - rdx.float()).abs().max().item()
-        worst = max(worst, err)
-        used_s = f" ({used:.2f} of the tolerance)" if dt == torch.bfloat16 else ""
+        hw = shape[2] * shape[3]
+        errs = []
+        for tier in nk.feasible_tiers("bwd", hw, dt, x.data_ptr() % 16 == 0):
+            p = nk.plan("bwd", hw, dt, True, tier)
+            dx, dg, db = nk.modulated_instance_norm_bwd(x, g, b, mean, inv, dy,
+                                                        act, tier=tier)
+            dx2, dg2, db2 = nk.modulated_instance_norm_bwd(x, g, b, mean, inv,
+                                                           dy, act, tier=tier)
+            torch.cuda.synchronize()
+            check(torch.equal(dg, dg2) and torch.equal(db, db2)
+                  and torch.equal(dx, dx2),
+                  f"tier {tier_label(p)} at {shape}: two runs differ")
+            check(dx.dtype == dt and dx.shape == x.shape and dg.shape == (
+                shape[0], shape[1]), "backward kernel output dtype/shape")
+            if dt == torch.float32:
+                tol = f"atol = rtol = {BWD_F32_TOL}"
+                torch.testing.assert_close(dx, rdx, atol=BWD_F32_TOL,
+                                           rtol=BWD_F32_TOL)
+            else:
+                tol = f"1 bf16 ulp + {BWD_BF16_ATOL}"
+                used = ((dx.float() - rdx.float()).abs() /
+                        (bf16_ulp(rdx) + BWD_BF16_ATOL)).max().item()
+                check(used <= 1.0, f"bf16 dx differs from the plain version's "
+                      f"by {used:.2f} x (1 bf16 ulp + {BWD_BF16_ATOL}), tier "
+                      f"{tier_label(p)} at {shape}")
+            dg_rel = ((dg - rdg).abs() / abs_dg.clamp_min(1e-30)).max().item()
+            db_rel = ((db - rdb).abs() / abs_db.clamp_min(1e-30)).max().item()
+            check(dg_rel <= SUM_BAND and db_rel <= SUM_BAND,
+                  f"dgamma/dbeta outside the band: {dg_rel:.3e} {db_rel:.3e} of "
+                  f"the absolute sums (band {SUM_BAND}), tier {tier_label(p)} "
+                  f"at {shape}")
+            err = (dx.float() - rdx.float()).abs().max().item()
+            worst = max(worst, err)
+            used_s = f" ({used:.2f} of the tolerance)" if dt == torch.bfloat16 else ""
+            errs.append(f"{tier_label(p)} max|ddx|={err:.3e}{used_s} max|ddgamma|="
+                        f"{(dg - rdg).abs().max().item():.3e} ({dg_rel:.2e} of "
+                        f"sum|.|) max|ddbeta|={(db - rdb).abs().max().item():.3e}"
+                        f" ({db_rel:.2e})")
+            del dx, dx2
         print(f"bwd kernel-vs-plain {tuple(shape)} {str(dt)[6:]} act={act}: "
-              f"max|ddx|={err:.3e}{used_s} max|ddgamma|="
-              f"{(dg - rdg).abs().max().item():.3e} ({dg_rel:.2e} of sum|.|) "
-              f"max|ddbeta|={(db - rdb).abs().max().item():.3e} ({db_rel:.2e}) "
-              f"dx tol {tol} [{smi}]")
-        del x, dy, dx, rdx
+              f"{'; '.join(errs)}; bit-identical over 2 runs; dx tol {tol} [{smi}]")
+        del x, dy, rdx
     free_memory()
     return worst
 
@@ -640,6 +745,28 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def other_tiers(nk, op, hw, dtype, planned, time_tier):
+    """Device ms of each tier the planner could also run here, besides the
+    planned one and S: the record of whether it chose the fastest."""
+    return {tier_label(nk.plan(op, hw, dtype, True, t)): time_tier(t)
+            for t in nk.feasible_tiers(op, hw, dtype)
+            if t not in (planned.tier, "S")}
+
+
+def phase_launch_floor(nk, smi, iters=200):
+    """Device ms of a launch with next to no work (one tier-W block of 8
+    rows of 256), back to back as device_ms times every kernel: the floor
+    under the short rows' times."""
+    x, g, b = make_norm_inputs((1, 8, 16, 16), torch.bfloat16, SEED)
+    fwd = device_ms(lambda i: nk.modulated_instance_norm_fwd(x, g, b), iters)
+    _, mean, inv = nk.modulated_instance_norm_fwd(x, g, b)
+    bwd = device_ms(lambda i: nk.modulated_instance_norm_bwd(x, g, b, mean, inv,
+                                                             x), iters)
+    print(f"launch floor: a forward of 8 rows of 256 takes {fwd:.4f} ms, a "
+          f"backward {bwd:.4f} ms, back to back [{smi}]")
+    return {"fwd_ms": fwd, "bwd_ms": bwd}
+
+
 def phase_fwd_timing(nk, fused, shapes, smi):
     rows = []
     for shape in shapes:
@@ -656,6 +783,10 @@ def phase_fwd_timing(nk, fused, shapes, smi):
         def kernel(i):
             nk.modulated_instance_norm_fwd(xs[i % copies], g, b)
 
+        def forced(tier):
+            return lambda i: nk.modulated_instance_norm_fwd(xs[i % copies], g,
+                                                            b, tier=tier)
+
         def plain(i):
             fused.modulated_instance_norm_ref(xs[i % copies], g, b)
 
@@ -668,22 +799,34 @@ def phase_fwd_timing(nk, fused, shapes, smi):
                               eps=1e-5).view(shape)
         torch.testing.assert_close(lib.float(), fused.modulated_instance_norm_ref(
             x, g, b)[0].float(), atol=BF16_ATOL, rtol=BF16_RTOL)
-        # plain, kernel, kernel, plain (and the library call between)
+        # plain, streaming, planned, the other tiers, planned, streaming,
+        # plain (and the library call between)
+        p = nk.plan("fwd", h * w, x.dtype, True)
         p1 = device_ms(plain, iters)
+        s1 = device_ms(forced("S"), iters)
         k1 = device_ms(kernel, iters)
+        others = other_tiers(nk, "fwd", h * w, x.dtype, p,
+                             lambda t: device_ms(forced(t), iters))
         l1 = device_ms(library, iters)
         k2 = device_ms(kernel, iters)
+        s2 = device_ms(forced("S"), iters)
         p2 = device_ms(plain, iters)
         nbytes = io_bytes + 4 * n * c * 4  # + gamma, beta in; mean, inv out
         bound_ms, bound_by = bound(nbytes, FWD_FLOPS_PER_ELEMENT * x.numel())
-        row = dict(shape=list(shape), ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+        row = dict(shape=list(shape), tier=p.tier, cluster=p.cluster,
+                   ms=(k1 + k2) / 2, streaming_ms=(s1 + s2) / 2,
+                   other_tiers_ms=others, plain_ms=(p1 + p2) / 2,
                    library_ms=l1, bound_ms=bound_ms, bound_by=bound_by)
         rows.append(row)
-        print(f"fwd timing {shape} bf16: kernel {k1:.4f}/{k2:.4f} "
-              f"ms, plain {p1:.4f}/{p2:.4f} ms, F.instance_norm {l1:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB at "
+        print(f"fwd timing {shape} bf16: tier {tier_label(p)} {k1:.4f}/{k2:.4f} "
+              f"ms, tier S {s1:.4f}/{s2:.4f} ms, other tiers {others}, plain "
+              f"{p1:.4f}/{p2:.4f} ms, "
+              f"F.instance_norm {l1:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({nbytes / 1e6:.1f} MB at "
               f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), roofline share "
-              f"{bound_ms / row['ms']:.1%}, {copies} rotating copies [{smi}]")
+              f"{bound_ms / row['ms']:.1%} (tier S "
+              f"{bound_ms / row['streaming_ms']:.1%}), {copies} rotating "
+              f"copies [{smi}]")
         del xs, x, lib
     free_memory()
     return rows
@@ -998,6 +1141,10 @@ def phase_bwd_timing(nk, fused, smi, shapes=TRAIN_SHAPES,
             nk.modulated_instance_norm_bwd(xs[i % copies], g, b, mean, inv,
                                            dys[i % copies])
 
+        def forced(tier):
+            return lambda i: nk.modulated_instance_norm_bwd(
+                xs[i % copies], g, b, mean, inv, dys[i % copies], tier=tier)
+
         def plain(i):
             fused.modulated_instance_norm_bwd_ref(xs[i % copies], g, b, mean,
                                                   inv, dys[i % copies])
@@ -1024,23 +1171,33 @@ def phase_bwd_timing(nk, fused, smi, shapes=TRAIN_SHAPES,
                       ((ldb.view(n, c) - rdb).abs() / abs_db).max().item())
         check(lib_rel <= library_band, f"the library's dgamma/dbeta differ "
               f"by {lib_rel:.2e} of the absolute sums (band {library_band:.2e})")
+        p = nk.plan("bwd", h * w, x.dtype, True)
         p1 = device_ms(plain, iters)
+        s1 = device_ms(forced("S"), iters)
         k1 = device_ms(kernel, iters)
+        others = other_tiers(nk, "bwd", h * w, x.dtype, p,
+                             lambda t: device_ms(forced(t), iters))
         l1 = device_ms(library, iters)
         k2 = device_ms(kernel, iters)
+        s2 = device_ms(forced("S"), iters)
         p2 = device_ms(plain, iters)
         # x and dy read, dx written; gamma, beta, mean, inv in, dgamma, dbeta out
         nbytes = 3 * slab + 6 * n * c * 4
         bound_ms, bound_by = bound(nbytes, BWD_FLOPS_PER_ELEMENT * x.numel())
-        row = dict(shape=list(shape), ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+        row = dict(shape=list(shape), tier=p.tier, cluster=p.cluster,
+                   ms=(k1 + k2) / 2, streaming_ms=(s1 + s2) / 2,
+                   other_tiers_ms=others, plain_ms=(p1 + p2) / 2,
                    library_ms=l1, bound_ms=bound_ms, bound_by=bound_by)
         rows.append(row)
-        print(f"bwd timing {shape} bf16: kernel "
-              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, autograd of "
+        print(f"bwd timing {shape} bf16: tier {tier_label(p)} "
+              f"{k1:.4f}/{k2:.4f} ms, tier S {s1:.4f}/{s2:.4f} ms, other "
+              f"tiers {others}, plain "
+              f"{p1:.4f}/{p2:.4f} ms, autograd of "
               f"F.instance_norm {l1:.4f} ms, bound {bound_ms:.4f} ms by "
               f"{bound_by} ({nbytes / 1e6:.1f} MB at "
               f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), roofline share "
-              f"{bound_ms / row['ms']:.1%}, {copies} rotating copies; the "
+              f"{bound_ms / row['ms']:.1%} (tier S "
+              f"{bound_ms / row['streaming_ms']:.1%}), {copies} rotating copies; the "
               f"library's dgamma/dbeta within {lib_rel:.2e} of the absolute "
               f"sums [{smi}]")
         del xs, dys, lxs, lys, x, dy
@@ -1080,6 +1237,10 @@ def with_calls(rows, calls, runs):
     return out
 
 
+# a timing row's device times, summed over a path's calls
+SUMMED = ("ms", "streaming_ms", "plain_ms", "bound_ms", "library_ms")
+
+
 def summed(rows, key):
     """A kernel's time over its calls in one pass of the path."""
     return sum(r[key] * r["calls"] for r in rows)
@@ -1088,8 +1249,7 @@ def summed(rows, key):
 def kernel_record(name, replaces, rows, launches_by_path, worst, unit,
                   extra=None):
     per_step = {"calls": sum(r["calls"] for r in rows),
-                **{k: summed(rows, k)
-                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+                **{k: summed(rows, k) for k in SUMMED}}
     record = {
         "name": name,
         "route": "cuda",
@@ -1111,6 +1271,39 @@ def kernel_record(name, replaces, rows, launches_by_path, worst, unit,
 
 
 # --------------------------------------------- 8. the entry points a user calls
+
+
+def report_tiers(record, smi):
+    """Each timed shape's planned tier against tier S (the streaming design)
+    from the same call, and each path's share of its bound."""
+    for kernel in record["kernels"]:
+        paths = {"per_super_step": kernel["per_call"],
+                 **{k: v["per_call"] for k, v in kernel.items()
+                    if k.startswith("per_") and isinstance(v, dict)
+                    and "per_call" in v}}
+        for path, rows in paths.items():
+            for r in rows:
+                speedup = r["streaming_ms"] / r["ms"]
+                tier = r["tier"] + (str(r["cluster"]) if r["tier"] == "C" else "")
+                times = {tier: r["ms"], "S": r["streaming_ms"], **r["other_tiers_ms"]}
+                fastest = min(times, key=times.get)
+                print(f"{kernel['name']} {path} {tuple(r['shape'])}: tier "
+                      f"{tier} {r['ms']:.4f} ms (roofline share "
+                      f"{r['bound_ms'] / r['ms']:.1%}), tier S "
+                      f"{r['streaming_ms']:.4f} ms "
+                      f"({r['bound_ms'] / r['streaming_ms']:.1%}): {speedup:.2f}x"
+                      f", {'no slower' if r['ms'] <= 1.015 * r['streaming_ms'] else 'slower'}"
+                      f" than tier S within the 1.5% spread; the fastest tier "
+                      f"here {fastest} ({times[fastest]:.4f} ms) [{smi}]")
+        for path in ("per_super_step", "per_serving_forward", "per_sgv2_forward",
+                     "per_sgv2_train_iteration"):
+            if path in kernel:
+                t = kernel[path]
+                print(f"{kernel['name']} {path}: {t['ms']:.4f} ms, roofline "
+                      f"share {t['bound_ms'] / t['ms']:.1%} of the "
+                      f"{t['bound_ms']:.4f} ms bound; tier S "
+                      f"{t['streaming_ms']:.4f} ms, "
+                      f"{t['bound_ms'] / t['streaming_ms']:.1%} [{smi}]")
 
 
 def cli_args(name, *extra):
@@ -2256,9 +2449,7 @@ def main() -> int:
     # 2. build
     info = nk.build()
     print(f"build: {info.seconds:.2f} s -> {info.path.name}")
-    for line in info.log.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
-            print(f"  ptxas: {line.strip()}")
+    phase_build_report(nk, info, smi)
 
     # 3. kernels against their plain versions
     fwd_worst = phase_fwd_vs_plain(nk, fused, smi)
@@ -2356,7 +2547,8 @@ def main() -> int:
     # 9. StarGAN v2 serving at 256^2: the forward kernel at its shapes (9a),
     # AdaIN (9b) and SEANv2 (9c) requests of 32
     sgv2_started = time.perf_counter()
-    sgv2_worst = phase_fwd_vs_plain(nk, fused, smi, tuple(SGV2_SHAPES), (None,))
+    sgv2_worst = phase_fwd_vs_plain(nk, fused, smi, tuple(SGV2_SHAPES), (None,),
+                                    boundaries=False)
     fwd_sgv2_rows = phase_fwd_timing(nk, fused, SGV2_SHAPES, smi)
     for r in fwd_sgv2_rows:
         share = r["bound_ms"] / r["ms"]
@@ -2376,8 +2568,10 @@ def main() -> int:
     # (10d)
     train_started = time.perf_counter()
     t_shapes = tuple(SGV2_TRAIN_SHAPES)
-    sgv2t_fwd_worst = phase_fwd_vs_plain(nk, fused, smi, t_shapes, (None,))
-    sgv2t_bwd_worst = phase_bwd_vs_plain(nk, fused, smi, t_shapes, (None,))
+    sgv2t_fwd_worst = phase_fwd_vs_plain(nk, fused, smi, t_shapes, (None,),
+                                         boundaries=False)
+    sgv2t_bwd_worst = phase_bwd_vs_plain(nk, fused, smi, t_shapes, (None,),
+                                         boundaries=False)
     fwd_sgv2t_rows = phase_fwd_timing(nk, fused, SGV2_TRAIN_SHAPES, smi)
     bwd_sgv2t_rows = phase_bwd_timing(nk, fused, smi, SGV2_TRAIN_SHAPES,
                                       SGV2_LIBRARY_SUM_BAND)
@@ -2391,6 +2585,7 @@ def main() -> int:
                   f"{'below half its bound' if share < 0.5 else 'at least half its bound'}"
                   f", {'behind' if r['ms'] > r['library_ms'] else 'ahead of'} the "
                   f"library call [{smi}]")
+    floor = phase_launch_floor(nk, smi)
     split = {"10a": time.perf_counter() - train_started}
     sgv2_train = phase_sgv2_train(nk, smi, "adain")
     sgv2_fused = phase_sgv2_train(nk, smi, "fused")
@@ -2429,8 +2624,7 @@ def main() -> int:
     def per_iteration(rows):
         return {"per_sgv2_train_iteration": {
             "calls": sum(r["calls"] for r in rows),
-            **{k: summed(rows, k)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{k: summed(rows, k) for k in SUMMED},
             "per_call": rows}}
 
     fwd_serving_rows = with_calls(fwd_serving_rows, serve_calls["fwd"], 2)
@@ -2442,8 +2636,7 @@ def main() -> int:
         max(fwd_worst, sgv2_worst, sgv2t_fwd_worst), unit,
         {**{f"per_{path}_forward": {
             "calls": sum(r["calls"] for r in rows),
-            **{k: summed(rows, k)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            **{k: summed(rows, k) for k in SUMMED},
             "per_call": rows}
             for path, rows in (("serving", fwd_serving_rows),
                                ("sgv2", fwd_sgv2_rows))},
@@ -2454,7 +2647,9 @@ def main() -> int:
         with_calls(bwd_rows, train_calls["bwd"], 1),
         launches_by_path(paths, "bwd"), max(bwd_worst, sgv2t_bwd_worst), unit,
         per_iteration(sgv2t_rows["bwd"]))
+    fwd["launch_floor_ms"], bwd["launch_floor_ms"] = floor["fwd_ms"], floor["bwd_ms"]
     record = {"kernels": [fwd, bwd]}
+    report_tiers(record, smi)
     print(f"per super-step ({sum(train_calls['fwd'].values())} forward, "
           f"{sum(train_calls['bwd'].values())} backward calls): forward "
           f"kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "

@@ -7,11 +7,21 @@ built with ``nvcc`` at first use into ``build/de_i2i_gan_torch/`` beside the
 package (one shared library with a plain C interface, loaded once with
 ctypes). Importing this module neither needs nor runs ``nvcc``.
 
-The wrappers take CUDA tensors only: they launch the kernel or raise. The
-plain versions for CPU tensors are ``ops/fused.py::modulated_instance_norm_ref``
-and ``::modulated_instance_norm_bwd_ref``. ``LAUNCHES`` and ``BWD_LAUNCHES``
+Each call is planned by ``plan``, a pure function of the row length, the
+dtype and the pointers' alignment, into one of four tiers (the ``.cu``
+header says what each does): W, a warp per row held in registers, for
+aligned rows of at most 1024 elements; B, a block per row held in
+registers, for aligned rows of at most 1024 16-byte vectors; C, a cluster
+of 1, 2, 4 or 8 blocks per row, the row's slices in shared memory, for
+longer aligned rows that a cluster of 8 holds; S, streaming, for the rest.
+The C side checks the plan again and refuses one its kernels do not take.
+
+The wrappers take CUDA tensors only: they launch the planned tier (or the
+one a caller forces with ``tier=``) or raise. The plain versions for CPU
+tensors are ``ops/fused.py::modulated_instance_norm_ref`` and
+``::modulated_instance_norm_bwd_ref``. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count the forward and backward kernels' launches, so a run can show its path
-went through them.
+went through them; ``TIER_LAUNCHES`` counts them by tier.
 """
 from __future__ import annotations
 
@@ -34,13 +44,106 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+VECTOR_ELEMS = {torch.float32: 4, torch.bfloat16: 8}  # in 16 bytes
 
-# kernel launches since the last reset (forward, backward); incremented only
-# where a launch succeeded
+# the planner's limits, as the .cu's kThreads, kWarpRowMax, kBlockVectors,
+# kSliceBudget and cluster sizes: a block's threads; the longest row a warp
+# holds (tier W); the 16-byte vectors of the longest row a block holds in
+# registers (tier B); the shared memory a block may give its slices (tier
+# C), which leaves two blocks resident on each SM
+BLOCK_THREADS = 256
+WARP_ROW_MAX = 1024
+BLOCK_ROW_VECTORS = BLOCK_THREADS * 4
+SLICE_BUDGET = 98304
+CLUSTER_SIZES = (1, 2, 4, 8)
+TIERS = ("W", "B", "C", "S")  # in the planner's order of preference
+TIER_CODES = {"S": 0, "W": 1, "C": 2, "B": 3}
+SLICE_TENSORS = {"fwd": 1, "bwd": 2}  # x; x and dy
+
+# kernel launches since the last reset (forward, backward), and the same by
+# tier; incremented only where a launch succeeded
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+TIER_LAUNCHES = {op: dict.fromkeys(TIERS, 0) for op in SLICE_TENSORS}
 
-_fn = None  # (forward, backward) entry points once loaded
+_fn = None  # (forward, backward, occupancy) entry points once loaded
+
+
+class Plan(NamedTuple):
+    """One launch of a kernel: its tier, the rows a block takes, threads a
+    block, blocks a cluster (a row), and dynamic shared memory in bytes."""
+    tier: str
+    rows_per_block: int
+    threads: int
+    cluster: int
+    smem: int
+
+
+def _vector(dtype: torch.dtype) -> int:
+    """Elements in a 16-byte vector of ``dtype``."""
+    if dtype not in VECTOR_ELEMS:
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    return VECTOR_ELEMS[dtype]
+
+
+def _plans(op: str, hw: int, dtype: torch.dtype, aligned: bool) -> dict:
+    """The tiers the kernels take for one call, each with its plan."""
+    if op not in SLICE_TENSORS:
+        raise ValueError(f"op must be 'fwd' or 'bwd', got {op!r}")
+    if hw <= 0:
+        raise ValueError(f"rows must be non-empty, got hw={hw}")
+    v = _vector(dtype)
+    plans = {"S": Plan("S", 1, BLOCK_THREADS, 1, 0)}
+    if not aligned or hw % v:
+        return plans
+    if hw <= WARP_ROW_MAX:
+        plans["W"] = Plan("W", BLOCK_THREADS // 32, BLOCK_THREADS, 1, 0)
+    if hw // v <= BLOCK_ROW_VECTORS:
+        plans["B"] = Plan("B", 1, BLOCK_THREADS, 1, 0)
+    for cs in CLUSTER_SIZES:
+        smem = SLICE_TENSORS[op] * -(-(hw // v) // cs) * 16
+        if smem <= SLICE_BUDGET:
+            plans["C"] = Plan("C", 1, BLOCK_THREADS, cs, smem)
+            break
+    return plans
+
+
+def plan(op: str, hw: int, dtype: torch.dtype, aligned: bool,
+         tier: Optional[str] = None) -> Plan:
+    """The launch of the forward (``op="fwd"``) or backward (``"bwd"``)
+    kernel for rows of ``hw`` elements of ``dtype`` whose pointers are all
+    16-byte aligned (``aligned``).
+
+    Tier W for rows of whole 16-byte vectors up to ``WARP_ROW_MAX``
+    elements; else tier B for rows of up to ``BLOCK_ROW_VECTORS`` vectors;
+    else tier C with the fewest blocks a row (1, 2, 4, 8) whose slices (of
+    x, and of dy in the backward) fit ``SLICE_BUDGET`` bytes a block; else
+    tier S. ``tier`` forces one tier (C still takes its fewest blocks); a
+    tier the kernels do not take for the call raises ValueError.
+    """
+    plans = _plans(op, hw, dtype, aligned)
+    if tier is None:
+        return next(plans[t] for t in TIERS if t in plans)
+    if tier not in TIER_CODES:
+        raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
+    if tier not in plans:
+        raise ValueError(
+            f"tier {tier} cannot run the {op} kernel on rows of {hw} "
+            f"{str(dtype)[6:]} elements ({'' if aligned else 'un'}aligned); "
+            f"it can run {', '.join(t for t in TIERS if t in plans)}")
+    return plans[tier]
+
+
+def feasible_tiers(op: str, hw: int, dtype: torch.dtype,
+                   aligned: bool = True) -> Tuple[str, ...]:
+    """The tiers the kernels take for one call, in the planner's order."""
+    plans = _plans(op, hw, dtype, aligned)
+    return tuple(t for t in TIERS if t in plans)
+
+
+def longest_cluster_row(op: str, dtype: torch.dtype, cluster: int) -> int:
+    """The longest aligned row that tier C holds with ``cluster`` blocks."""
+    return cluster * (SLICE_BUDGET // (16 * SLICE_TENSORS[op])) * _vector(dtype)
 
 
 class BuildInfo(NamedTuple):
@@ -88,33 +191,58 @@ def build() -> BuildInfo:
 
 
 def _kernel():
-    """The library's (forward, backward) entry points; builds it first if no
-    library of this source exists."""
+    """The library's (forward, backward, occupancy) entry points; builds it
+    first if no library of this source exists."""
     global _fn
     if _fn is None:
         path = _library_path()
         if not path.exists():
             path = build().path
         lib = ctypes.CDLL(str(path))
+        plan_args = [ctypes.c_int] * 5  # tier, rows a block, threads, cluster, smem
         fwd = lib.dig_modulated_instance_norm_fwd
         fwd.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, *plan_args, ctypes.c_int, ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = lib.dig_modulated_instance_norm_bwd
         bwd.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            *plan_args, ctypes.c_int, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        _fn = (fwd, bwd)
+        occ = lib.dig_modulated_instance_norm_occupancy
+        occ.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_int, *plan_args, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int),
+                        ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+        _fn = (fwd, bwd, occ)
     return _fn
 
 
+def _plan_args(p: Plan) -> Tuple[int, ...]:
+    return (TIER_CODES[p.tier], p.rows_per_block, p.threads, p.cluster, p.smem)
+
+
 def _aligned(*ts: torch.Tensor) -> bool:
-    """16-byte vector loads need rows that start on 16-byte boundaries."""
-    hw = ts[0].shape[2] * ts[0].shape[3]
-    return (hw % (16 // ts[0].element_size()) == 0
-            and all(t.data_ptr() % 16 == 0 for t in ts))
+    """16-byte vector loads and TMA copies need rows that start on 16-byte
+    boundaries (plan checks the row length)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def occupancy(op: str, hw: int, dtype: torch.dtype, act: Optional[str] = None,
+              tier: Optional[str] = None, device: int = 0) -> Tuple[Plan, int, int]:
+    """(plan, blocks resident on one SM, clusters resident on the card) of
+    the kernel that runs aligned rows of ``hw`` elements; the clusters are
+    ``cudaOccupancyMaxActiveClusters``'s count, 0 outside tier C."""
+    p = plan(op, hw, dtype, True, tier)
+    blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _kernel()[2](0 if op == "fwd" else 1, hw, ACT_CODES[act],
+                      DTYPE_CODES[dtype], *_plan_args(p), device,
+                      ctypes.byref(blocks), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query of {p} failed: cudaError {rc}")
+    return p, blocks.value, clusters.value
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -143,11 +271,12 @@ def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def modulated_instance_norm_fwd(x: torch.Tensor, gamma: torch.Tensor,
                                 beta: torch.Tensor, act: Optional[str] = None,
-                                eps: float = 1e-5
+                                eps: float = 1e-5, *, tier: Optional[str] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: (y, mean, inv) for NCHW-contiguous CUDA x
     and (N, C) gamma/beta. y has x's dtype; mean and inv are float32 (N, C),
-    the residuals a backward kernel needs."""
+    the residuals a backward kernel needs. ``tier`` forces a tier of
+    ``plan`` (and raises where that tier cannot run the call)."""
     global LAUNCHES
     _check(x, gamma, beta, act)
     n, c, h, w = x.shape
@@ -157,26 +286,30 @@ def modulated_instance_norm_fwd(x: torch.Tensor, gamma: torch.Tensor,
     y = torch.empty_like(x)
     mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
+    p = plan("fwd", hw, x.dtype, _aligned(x, y), tier)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel()[0](x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
                        mean.data_ptr(), inv.data_ptr(), n * c, hw, eps,
-                       ACT_CODES[act], DTYPE_CODES[x.dtype],
-                       int(_aligned(x, y)), x.device.index, stream)
+                       ACT_CODES[act], DTYPE_CODES[x.dtype], *_plan_args(p),
+                       x.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"modulated instance norm kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"modulated instance norm kernel launch failed "
+                           f"({p}): cudaError {rc}")
     LAUNCHES += 1
+    TIER_LAUNCHES["fwd"][p.tier] += 1
     return y, mean, inv
 
 
 def modulated_instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor,
                                 beta: torch.Tensor, mean: torch.Tensor,
                                 inv: torch.Tensor, dy: torch.Tensor,
-                                act: Optional[str] = None
+                                act: Optional[str] = None, *,
+                                tier: Optional[str] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: (dx, dgamma, dbeta) for NCHW-contiguous
     CUDA x and dy of one dtype, (N, C) gamma/beta and the forward's float32
-    (N, C) mean and inv. dx has x's dtype; dgamma and dbeta are float32."""
+    (N, C) mean and inv. dx has x's dtype; dgamma and dbeta are float32.
+    ``tier`` forces a tier of ``plan``."""
     global BWD_LAUNCHES
     _check(x, gamma, beta, act)
     n, c, h, w = x.shape
@@ -196,16 +329,18 @@ def modulated_instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor,
     dx = torch.empty_like(x)
     dg = torch.empty((n, c), dtype=torch.float32, device=x.device)
     db = torch.empty_like(dg)
+    p = plan("bwd", h * w, x.dtype, _aligned(x, dy, dx), tier)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernel()[1](x.data_ptr(), g.data_ptr(), b.data_ptr(),
                        mean.data_ptr(), inv.data_ptr(), dy.data_ptr(),
                        dx.data_ptr(), dg.data_ptr(), db.data_ptr(), n * c,
                        h * w, ACT_CODES[act], DTYPE_CODES[x.dtype],
-                       int(_aligned(x, dy, dx)), x.device.index, stream)
+                       *_plan_args(p), x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"modulated instance norm backward kernel launch "
-                           f"failed: cudaError {rc}")
+                           f"failed ({p}): cudaError {rc}")
     BWD_LAUNCHES += 1
+    TIER_LAUNCHES["bwd"][p.tier] += 1
     return dx, dg, db
 
 

@@ -13,7 +13,10 @@ kernel suite's); bfloat16 y within atol 3e-2 + rtol 1.6e-2 (one bf16 ulp at
 suite's backward tolerance), bfloat16 dx within one bf16 ulp of the plain
 version's (plus 1e-5 for the float32 math before rounding); dgamma and
 dbeta, float32 sums over H*W in another order, within 1e-5 of the sum of
-the absolute terms. End to end in f32, 5e-4 (DESIGN.md §7); a super-step's
+the absolute terms. Each tier of the planner (W: a warp a row; B: a block a
+row; C: a cluster of 1, 2, 4 or 8 blocks a row; S: streaming) is held to the same tolerances
+at its boundary shapes, and the backward's dgamma and dbeta to bit-identity
+between two runs. End to end in f32, 5e-4 (DESIGN.md §7); a super-step's
 losses within rtol 2e-4, its gradients, as (after - before) / lr under SGD,
 within 1e-3 of each tensor's L2 norm plus 1e-5 per element in L2 (a ReLU
 gate whose input lies within rounding of 0 can fall either way on two
@@ -199,6 +202,156 @@ def test_bwd_kernel_wrapper_raises_on_bad_input():
         bwd(x, s, s, s, s[:1], x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         bwd(x.half(), s, s, s, s, x.half())
+
+
+def _tier_cases():
+    """(case id, op, dtype, row length, forced tier, expected (tier,
+    cluster)) at each tier's boundaries: a warp's one-vector and longest
+    rows; a block's first and longest; C with one block just past a block's
+    rows; each cluster size's first and longest rows; S past a cluster of 8,
+    on a ragged row, and forced on an aligned one. Pure arithmetic on the
+    planner's limits."""
+    cases = []
+    for op in ("fwd", "bwd"):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            v = norm_kernels.VECTOR_ELEMS[dt]
+            block = norm_kernels.BLOCK_ROW_VECTORS * v
+            rows = [("W-one-vector", v, None, ("W", 1)),
+                    ("W-longest", norm_kernels.WARP_ROW_MAX, None, ("W", 1)),
+                    ("B-past-W", norm_kernels.WARP_ROW_MAX + v, None, ("B", 1)),
+                    ("B-longest", block, None, ("B", 1)),
+                    ("C1-past-B", block + v, None, ("C", 1))]
+            prev = None
+            for cs in norm_kernels.CLUSTER_SIZES:
+                longest = norm_kernels.longest_cluster_row(op, dt, cs)
+                if prev is not None:
+                    rows.append((f"C{cs}-first", prev + v, None, ("C", cs)))
+                rows.append((f"C{cs}-longest", longest, None, ("C", cs)))
+                prev = longest
+            rows += [("S-past-C8", prev + v, None, ("S", 1)),
+                     ("S-ragged", 7 * 9, None, ("S", 1)),
+                     ("S-forced", 4096, "S", ("S", 1))]
+            cases += [(f"{op}-{dtype}-{name}", op, dtype, hw, tier, want)
+                      for name, hw, tier, want in rows]
+    return cases
+
+
+TIER_CASES = _tier_cases()
+
+
+def _tier_inputs(dtype, hw, seed):
+    """15 rows (a warp tail: 15 is not a multiple of 8) of hw elements."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, g, b, dy = _bwd_inputs((3, 5, 1, hw), getattr(torch, dtype), gen)
+    return x, g, b, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TIER_CASES, ids=[c[0] for c in TIER_CASES])
+def test_every_tier_matches_plain_at_its_boundaries(case):
+    _, op, dtype, hw, tier, want = case
+    _need_card()
+    dt = getattr(torch, dtype)
+    p = norm_kernels.plan(op, hw, dt, True, tier)
+    assert (p.tier, p.cluster) == want
+    x, g, b, dy = _tier_inputs(dtype, hw, hw)
+    for act in ACTS:
+        ry, rmean, rinv = fused.modulated_instance_norm_ref(x, g, b, act)
+        counts = dict(norm_kernels.TIER_LAUNCHES[op])
+        if op == "fwd":
+            y, mean, inv = norm_kernels.modulated_instance_norm_fwd(
+                x, g, b, act, tier=tier)
+            torch.cuda.synchronize()
+            tol = (dict(atol=TOL, rtol=TOL) if dtype == "float32"
+                   else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+            torch.testing.assert_close(y.float(), ry.float(), **tol)
+            torch.testing.assert_close(mean, rmean, atol=TOL, rtol=TOL)
+            torch.testing.assert_close(inv, rinv, atol=TOL, rtol=TOL)
+        else:
+            got = norm_kernels.modulated_instance_norm_bwd(
+                x, g, b, rmean, rinv, dy, act, tier=tier)
+            torch.cuda.synchronize()
+            ref = fused.modulated_instance_norm_bwd_ref(x, g, b, rmean, rinv,
+                                                        dy, act)
+            m = rmean[:, :, None, None]
+            _, abs_dg, abs_db = fused.modulated_instance_norm_bwd_ref(
+                (x.float() - m).abs() + m, g, b, rmean, rinv, dy.float().abs())
+            _check_bwd(got, ref, abs_db, abs_dg, dt)
+        counts[p.tier] += 1
+        assert norm_kernels.TIER_LAUNCHES[op] == counts
+
+
+BIT_CASES = [c for c in TIER_CASES if c[1] == "bwd" and (
+    c[0].endswith("-longest") or c[0].endswith("-forced"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BIT_CASES, ids=[c[0] for c in BIT_CASES])
+def test_bwd_sums_bit_identical_across_runs_in_every_tier(case):
+    """dgamma and dbeta (and dx) of two runs of one tier are the same bits:
+    every sum is taken in a fixed order, without atomics."""
+    _, _, dtype, hw, tier, _ = case
+    _need_card()
+    x, g, b, dy = _tier_inputs(dtype, hw, hw + 1)
+    _, mean, inv = norm_kernels.modulated_instance_norm_fwd(x, g, b, "relu")
+    runs = [norm_kernels.modulated_instance_norm_bwd(x, g, b, mean, inv, dy,
+                                                     "relu", tier=tier)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_forced_infeasible_tier_raises_on_card(monkeypatch):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, g, b, dy = _bwd_inputs((2, 4, 64, 64), torch.bfloat16, gen)
+    _, mean, inv = norm_kernels.modulated_instance_norm_fwd(x, g, b)
+    with pytest.raises(ValueError, match="tier W cannot run"):
+        norm_kernels.modulated_instance_norm_fwd(x, g, b, tier="W")
+    with pytest.raises(ValueError, match="tier W cannot run"):
+        norm_kernels.modulated_instance_norm_bwd(x, g, b, mean, inv, dy, tier="W")
+    r, rg, rb, _ = _bwd_inputs((2, 4, 7, 9), torch.float32, gen)
+    with pytest.raises(ValueError, match="tier C cannot run"):
+        norm_kernels.modulated_instance_norm_fwd(r, rg, rb, tier="C")
+    # a plan the C side does not take: refused without a launch
+    before = (norm_kernels.LAUNCHES, dict(norm_kernels.TIER_LAUNCHES["fwd"]))
+    bad = norm_kernels.Plan("C", 1, 256, 3, 4096)
+    monkeypatch.setattr(norm_kernels, "plan", lambda *a, **k: bad)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        norm_kernels.modulated_instance_norm_fwd(x, g, b)
+    assert (norm_kernels.LAUNCHES, norm_kernels.TIER_LAUNCHES["fwd"]) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fwd", "bwd"])
+def test_unaligned_rows_stream_on_card(op):
+    """x whose data starts one element past a 16-byte boundary: tier S, on
+    its scalar loop, as the plain version."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (2, 4, 16, 16)
+    buf = torch.randn(2 * 4 * 256 + 1, generator=gen, device="cuda")
+    x = buf[1:].view(shape)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    g = torch.randn((2, 4), generator=gen, device="cuda") * 0.5
+    b = torch.randn((2, 4), generator=gen, device="cuda") * 0.5
+    before = dict(norm_kernels.TIER_LAUNCHES[op])
+    ry, rmean, rinv = fused.modulated_instance_norm_ref(x, g, b, "leaky_relu")
+    if op == "fwd":
+        y, _, _ = norm_kernels.modulated_instance_norm_fwd(x, g, b, "leaky_relu")
+        torch.testing.assert_close(y, ry, atol=TOL, rtol=TOL)
+    else:
+        dy = torch.randn(shape, generator=gen, device="cuda")
+        dx, _, _ = norm_kernels.modulated_instance_norm_bwd(
+            x, g, b, rmean, rinv, dy, "leaky_relu")
+        rdx, _, _ = fused.modulated_instance_norm_bwd_ref(
+            x, g, b, rmean, rinv, dy, "leaky_relu")
+        torch.testing.assert_close(dx, rdx, atol=BWD_TOL, rtol=BWD_TOL)
+    before["S"] += 1
+    assert norm_kernels.TIER_LAUNCHES[op] == before
 
 
 def _sean_pair(dtype):
