@@ -17,7 +17,11 @@ instance norm) and the SPADE path through none:
     then the EMA generator; 12 forward-kernel calls a G forward);
   * StarGAN v2 training: ``StarGANv2Solver.train_step`` on batches of 8 with
     the upstream README's AFHQ flags (AdaIN, FusedProp, SEANv2), also
-    through ``cli.starganv2_main`` (train, resume, sample).
+    through ``cli.starganv2_main`` (train, resume, sample);
+  * MAE-GAN pretraining: ``MAESteps.super_step`` at the MAE CLI's defaults
+    (batch 32, one critic, AdamW), through ``cli.train_mae`` on each input
+    feed, ``cli.test_mae``, DefectGAN warm-started from the MAE run, and
+    StarGAN v2's ``--mode pretrain`` and ``--pretrain_dir``.
 
 AdaIN takes the style code from E; SEAN takes ViT-sized (8, 5, 768) style
 embeddings made on the card, tracks its running statistics and adds its
@@ -134,6 +138,32 @@ Phases, each of which raises on failure:
               000012 and latest), a resume with ``--resume_iter 12`` whose
               loaded state equals the saved one, ``--mode sample`` from it
               (grids of the expected sizes, finite pixels)
+  11. mae     both kernels timed at the batch-32 MAE shapes as in 5 and 6f
+              (3a/3b hold every tier there against the plain version), with
+              the planned tier against tier S
+  11a.        a tiny f32 ``MAESteps.super_step`` (2 critics, SGD, a fixed
+              mask) on the card against the CPU: losses rtol 2e-4, G's, the
+              token's, E's and D's (after - before) / lr within 6c's band
+  11b.        2 warm-up + 5 timed full-width MAE super-steps on preloaded
+              batches of 32 (exactly 16 forward and 8 backward launches a
+              super-step at the batch-32 shapes), peak memory, a profiled
+              super-step; ``eval_losses`` and ``repair_grid`` (8 forward
+              launches each) as a path of their own
+  11c. cli    ``cli.train_mae.main`` for one epoch (the synthetic dataset's
+              512 fusion images: 16 super-steps of 32) on the Python loader
+              and with ``--native_loader``: exact launches, ``latest``
+              written, loader-fed time, busy share of 3 profiled
+              super-steps, the copies on a side stream; ``cli.test_mae.main``
+              on the run: the loss line, a repair grid PNG of 4 x 5 panels
+              from finite pixels
+  11d.        ``cli.train_defectgan.main --load_model_name`` the MAE run: G, E
+              and D at the start equal the run's tensor for tensor, then one
+              super-step with exactly 56/16 launches
+  11e. sgv2   ``cli.starganv2_main --mode pretrain`` with the AFHQ flags on
+              10d's image tree for 12 iterations (exactly 48/24 launches an
+              iteration at the batch-8 shapes, loader-fed time, busy share),
+              then ``--mode train --pretrain_dir`` for 2 iterations, whose G
+              and ema_G at load equal the pretrain run's
 
 Then each timed shape's planned tier against tier S and the fastest tier,
 and each path's share of the bound. The line before the last two holds the
@@ -266,6 +296,22 @@ SGV2_TRAIN_F32_BAND = 5e-3
 F32_CONTROL_FACTOR = 2.0
 SGV2_CLI_ITERS = 12
 SGV2_CLI_IMAGES = 24  # a domain
+# phase 11: MAE-GAN pretraining at the MAE CLI's defaults (batch 32, one
+# critic, AdamW (0.9, 0.95), cosine schedule, lr 1.5e-4, loss_weight [10, 3,
+# 1], position token, mask ratio 0.75, patch 8) on the DefectGAN config of
+# phases 6-8 (AdaIN, 256^2, bf16). The decoder's norm call sites of one G
+# forward at batch 32:
+MAE_BATCH = 32
+MAE_SHAPES = {(32, 256, 64, 64): 6, (32, 256, 128, 128): 1,
+              (32, 128, 256, 256): 1}
+# a super-step: the D step's repair (a G forward without gradients), the G
+# step's repair (a forward and its backward): 16 forward + 8 backward
+MAE_G_PASSES = (2, 1)
+MAE_SYNTHETIC = 512  # the MAE CLI's synthetic fusion images: 16 super-steps
+# StarGAN v2 pretraining: two D passes, each a repair without gradients,
+# and two G passes, each a repair with its backward: 48 + 24
+SGV2_PRETRAIN_PASSES = (4, 2)
+SGV2_PRETRAIN_ITERS = 12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -404,7 +450,8 @@ def tier_label(p):
 
 
 def phase_fwd_vs_plain(nk, fused, smi,
-                       shapes=(*SLICE_SHAPES, *TRAIN_SHAPES, RAGGED),
+                       shapes=(*SLICE_SHAPES, *TRAIN_SHAPES, *MAE_SHAPES,
+                               RAGGED),
                        acts=(None, "relu", "leaky_relu"), boundaries=True):
     """Every tier the planner can run at each shape (the planned one first,
     tier S last) against the plain version; with ``boundaries`` also at the
@@ -451,7 +498,8 @@ def bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def phase_bwd_vs_plain(nk, fused, smi, shapes=(*TRAIN_SHAPES, RAGGED),
+def phase_bwd_vs_plain(nk, fused, smi,
+                       shapes=(*TRAIN_SHAPES, *MAE_SHAPES, RAGGED),
                        acts=(None, "relu", "leaky_relu"), boundaries=True):
     """Every tier the planner can run at each shape against the plain
     version, each run twice: dx, dgamma and dbeta bit-identical from run to
@@ -1296,7 +1344,8 @@ def report_tiers(record, smi):
                       f" than tier S within the 1.5% spread; the fastest tier "
                       f"here {fastest} ({times[fastest]:.4f} ms) [{smi}]")
         for path in ("per_super_step", "per_serving_forward", "per_sgv2_forward",
-                     "per_sgv2_train_iteration"):
+                     "per_sgv2_train_iteration", "per_mae_super_step",
+                     "per_sgv2_pretrain_iteration"):
             if path in kernel:
                 t = kernel[path]
                 print(f"{kernel['name']} {path}: {t['ms']:.4f} ms, roofline "
@@ -2430,6 +2479,466 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
                 preloaded_ms=preloaded_ms)
 
 
+# ------------------------------------------------ 11. MAE-GAN pretraining
+
+
+@contextlib.contextmanager
+def fixed_mae_mask(mask):
+    """``MAESteps`` repairs with ``mask`` ((N, H, W, 1), on the host) where
+    it would draw a shifted patch mask."""
+    from de_i2i_gan_torch.train import mae_steps
+    real = mae_steps.generate_shifted_mask
+    mae_steps.generate_shifted_mask = (
+        lambda b, h, w, p, r, generator=None, device="cpu": mask[:b].to(device))
+    try:
+        yield
+    finally:
+        mae_steps.generate_shifted_mask = real
+
+
+MAE_NETS = ("G", "token", "E", "D")
+
+
+def phase_mae_small(nk, smi):
+    """11a. A tiny f32 ``MAESteps.super_step`` (2 critics, SGD) with a fixed
+    mask on the card through both kernels, against the same super-step on
+    the CPU: the losses within rtol 2e-4; (after - before) / lr per tensor
+    within 1e-3 of its L2 norm + 1e-5 sqrt(n), as 6c holds DefectGAN's."""
+    from de_i2i_gan_torch.config import MAEConfig, TrainConfig
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.mae_steps import MAESteps
+
+    cfg = small_config()
+    tcfg = TrainConfig(batch_size=2, num_critics=2, lr=(2e-2, 1e-2),
+                       optimizer="sgd", scheduler="cos", loss_weight=(10, 3, 1))
+    gen = torch.Generator().manual_seed(SEED + 30)
+    batch = {"imgs": torch.rand((2, 2, 32, 32, 3), generator=gen) * 2 - 1,
+             "labels": F.one_hot(torch.randint(0, 4, (2, 2), generator=gen),
+                                 4).float()}
+    mask = (torch.rand((2, 4, 4, 1), generator=gen) < 0.25).float()
+    mask = mask.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    runs = {}
+    with fixed_mae_mask(mask):
+        for device in ("cpu", "cuda"):
+            steps = MAESteps(cfg, MAEConfig(), tcfg, device=device)
+            steps.init_training()
+            init_weights(steps, SEED)
+            before = {n: {k: v.detach().float().cpu().clone()
+                          for k, v in getattr(steps, n).named_parameters()}
+                      for n in MAE_NETS}
+            fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+            metrics = steps.super_step(batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            runs[device] = (steps, before, metrics,
+                            (nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0))
+    cpu, before, rmetrics, cpu_launches = runs["cpu"]
+    card, _, metrics, launches = runs["cuda"]
+    want = expected_launches(cfg, 3, 1)
+    check(cpu_launches == (0, 0) and launches == want,
+          f"small MAE super-step launched {launches} kernels, expected {want}")
+    loss = max(abs(metrics[k].item() - v.item()) / (LOSS_RTOL * abs(v.item()))
+               for k, v in rmetrics.items())
+    rel = 0.0
+    for n in MAE_NETS:
+        lr = tcfg.lr_d if n == "D" else tcfg.lr_g
+        got = dict(getattr(card, n).named_parameters())
+        for k, ref in getattr(cpu, n).named_parameters():
+            gk = (got[k].detach().cpu() - before[n][k]) / lr
+            rk = (ref.detach() - before[n][k]) / lr
+            rel = max(rel, ((gk - rk).norm() / (
+                GRAD_REL_L2 * rk.norm() + GRAD_ATOL * rk.numel() ** 0.5)).item())
+    print(f"small MAE super-step (2 critics, fixed mask), card kernel path vs "
+          f"CPU plain path, 32x32 f32 SGD: launches {launches}; max loss diff "
+          f"{loss:.3f} x (rtol {LOSS_RTOL}); (after-before)/lr of G, the token, "
+          f"E and D: max per-tensor L2 diff {rel:.3f} x (band {GRAD_REL_L2} "
+          f"|ref| + atol {GRAD_ATOL} sqrt(n)) [{smi}]")
+    check(loss <= 1.0, f"small MAE super-step losses outside the band: {loss:.3f}")
+    check(rel <= 1.0, f"small MAE super-step deltas outside the band: {rel:.3f}")
+
+
+def mae_train_config():
+    """The MAE CLI's optimizer defaults at batch MAE_BATCH, one critic."""
+    from de_i2i_gan_torch.config import TrainConfig
+    return TrainConfig(batch_size=MAE_BATCH, num_critics=1, lr=(1.5e-4,),
+                       lr_decay=0.05, scheduler="cos", optimizer="adamw",
+                       loss_weight=(10, 3, 1))
+
+
+def check_mae_calls(calls, n, label):
+    """Exactly MAE_G_PASSES G forwards and backwards a super-step, 8 kernel
+    calls each, at the batch-32 shapes."""
+    fwd, bwd = MAE_G_PASSES
+    want = (Counter({s: n * fwd * c for s, c in MAE_SHAPES.items()}),
+            Counter({s: n * bwd * c for s, c in MAE_SHAPES.items()}))
+    check((calls["fwd"], calls["bwd"]) == want,
+          f"{label}: calls by shape {dict(calls['fwd'])} / {dict(calls['bwd'])}")
+
+
+def phase_mae_train(nk, smi, warmup=2, timed=5):
+    """11b. Full-width MAE super-steps on preloaded batches: exact launches
+    (16/8 a super-step) at the batch-32 shapes, host-clock time, peak
+    memory, finite losses; a profiled super-step (device time, busy share);
+    then ``eval_losses`` and ``repair_grid`` (8 forward launches each) as
+    their own path."""
+    from de_i2i_gan_torch.config import MAEConfig
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.mae_steps import MAESteps
+
+    cfg = full_config()
+    steps = MAESteps(cfg, MAEConfig(), mae_train_config(), device="cuda",
+                     iters_per_epoch=MAE_SYNTHETIC // MAE_BATCH, num_epochs=200)
+    steps.init_training()
+    init_weights(steps, SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    shape = (1, MAE_BATCH, cfg.image_size, cfg.image_size, 3)
+    batches = [{"imgs": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+                "labels": F.one_hot(torch.randint(0, cfg.label_nc, (1, MAE_BATCH),
+                                                  generator=gen, device="cuda"),
+                                    cfg.label_nc).float()}
+               for _ in range(warmup + timed)]
+    draws = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    per_fwd, per_bwd = expected_launches(cfg, *MAE_G_PASSES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the MAE path's run starts here
+    times, metrics = [], []
+    with tally_calls(nk) as calls:
+        for i, batch in enumerate(batches):
+            fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+            t0 = time.perf_counter()
+            m = steps.super_step(batch, draws)
+            torch.cuda.synchronize()
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == (per_fwd, per_bwd),
+                  f"MAE super-step {i} launched {nk.LAUNCHES - fwd0}/"
+                  f"{nk.BWD_LAUNCHES - bwd0} kernels, expected {per_fwd}/{per_bwd}")
+            if i >= warmup:
+                times.append(dt_ms)
+            metrics.append({k: v.item() for k, v in m.items()})
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n = len(batches)
+    check_mae_calls(calls, n, "MAE super-steps")
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(v) for v in m.values()),
+              f"MAE super-step {i}: non-finite loss {m}")
+    for name in MAE_NETS:
+        for k, p in getattr(steps, name).named_parameters():
+            check(bool(torch.isfinite(p).all()), f"MAE {name} {k} is not finite")
+    check(steps.step == n and steps.tx_G.count == steps.tx_E.count == n,
+          "MAE update counts")
+    mean_ms = sum(times) / len(times)
+    print(f"MAE pretraining DefectGAN-256 adain bf16 batch {MAE_BATCH}, 1 "
+          f"critic, AdamW: super-step ms {[round(v, 3) for v in times]} mean "
+          f"{mean_ms:.3f} ({MAE_BATCH * 1e3 / mean_ms:.1f} img/s), peak memory "
+          f"{peak_mb:.1f} MiB, launches over {n} super-steps: forward "
+          f"{launches['fwd']}, backward {launches['bwd']} ({per_fwd}/{per_bwd} "
+          f"a super-step) [{smi}]")
+    print(f"MAE losses, super-step 1: "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}; "
+          f"super-step {n}: "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})}")
+    dev_ms = profile_device(lambda: steps.super_step(batches[-1], draws), 1,
+                            "MAE super-step", mean_ms, smi, conv_shapes=True)
+
+    # eval_losses and repair_grid: the test CLI's calls
+    last = {k: v[0] for k, v in batches[-1].items()}
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the evaluation path starts here
+    ev = steps.eval_losses(last, draws)
+    grid = steps.repair_grid(last["imgs"][:4], last["labels"][:4], draws)
+    torch.cuda.synchronize()
+    eval_launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    check(eval_launches == {"fwd": expected_launches(cfg, 2, 0)[0], "bwd": 0},
+          f"MAE eval_losses + repair_grid launches {eval_launches}")
+    check(all(math.isfinite(v.item()) for v in ev.values())
+          and grid.shape == (4, 5, cfg.image_size, cfg.image_size, 3)
+          and bool(torch.isfinite(grid).all()),
+          f"MAE evaluation: losses {ev}, grid {tuple(grid.shape)}")
+    print(f"MAE eval_losses {json.dumps({k: round(v.item(), 5) for k, v in ev.items()})}"
+          f", repair_grid {tuple(grid.shape)} finite; launches {eval_launches}")
+    del steps, batches, grid
+    free_memory()
+    return dict(launches=launches, ms=mean_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+                calls=calls, super_steps=n, eval=dict(launches=eval_launches))
+
+
+def mae_cli_args(name, *extra):
+    """The MAE CLIs' arguments: 8a's, at the MAE default batch."""
+    return cli_args(name, "--batch_size", str(MAE_BATCH),
+                    "--style_norm_block_type", "adain", *extra)
+
+
+def phase_mae_cli(nk, smi, preloaded_ms, name, *extra):
+    """11c. ``cli.train_mae.main`` in-process for one epoch at the MAE
+    CLI's defaults (the synthetic dataset's 512 fusion images: 16
+    super-steps of 32), on the Python loader or ``--native_loader``: exact
+    launches, ``latest`` written, loader-fed host-clock time, the busy
+    share over 3 profiled super-steps, peak memory, the copies pinned and on
+    a side stream."""
+    from de_i2i_gan_torch.cli.train_mae import main as mae_main
+    from de_i2i_gan_torch.train.checkpoint import read_iter_record
+    from de_i2i_gan_torch.train.mae_steps import MAESteps
+
+    label = f"MAE CLI {name}"
+    per_fwd, per_bwd = expected_launches(full_config(), *MAE_G_PASSES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the MAE trainer's run starts here
+    t0 = time.perf_counter()
+    with SuperStepClock(nk, profile_at=PROFILE_AT,
+                        target=(MAESteps, "super_step")) as clock:
+        trainer = mae_main(mae_cli_args(name, "--num_epochs", "1", *extra))
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n = len(clock.ends)
+    check(n == MAE_SYNTHETIC // MAE_BATCH and trainer.iters == n
+          and launches == {"fwd": per_fwd * n, "bwd": per_bwd * n},
+          f"{label}: {n} super-steps, {trainer.iters} iterations, launches "
+          f"{launches}")
+    prev = (0, 0)
+    for i, cur in enumerate(clock.launches):
+        check((cur[0] - prev[0], cur[1] - prev[1]) == (per_fwd, per_bwd),
+              f"{label} super-step {i} launched {cur[0] - prev[0]}/"
+              f"{cur[1] - prev[1]} kernels")
+        prev = cur
+    check(all(clock.on_card), f"{label}: a super-batch reached the step off "
+          "the card")
+    for k, p in trainer.steps.G.named_parameters():
+        check(bool(torch.isfinite(p).all()), f"{label}: G {k} not finite")
+    run = CLI_DIR / "ckpt" / name
+    for f in ("latest_state.pt", "iter.txt", "opt.json"):
+        check((run / f).exists(), f"the MAE CLI wrote no {f}")
+    check(read_iter_record(CLI_DIR / "ckpt", name) == (1, n), "iter.txt")
+    steady = clock.steady_ms()
+    fed_ms = statistics.median(steady)
+    from torch.autograd import DeviceType
+    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    copies, streams = h2d_copies(clock.prof, CLI_DIR / f"mae_{name}_trace.json")
+    keys = len(clock.keys[0])
+    check(len(copies) >= keys and all("Pinned" in c[0] and c[1] not in streams
+                                      for c in copies),
+          f"{label}: host-to-device copies {copies} vs kernel streams {streams}")
+    image_dtypes = {d["imgs"] for d in clock.dtypes}
+    print(f"{label}, 1 epoch: {n} super-steps in {wall_s:.1f} s; loader-fed "
+          f"super-step ms, host clock, median of {len(steady)} steady: "
+          f"{fed_ms:.3f} {[round(v, 3) for v in steady]}; preloaded (11b) "
+          f"{preloaded_ms:.3f}; kernels a super-step over {PROFILED_SUPER_STEPS} "
+          f"profiled {dev_ms:.3f} ms, busy share {dev_ms / fed_ms:.1%}; peak "
+          f"{peak_mb:.1f} MiB; launches {launches}; images reach the step as "
+          f"{sorted(map(str, image_dtypes))}; {len(copies)} pinned copies on "
+          f"stream(s) {sorted({c[1] for c in copies})}, kernels on "
+          f"{sorted(streams)} [{smi}]")
+    del trainer, clock
+    free_memory()
+    return dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+                super_steps=n, image_dtypes=image_dtypes)
+
+
+def phase_mae_test_cli(nk, smi):
+    """11c. ``cli.test_mae.main`` on the MAE run: the loss line, the repair
+    grid PNG (4 rows of 5 panels of 256^2) from finite pixels; 8 forward
+    launches for each of the 2 evaluation batches of 32 and the grid."""
+    from de_i2i_gan_torch.cli.test_mae import main as test_main
+    from de_i2i_gan_torch.train.mae_steps import MAESteps
+
+    finite, real = [], MAESteps.repair_grid
+
+    def checked(self, *args, **kw):
+        grid = real(self, *args, **kw)
+        finite.append(bool(torch.isfinite(grid).all()))
+        return grid
+
+    per_fwd, _ = expected_launches(full_config(), 1, 0)
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the MAE test CLI's run starts here
+    MAESteps.repair_grid = checked
+    try:
+        out = test_main(mae_cli_args("mae", "--results_dir",
+                                     str(CLI_DIR / "mae_results")))
+    finally:
+        MAESteps.repair_grid = real
+    torch.cuda.synchronize()
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    check(launches == {"fwd": 3 * per_fwd, "bwd": 0},
+          f"MAE test CLI launches {launches}")
+    check(sorted(out["losses"]) == ["clf", "gan", "rec"]
+          and all(math.isfinite(v) for v in out["losses"].values()),
+          f"MAE test CLI losses {out['losses']}")
+    check(finite == [True] and png_shape(out["grid"]) == (4 * CLI_IMAGE,
+                                                          5 * CLI_IMAGE),
+          f"repair grid {png_shape(out['grid'])}, finite {finite}")
+    print(f"MAE test CLI: losses {json.dumps({k: round(v, 5) for k, v in out['losses'].items()})}"
+          f", {out['grid'].name} {png_shape(out['grid'])} from finite pixels, "
+          f"launches {launches} [{smi}]")
+    return dict(launches=launches)
+
+
+class _FirstSuperBatch:
+    """One super-batch of ``loader``: the warm-started run's single step."""
+
+    def __init__(self, loader):
+        self.batch = next(iter(loader))
+
+    def __len__(self):
+        return 1
+
+    def __iter__(self):
+        return iter([self.batch])
+
+
+def phase_mae_warm_start(nk, smi):
+    """11d. ``cli.train_defectgan.main --load_model_name mae``: the G, E and
+    D it starts from equal the MAE run's, tensor for tensor; then one
+    super-step with the usual 56/16 launches."""
+    from de_i2i_gan_torch.cli.train_defectgan import main as train_main
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint
+    from de_i2i_gan_torch.train.trainer import DefectGanTrainer
+
+    saved = read_checkpoint(CLI_DIR / "ckpt", "mae", "latest")
+    entry, real_train = {}, DefectGanTrainer.train
+
+    def one_step(self, loader, *args, **kw):
+        entry["state"] = cpu_state(self.steps)
+        return real_train(self, _FirstSuperBatch(loader), *args, **kw)
+
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the warm-started run starts here
+    DefectGanTrainer.train = one_step
+    try:
+        with SuperStepClock(nk) as clock:
+            trainer = train_main(cli_args("warm", "--style_norm_block_type",
+                                          "adain", "--load_model_name", "mae",
+                                          "--num_epochs", "1"))
+    finally:
+        DefectGanTrainer.train = real_train
+    launches = check_trainer_launches(nk, clock, "warm-started train CLI",
+                                      trainer.cfg)  # ... ends here
+    check(len(clock.ends) == 1, f"{len(clock.ends)} super-steps")
+    state, counts = entry["state"], {}
+    for net in ("G", "E", "D"):
+        for k, v in saved[net].items():
+            check(torch.equal(state[f"{net}/{k}"], v),
+                  f"the warm start's {net} {k} differs from the MAE run's")
+        counts[net] = len(saved[net])
+    check(not any(k.startswith("token") for k in state), "a token was restored")
+    print(f"warm-started train CLI from the MAE run: G, E and D equal the MAE "
+          f"checkpoint's in all {counts} tensors; one super-step, launches "
+          f"{launches} [{smi}]")
+    del trainer, clock, entry, saved
+    free_memory()
+    return dict(launches=launches)
+
+
+def phase_sgv2_pretrain(nk, smi, tree):
+    """11e. ``cli.starganv2_main --mode pretrain`` with the AFHQ flags on
+    10d's image tree for SGV2_PRETRAIN_ITERS iterations (exact launches,
+    48/24 an iteration at the batch-8 shapes; loader-fed iteration time, the
+    busy share of 3 profiled iterations; checkpoints), then ``--mode train
+    --pretrain_dir`` for 2 iterations, whose G and ema_G at load equal the
+    pretrain run's."""
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+
+    root = CLI_DIR / "sgv2_mae"
+    shutil.rmtree(root, ignore_errors=True)
+    base = [*SGV2_AFHQ, "--img_size", str(SGV2_IMAGE), "--batch_size",
+            str(SGV2_TRAIN_BATCH), "--train_img_dir", str(tree), "--val_img_dir",
+            str(tree), "--checkpoint_dir", str(root / "ckpt"), "--sample_dir",
+            str(root / "samples"), "--device", CARD]
+    per_fwd, per_bwd = (SGV2_FWD_PER_FORWARD * p for p in SGV2_PRETRAIN_PASSES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the pretrain run starts here
+    t0 = time.perf_counter()
+    with SuperStepClock(nk, profile_at=PROFILE_AT,
+                        target=(StarGANv2Solver, "pretrain_step")) as clock, \
+            tally_calls(nk) as calls:
+        solver = sgv2_cli.main(base + [
+            "--mode", "pretrain", "--total_iters", str(SGV2_PRETRAIN_ITERS),
+            "--save_every", str(SGV2_PRETRAIN_ITERS), "--print_every",
+            str(SGV2_PRETRAIN_ITERS)])
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n = len(clock.ends)
+    check(n == SGV2_PRETRAIN_ITERS and solver.step == n
+          and launches == {"fwd": per_fwd * n, "bwd": per_bwd * n},
+          f"sgv2 pretrain: {n} iterations, launches {launches}")
+    prev = (0, 0)
+    for i, cur in enumerate(clock.launches):
+        check((cur[0] - prev[0], cur[1] - prev[1]) == (per_fwd, per_bwd),
+              f"sgv2 pretrain iteration {i} launched {cur[0] - prev[0]}/"
+              f"{cur[1] - prev[1]} kernels, expected {per_fwd}/{per_bwd}")
+        prev = cur
+    fwd, bwd = SGV2_PRETRAIN_PASSES
+    check(calls["fwd"] == Counter({s: n * fwd * c for s, c in SGV2_TRAIN_SHAPES.items()})
+          and calls["bwd"] == Counter({s: n * bwd * c
+                                       for s, c in SGV2_TRAIN_SHAPES.items()}),
+          f"sgv2 pretrain calls by shape {dict(calls['fwd'])} / {dict(calls['bwd'])}")
+    check(all(clock.on_card), "sgv2 pretrain: a batch reached the step off the card")
+    for name in ("G", "D", "M", "S", "token"):
+        for k, p in getattr(solver, name).named_parameters():
+            check(bool(torch.isfinite(p).all()), f"sgv2 pretrain {name} {k} not finite")
+    run = root / "ckpt" / "starganv2_pretrain"
+    tag = f"{SGV2_PRETRAIN_ITERS:06d}"
+    for f in (f"{tag}_state.pt", "latest_state.pt"):
+        check((run / f).exists(), f"the sgv2 pretrain wrote no {f}")
+    steady = clock.steady_ms()
+    fed_ms = statistics.median(steady)
+    from torch.autograd import DeviceType
+    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    print(f"sgv2 pretrain CLI (AFHQ flags, patch 32, mask ratio 0.65, "
+          f"{n} iterations, batch {SGV2_TRAIN_BATCH}, {SGV2_IMAGE}^2, bf16) in "
+          f"{wall_s:.1f} s: loader-fed iteration, median of {len(steady)} "
+          f"steady {fed_ms:.3f} ms ({[round(v, 1) for v in steady]}); kernels "
+          f"{dev_ms:.3f} ms an iteration over {PROFILED_SUPER_STEPS} profiled, "
+          f"busy share {dev_ms / fed_ms:.1%}; peak {peak_mb:.1f} MiB; launches "
+          f"{launches} ({per_fwd}/{per_bwd} an iteration) [{smi}]")
+    del solver, clock
+    free_memory()
+    pretrain = dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+                    calls=calls, iterations=n)
+
+    # --mode train --pretrain_dir: the state the loop starts from
+    saved = read_checkpoint(root / "ckpt", "starganv2_pretrain", "latest")
+    loaded, real_train = [], sgv2_cli.train
+
+    def spy(args, solver_):
+        loaded.append(cpu_state(solver_))
+        real_train(args, solver_)
+
+    t_per_fwd, t_per_bwd = (SGV2_FWD_PER_FORWARD * p for p in SGV2_G_PASSES["adain"])
+    sgv2_cli.train = spy
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the warm-started run starts here
+    try:
+        trained = sgv2_cli.main(base + [
+            "--mode", "train", "--pretrain_dir", str(root / "ckpt"),
+            "--total_iters", "2", "--save_every", "1000", "--sample_every",
+            "1000", "--print_every", "1"])
+    finally:
+        sgv2_cli.train = real_train
+    torch.cuda.synchronize()
+    warm_launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    check(trained.step == saved["step"] + 2 and warm_launches == {
+        "fwd": 2 * t_per_fwd, "bwd": 2 * t_per_bwd},
+        f"sgv2 warm-started train: step {trained.step}, launches {warm_launches}")
+    state = loaded[0]
+    for net in ("G", "ema_G"):
+        for k, v in saved[net].items():
+            check(torch.equal(state[f"{net}/{k}"], v),
+                  f"sgv2 warm start: {net} {k} differs from the pretrain run's")
+    check(not any(k.startswith("token") for k in state), "a token was restored")
+    print(f"sgv2 train --pretrain_dir: G and ema_G at load equal the pretrain "
+          f"run's in all {len(saved['G'])} + {len(saved['ema_G'])} tensors, the "
+          f"token left out; 2 iterations, launches {warm_launches} [{smi}]")
+    del trained, loaded, saved
+    free_memory()
+    return pretrain, dict(launches=warm_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2597,6 +3106,41 @@ def main() -> int:
     train_s = time.perf_counter() - train_started
     split["10d"] = train_s - sum(split.values())
 
+    # 11. MAE-GAN pretraining: both kernels timed at the batch-32 shapes (as
+    # 5 and 6f), a small super-step against the CPU (11a), full-width
+    # super-steps (11b), the MAE CLIs on both feeds and the test CLI (11c),
+    # DefectGAN warm-started from the MAE run (11d), StarGAN v2's pretrain
+    # mode and its warm start (11e)
+    mae_started = time.perf_counter()
+    fwd_mae_rows = phase_fwd_timing(nk, fused, MAE_SHAPES, smi)
+    bwd_mae_rows = phase_bwd_timing(nk, fused, smi, MAE_SHAPES)
+    for kind, rows in (("fwd", fwd_mae_rows), ("bwd", bwd_mae_rows)):
+        for r in rows:
+            tier = r["tier"] + (str(r["cluster"]) if r["tier"] == "C" else "")
+            times = {tier: r["ms"], "S": r["streaming_ms"], **r["other_tiers_ms"]}
+            print(f"MAE shape {tuple(r['shape'])} {kind}: planned tier {tier} "
+                  f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of its "
+                  f"bound), tier S {r['streaming_ms']:.4f} ms: the planner "
+                  f"picks {'no worse than' if r['ms'] <= 1.015 * r['streaming_ms'] else 'WORSE than'}"
+                  f" tier S; fastest {min(times, key=times.get)} [{smi}]")
+    mae_split = {"11-timing": time.perf_counter() - mae_started}
+    phase_mae_small(nk, smi)
+    mae = phase_mae_train(nk, smi)
+    mae_split["11ab"] = time.perf_counter() - mae_started - sum(mae_split.values())
+    mae_cli = phase_mae_cli(nk, smi, mae["ms"], "mae")
+    mae_native = phase_mae_cli(nk, smi, mae["ms"], "mae_native", "--native_loader")
+    check(mae_cli["image_dtypes"] == {torch.float32}
+          and mae_native["image_dtypes"] == {torch.uint8},
+          f"MAE feeds reached the step as {mae_cli['image_dtypes']} and "
+          f"{mae_native['image_dtypes']}")
+    mae_test = phase_mae_test_cli(nk, smi)
+    mae_split["11c"] = time.perf_counter() - mae_started - sum(mae_split.values())
+    mae_warm = phase_mae_warm_start(nk, smi)
+    mae_split["11d"] = time.perf_counter() - mae_started - sum(mae_split.values())
+    sgv2_pre, sgv2_warm = phase_sgv2_pretrain(nk, smi, CLI_DIR / "sgv2" / "afhq")
+    mae_s = time.perf_counter() - mae_started
+    mae_split["11e"] = mae_s - sum(mae_split.values())
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
@@ -2606,14 +3150,20 @@ def main() -> int:
              "trainer_native": trainer_native, "sgv2_adain": sgv2_adain,
              "sgv2_sean": sgv2_sean, "sgv2_train": sgv2_train,
              "sgv2_train_sean": sgv2_train_sean, "sgv2_fused": sgv2_fused,
-             "sgv2_cli": sgv2_cli}
+             "sgv2_cli": sgv2_cli, "mae": mae, "mae_eval": mae["eval"],
+             "mae_cli": mae_cli, "mae_cli_native": mae_native,
+             "mae_test_cli": mae_test, "mae_warm_start": mae_warm,
+             "sgv2_pretrain": sgv2_pre, "sgv2_pretrain_warm": sgv2_warm}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
             "per_serving_forward / per_sgv2_forward: device ms summed over one "
             "DefectGAN serving forward / one StarGAN v2 G forward at batch 32; "
             "per_sgv2_train_iteration: device ms summed over one StarGAN v2 "
-            "AdaIN training iteration at batch 8")
+            "AdaIN training iteration at batch 8; per_mae_super_step: over "
+            "one DefectGAN MAE super-step at batch 32; "
+            "per_sgv2_pretrain_iteration: over one StarGAN v2 AdaIN "
+            "pretraining iteration at batch 8")
     fwd_sgv2_rows = with_calls(fwd_sgv2_rows, sgv2_adain["calls"],
                                sgv2_adain["forwards"])
     sgv2t_rows = {kind: with_calls(rows, sgv2_train["calls"][kind],
@@ -2621,11 +3171,19 @@ def main() -> int:
                   for kind, rows in (("fwd", fwd_sgv2t_rows),
                                      ("bwd", bwd_sgv2t_rows))}
 
+    def per_path(name, rows):
+        return {name: {"calls": sum(r["calls"] for r in rows),
+                       **{k: summed(rows, k) for k in SUMMED},
+                       "per_call": rows}}
+
     def per_iteration(rows):
-        return {"per_sgv2_train_iteration": {
-            "calls": sum(r["calls"] for r in rows),
-            **{k: summed(rows, k) for k in SUMMED},
-            "per_call": rows}}
+        return per_path("per_sgv2_train_iteration", rows)
+
+    def mae_paths(kind, mae_rows, sgv2t):
+        return {**per_path("per_mae_super_step", with_calls(
+                    mae_rows, mae["calls"][kind], mae["super_steps"])),
+                **per_path("per_sgv2_pretrain_iteration", with_calls(
+                    sgv2t, sgv2_pre["calls"][kind], sgv2_pre["iterations"]))}
 
     fwd_serving_rows = with_calls(fwd_serving_rows, serve_calls["fwd"], 2)
     fwd = kernel_record(
@@ -2640,13 +3198,15 @@ def main() -> int:
             "per_call": rows}
             for path, rows in (("serving", fwd_serving_rows),
                                ("sgv2", fwd_sgv2_rows))},
-         **per_iteration(sgv2t_rows["fwd"])})
+         **per_iteration(sgv2t_rows["fwd"]),
+         **mae_paths("fwd", fwd_mae_rows, fwd_sgv2t_rows)})
     bwd = kernel_record(
         "modulated_instance_norm_bwd",
         "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:93",
         with_calls(bwd_rows, train_calls["bwd"], 1),
         launches_by_path(paths, "bwd"), max(bwd_worst, sgv2t_bwd_worst), unit,
-        per_iteration(sgv2t_rows["bwd"]))
+        {**per_iteration(sgv2t_rows["bwd"]),
+         **mae_paths("bwd", bwd_mae_rows, bwd_sgv2t_rows)})
     fwd["launch_floor_ms"], bwd["launch_floor_ms"] = floor["fwd_ms"], floor["bwd_ms"]
     record = {"kernels": [fwd, bwd]}
     report_tiers(record, smi)
@@ -2706,9 +3266,28 @@ def main() -> int:
           f"({bi['calls']} calls; plain {bi['plain_ms']:.4f}, autograd of "
           f"F.instance_norm {bi['library_ms']:.4f}, bound {bi['bound_ms']:.4f}); "
           f"gradient agreement {sgv2_agree} [{smi}]")
+    fm, bm = fwd["per_mae_super_step"], bwd["per_mae_super_step"]
+    fp, bp = fwd["per_sgv2_pretrain_iteration"], bwd["per_sgv2_pretrain_iteration"]
+    print(f"MAE pretraining (DefectGAN-256 adain, batch {MAE_BATCH}): "
+          f"preloaded super-step {mae['ms']:.3f} ms (kernels "
+          f"{busy_ms(mae['dev_ms'])}), peak {mae['peak_mb']:.1f} MiB; CLI "
+          f"loader-fed {mae_cli['ms']:.3f} ms, busy "
+          f"{mae_cli['dev_ms'] / mae_cli['ms']:.1%}; native feed "
+          f"{mae_native['ms']:.3f} ms, busy "
+          f"{mae_native['dev_ms'] / mae_native['ms']:.1%}; forward kernel "
+          f"{fm['ms']:.4f} ms a super-step ({fm['calls']} calls; plain "
+          f"{fm['plain_ms']:.4f}, F.instance_norm {fm['library_ms']:.4f}, bound "
+          f"{fm['bound_ms']:.4f}); backward kernel {bm['ms']:.4f} ms ({bm['calls']}"
+          f" calls; plain {bm['plain_ms']:.4f}, autograd of F.instance_norm "
+          f"{bm['library_ms']:.4f}, bound {bm['bound_ms']:.4f}); StarGAN v2 "
+          f"pretrain loader-fed {sgv2_pre['ms']:.3f} ms an iteration, busy "
+          f"{sgv2_pre['dev_ms'] / sgv2_pre['ms']:.1%}, peak "
+          f"{sgv2_pre['peak_mb']:.1f} MiB, norm kernels {fp['ms']:.4f} + "
+          f"{bp['ms']:.4f} ms an iteration [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
           f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s, 10a-10d {train_s:.1f} s "
-          f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())})")
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())}), 11 "
+          f"{mae_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in mae_split.items())})")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

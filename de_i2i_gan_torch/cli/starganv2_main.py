@@ -8,12 +8,24 @@
     python -m de_i2i_gan_torch.cli.starganv2_main --mode sample \
         --resume_iter 100000 --num_domains 3 --w_hpf 0 ...
 
-Modes ``train`` (the AdaIN decoder) and ``sample``. The nets run on CUDA
-device 0; ``--device cpu`` runs them on the CPU. Checkpoints go to
-``<checkpoint_dir>/starganv2/<%06d iteration | latest>_state.pt``;
-``--resume_iter`` restores one strictly. It takes every flag of the JAX CLI;
-a mode or flag whose feature the port does not have yet raises
-``NotImplementedError`` naming the ROADMAP item it waits for.
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode pretrain \
+        --train_img_dir data/afhq/train --num_domains 3 --w_hpf 0 ...
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode train \
+        --pretrain_dir expr/checkpoints ...
+
+Modes ``train`` (the AdaIN decoder), ``pretrain`` (MAE repair pretraining,
+main.py:76-112) and ``sample``. The nets run on CUDA device 0; ``--device
+cpu`` runs them on the CPU. Checkpoints go to
+``<checkpoint_dir>/starganv2/<%06d iteration | latest>_state.pt``, in
+pretrain mode to ``starganv2_pretrain/``; ``--resume_iter`` restores one of
+the mode's own strictly (the JAX CLI reads ``starganv2/`` in every mode).
+``--mode train --pretrain_dir <dir>`` warm-starts from
+``<dir>/starganv2_pretrain/<%06d --pretrain_iter | latest>_state.pt`` by the
+filtered restore: G and ``ema_G`` take the pretrained generator, D, M, S
+and their EMA nets, optimizers and step what matches; the mask token is left
+out. It takes every flag of the JAX CLI; a mode or flag whose feature the
+port does not have yet raises ``NotImplementedError`` naming the ROADMAP
+item it waits for.
 """
 from __future__ import annotations
 
@@ -130,8 +142,8 @@ def build_parser():
     return p
 
 
-WAITS = {"pretrain": "A.4", "eval": "A.8", "update_stats": "A.7",
-         "align": "A.7"}
+WAITS = {"eval": "A.8", "update_stats": "A.7", "align": "A.7"}
+PRETRAIN_NAME = "starganv2_pretrain"  # the pretrain mode's checkpoints
 
 
 def check_ported(args) -> None:
@@ -139,7 +151,6 @@ def check_ported(args) -> None:
     port does not have yet, naming the ROADMAP item it waits for."""
     waits = [
         (args.mode in WAITS, f"--mode {args.mode}", WAITS.get(args.mode)),
-        (args.pretrain_dir is not None, "--pretrain_dir", "A.4"),
         (args.norm_type == "sean",
          "--norm_type sean (its fetcher embeds the references with the "
          "frozen ViT)", "A.7"),
@@ -253,6 +264,40 @@ def run_iteration(args, solver, i, batch, generator, running, inputs_val):
             "PyTorch package yet (ROADMAP A.8)")
 
 
+def pretrain(args, solver) -> None:
+    """The MAE pretraining loop (main.py:76-112): fetcher -> device_prefetch
+    -> ``pretrain_step``, running-mean prints, checkpoints under
+    ``starganv2_pretrain``, ``latest`` at the end."""
+    import torch
+
+    from de_i2i_gan_torch.data.pipeline import device_prefetch
+    from de_i2i_gan_torch.data.transforms import TrainTransform
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+
+    tf = TrainTransform(args.img_size, jitter=False, vflip=False)
+    fetcher = make_fetcher(args, args.train_img_dir, tf, args.batch_size)
+    # the masks' draws; the JAX CLI's PRNGKey(seed) stream
+    generator = torch.Generator(device=solver.device).manual_seed(args.seed)
+    running = defaultdict(float)
+    feed = device_prefetch(fetcher, solver.device)
+    try:
+        for i, batch in zip(range(args.resume_iter, args.total_iters), feed):
+            metrics = solver.pretrain_step(batch, generator)
+            for k, v in metrics.items():
+                running[k] += float(v)
+            if (i + 1) % args.print_every == 0:
+                log = " ".join(f"{k}: [{running[k] / args.print_every:.4f}]"
+                               for k in sorted(running))
+                print(f"Pretrain [{i + 1}/{args.total_iters}] {log}")
+                running.clear()
+            if (i + 1) % args.save_every == 0:
+                save_checkpoint(args.checkpoint_dir, PRETRAIN_NAME,
+                                f"{i + 1:06d}", solver)
+    finally:
+        feed.close()  # stops the prefetch thread
+    save_checkpoint(args.checkpoint_dir, PRETRAIN_NAME, "latest", solver)
+
+
 def sample(args, solver) -> None:
     """Reference-guided cycle grid and the latent grid (stargan-v2
     utils.py:110-174)."""
@@ -286,13 +331,25 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
     solver = StarGANv2Solver(to_config(args), device=args.device)
+    if args.mode == "pretrain":
+        # the mask token joins G's optimizer (main.py:76-112)
+        solver.init_pretrain(args.mask_ratio, args.patch_size,
+                             args.mask_token_type)
     solver.init_training()
     init_starganv2_weights(solver, args.seed)
+    run_name = PRETRAIN_NAME if args.mode == "pretrain" else "starganv2"
     if args.resume_iter > 0:
-        load_checkpoint(args.checkpoint_dir, "starganv2",
+        load_checkpoint(args.checkpoint_dir, run_name,
                         f"{args.resume_iter:06d}", solver, strict=True)
+    if args.mode == "train" and args.pretrain_dir is not None:
+        # MAE warm start (solver.py:57-69, 236-240): the filtered restore
+        tag = f"{args.pretrain_iter:06d}" if args.pretrain_iter else "latest"
+        load_checkpoint(args.pretrain_dir, PRETRAIN_NAME, tag, solver,
+                        strict=False)
     if args.mode == "train":
         train(args, solver)
+    elif args.mode == "pretrain":
+        pretrain(args, solver)
     else:
         sample(args, solver)
     return solver

@@ -1,3 +1,3 @@
-from de_i2i_gan_torch.config.defaults import DefectGanConfig, TrainConfig
+from de_i2i_gan_torch.config.defaults import DefectGanConfig, MAEConfig, TrainConfig
 
-__all__ = ["DefectGanConfig", "TrainConfig"]
+__all__ = ["DefectGanConfig", "MAEConfig", "TrainConfig"]

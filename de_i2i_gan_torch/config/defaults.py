@@ -70,6 +70,16 @@ class DefectGanConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MAEConfig:
+    """MAE-GAN pretraining options (defectgan_options.py:144-189)."""
+
+    mask_ratio: float = 0.75
+    patch_size: int = 8
+    mask_token_type: str = "position"  # zero|mean|scalar|vector|position|full
+    split_training: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimization options."""
 

@@ -18,8 +18,7 @@ SEAN norms through the hand-written kernel (``use_pallas=True``); the
 kernel runs for CUDA tensors only, the plain version on the CPU. Every
 other field is the JAX package's. Flags whose feature is not ported yet
 raise ``NotImplementedError`` in ``check_ported``, naming the ROADMAP item
-they wait for. The MAE, WGAN, ViT and pix2pix groups wait for their
-slices.
+they wait for. The WGAN, ViT and pix2pix groups wait for their slices.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ import argparse
 import json
 from pathlib import Path
 
-from de_i2i_gan_torch.config.defaults import DefectGanConfig, TrainConfig
+from de_i2i_gan_torch.config.defaults import DefectGanConfig, MAEConfig, TrainConfig
 
 
 # --------------------------------------------------------------- arg groups
@@ -145,6 +144,20 @@ def add_defectgan_args(p: argparse.ArgumentParser):
     return p
 
 
+def add_mae_args(p: argparse.ArgumentParser):
+    p.set_defaults(batch_size=32, optimizer="adamw", num_epochs=200,
+                   lr=[1.5e-4], scheduler="cos", lr_decay=0.05,
+                   loss_weight=[10, 3, 1], num_critics=1,
+                   save_latest_freq=300, num_display_images=4,
+                   save_img_freq=1)
+    p.add_argument("--mask_ratio", type=float, default=0.75)
+    p.add_argument("--patch_size", type=int, default=8)
+    p.add_argument("--mask_token_type", type=str, default="position",
+                   help="[zero|mean|scalar|vector|position|full]")
+    p.add_argument("--split_training", action="store_true")
+    return p
+
+
 # ------------------------------------------------------------------ Options
 class Options:
     """parse/save/reload mirroring BaseOptions semantics."""
@@ -152,6 +165,10 @@ class Options:
     GROUPS = {
         "defectgan_train": (add_base_args, add_defectgan_args, add_train_args),
         "defectgan_test": (add_base_args, add_defectgan_args, add_test_args),
+        "mae_train": (add_base_args, add_defectgan_args, add_train_args,
+                      add_mae_args),
+        "mae_test": (add_base_args, add_defectgan_args, add_test_args,
+                     add_mae_args),
     }
 
     def __init__(self, kind: str):
@@ -290,3 +307,9 @@ def to_train_config(opt, clf_loss_type: str = "bce") -> TrainConfig:
         loss_weight=tuple(getattr(opt, "loss_weight", (2, 5, 5, 5, 1))),
         diff_aug=getattr(opt, "diff_aug", ""), clf_loss_type=clf_loss_type,
         ema_decay=getattr(opt, "ema_decay", 0.0))
+
+
+def to_mae_config(opt) -> MAEConfig:
+    return MAEConfig(mask_ratio=opt.mask_ratio, patch_size=opt.patch_size,
+                     mask_token_type=opt.mask_token_type,
+                     split_training=opt.split_training)

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from de_i2i_gan_torch.nn.layers import Conv2d, avg_pool, upsample_nearest
+from de_i2i_gan_torch.nn.layers import Conv2d, Dense, avg_pool, upsample_nearest
 from de_i2i_gan_torch.nn.normalization import (
     SEAN,
     SPADE,
@@ -318,3 +318,84 @@ class NormResBlock(nn.Module):
         if self.noise_1 is not None:
             y = self.noise_1(y, generator)
         return y + s
+
+
+class MaskToken(nn.Module):
+    """Learnable fill value for MAE-masked patches (architecture.py:392-418).
+
+    imgs are NHWC, masks (N, H, W, 1) with 1 = keep, 0 = masked. The token
+    ``mask_token`` is a float32 parameter, zero at init, of shape (1, 1, 1,
+    1) (scalar), (1, 1, 1, C) (vector), (1, S, S, 1) (position) or (1, S,
+    S, C) (full), NHWC as the JAX package's; ``zero`` fills 0 and ``mean``
+    the per-image channel mean of the visible pixels over the mask ratio,
+    and neither has a parameter."""
+
+    SHAPES = {"scalar": lambda c, s: (1, 1, 1, 1),
+              "vector": lambda c, s: (1, 1, 1, c),
+              "position": lambda c, s: (1, s, s, 1),
+              "full": lambda c, s: (1, s, s, c)}
+
+    def __init__(self, mask_token_type: str, mask_ratio: float,
+                 input_nc: int = 3, image_size: int = 128):
+        super().__init__()
+        if mask_token_type not in ("zero", "mean", *self.SHAPES):
+            raise ValueError(f"Unknown mask token type: {mask_token_type}")
+        self.mask_token_type = mask_token_type
+        self.mask_ratio = mask_ratio
+        if mask_token_type in self.SHAPES:
+            self.mask_token = nn.Parameter(torch.zeros(
+                self.SHAPES[mask_token_type](input_nc, image_size)))
+
+    def forward(self, imgs: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        masked = imgs * masks
+        if self.mask_token_type == "zero":
+            return masked
+        if self.mask_token_type == "mean":
+            # dynamic, not a parameter (architecture.py:416-418)
+            token = masked.mean(dim=(1, 2), keepdim=True) / self.mask_ratio
+        else:
+            token = self.mask_token
+        return masked + token.to(imgs.dtype) * (1.0 - masks)
+
+
+class EmbedEncoder(nn.Module):
+    """Style-embedding MLP (architecture.py:420-431): (N, in) or (N, k, in)
+    embeddings (averaged over k) -> relu(fc_0) -> relu(fc_1), hidden_nc
+    wide."""
+
+    def __init__(self, in_features: int, hidden_nc: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc_0 = Dense(in_features, hidden_nc, dtype=dtype)
+        self.fc_1 = Dense(hidden_nc, hidden_nc, dtype=dtype)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        if feat.dim() == 3:
+            feat = feat.mean(dim=1)
+        return F.relu(self.fc_1(F.relu(self.fc_0(feat))))
+
+
+class LatentDecoder(nn.Module):
+    """Label + noise -> latent style MLP (architecture.py:434-448): the
+    labels (flattened) and ``latent_dim - label_nc`` standard-normal noise
+    values -> relu(fc_0), hidden_nc // 2 wide -> relu(fc_1), hidden_nc
+    wide. The noise is ``noise`` when given, else drawn from
+    ``generator``."""
+
+    def __init__(self, label_nc: int, hidden_nc: int, latent_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.label_nc, self.latent_dim, self.dtype = label_nc, latent_dim, dtype
+        self.fc_0 = Dense(latent_dim, hidden_nc // 2, dtype=dtype)
+        self.fc_1 = Dense(hidden_nc // 2, hidden_nc, dtype=dtype)
+
+    def forward(self, labels: torch.Tensor,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        labels = labels.reshape(labels.shape[0], -1)
+        if noise is None:
+            noise = torch.randn((labels.shape[0], self.latent_dim - self.label_nc),
+                                generator=generator, dtype=self.dtype,
+                                device=labels.device)
+        latent = torch.cat([labels.to(self.dtype), noise.to(self.dtype)], dim=1)
+        return F.relu(self.fc_1(F.relu(self.fc_0(latent))))

@@ -12,17 +12,19 @@ Flow:
      host-to-device bytes); Python makes one call per batch, with the
      interpreter lock released (``ctypes.CDLL``).
   3. ``NativeDualStreamLoader`` fills the (num_critics, B, S, S, 3) u8
-     super-batches of the ``--native_loader`` DefectGAN feed in place; the
-     trainer's ``device_prefetch`` copies them to the card and the step's
-     ``batch_images_to_float`` normalizes them there.
+     super-batches of the ``--native_loader`` DefectGAN feed in place, and
+     ``NativeSuperBatchLoader`` the single-stream ``{imgs, labels}`` ones of
+     the MAE feed; the trainer's ``device_prefetch`` copies them to the card
+     and the step's ``batch_images_to_float`` normalizes them there.
+     ``EpochView`` gives the infinite stream an epoch's length.
 
 The library is built with g++ at first use into ``build/de_i2i_gan_torch/``
 beside the package, named by a hash of the source, the flags and the host
 (``-march=native`` builds for the CPU it runs on); importing this module
 builds nothing. A build that fails raises with the compiler's
-output: there is no fallback to the Python pipeline. The MAE, WGAN and
-pix2pix feeds (``EpochView``, ``NativeSuperBatchLoader``,
-``PairedNativeLoader``) wait for ROADMAP A.4-A.6.
+output: there is no fallback to the Python pipeline. The WGAN and
+pix2pix feeds (``make_native_loader``, ``PairedNativeLoader``) wait for
+ROADMAP A.5-A.6.
 """
 from __future__ import annotations
 
@@ -257,6 +259,25 @@ class NativeDataLoader:
             self.close()
 
 
+class EpochView:
+    """A finite, ``data.pipeline.DataLoader``-shaped view of the infinite
+    native stream: ``batches_per_epoch`` batches an iteration (default: the
+    cache's items over the batch size)."""
+
+    def __init__(self, loader: NativeDataLoader,
+                 batches_per_epoch: Optional[int] = None):
+        self.loader = loader
+        self.batch_size = loader.batch_size
+        self._n = batches_per_epoch or max(1, loader.n_items // loader.batch_size)
+
+    def __len__(self):
+        return self._n
+
+    def __iter__(self) -> Iterator:
+        for _ in range(self._n):
+            yield next(self.loader)
+
+
 class NativeDualStreamLoader:
     """Defect and background super-batches straight from the C++ runtime,
     the native counterpart of ``data.pipeline.DualStreamLoader`` (one
@@ -316,3 +337,52 @@ def make_native_dual_stream(df_dataset, bg_dataset, cache_root: Path,
                           num_threads=num_threads, seed=seed + 1,
                           output_u8=True)
     return NativeDualStreamLoader(df, bg, num_critics)
+
+
+class NativeSuperBatchLoader:
+    """Single-stream ``{key, "labels"}`` super-batches with a leading
+    (num_critics,) axis, filled in place: the native counterpart of
+    ``data.pipeline.SuperBatchLoader`` (the MAE feed), the same fresh u8
+    arrays a super-batch as ``NativeDualStreamLoader``."""
+
+    def __init__(self, loader: NativeDataLoader, num_critics: int,
+                 key: str = "imgs"):
+        if not loader.output_u8:
+            raise ValueError("the super-batch feed is u8 only")
+        self.loader = loader
+        self.num_critics = num_critics
+        self.key = key
+
+    def __len__(self):
+        return max(1, self.loader.n_items // self.loader.batch_size
+                   // self.num_critics)
+
+    def __iter__(self) -> Iterator:
+        ld = self.loader
+        nc, b, s = self.num_critics, ld.batch_size, ld.image_size
+        for _ in range(len(self)):
+            imgs = np.empty((nc, b, s, s, ld.channels), np.uint8)
+            lbls = np.empty((nc, b, ld.label_nc), np.float32)
+            for j in range(nc):
+                ld.next_into(imgs[j], lbls[j])
+            yield {self.key: imgs, "labels": lbls}
+
+    def close(self):
+        self.loader.close()
+
+
+def make_native_super_batch(dataset, cache_dir: Path, image_size: int,
+                            batch_size: int, num_critics: int,
+                            seed: int = 123, num_threads: int = 4,
+                            key: str = "imgs",
+                            value_range: Optional[str] = None
+                            ) -> NativeSuperBatchLoader:
+    """Cache one stream (untransformed items) under ``cache_dir`` and return
+    the in-place super-batch loader (the ``--native_loader`` MAE feed)."""
+    cache, index = build_cache(dataset, Path(cache_dir),
+                               max_side=image_size * 2,
+                               value_range=value_range)
+    native = NativeDataLoader(cache, index, image_size, batch_size,
+                              num_threads=num_threads, seed=seed,
+                              output_u8=True)
+    return NativeSuperBatchLoader(native, num_critics, key=key)

@@ -18,6 +18,13 @@ parameter name, and ``step``, the count of D updates. A
 ``STATE_NETS`` and ``STATE_OPTIMIZERS`` name (G, D, M, S, the EMA nets with
 ema_G's SEAN statistics; ``step`` counts iterations), under
 ``ckpt_dir/starganv2/<%06d iteration | latest>_state.pt``.
+
+MAE pretraining (an ``MAESteps``, or a ``StarGANv2Solver`` in pretrain
+mode) keeps G as the bare generator's ``state_dict`` and the mask token as
+an entry of its own, ``token``; the token's moments sit in ``tx_G`` under
+``token.<name>``, since it trains with G's optimizer. A warm start from
+such a checkpoint (strict=False) restores every generator tensor and
+reports the token as unexpected.
 """
 from __future__ import annotations
 
@@ -48,6 +55,11 @@ def train_state(steps) -> Dict[str, Any]:
         tx = getattr(steps, f"tx_{net}")
         if tx is not None:
             names = {id(p): k for k, p in getattr(steps, net).named_parameters()}
+            token = getattr(steps, "token", None)
+            if net == "G" and token is not None:
+                # an MAE mask token trains with G's optimizer
+                names.update({id(p): f"token.{k}"
+                              for k, p in token.named_parameters()})
             state[f"tx_{net}"] = {
                 "count": tx.count,
                 "moments": {names[id(p)]: dict(tx.opt.state[p])

@@ -16,6 +16,7 @@ follow the flax module names (``stem.conv.weight`` <- ``stem/conv/kernel``):
     SEAN, SEANv2  sean_stats mean/std/sum/sumsq/count -> the buffers of
                the same names
     NoiseInjection  weight -> weight
+    MaskToken  mask_token -> mask_token (NHWC in both)
     AffineInstanceNorm  params scale/bias -> scale/bias
     Embed      embedding (num, features) -> nn.Embedding weight, as is
 
@@ -35,7 +36,7 @@ import torch
 from torch import nn
 
 from de_i2i_gan_torch.models.starganv2 import AffineInstanceNorm, SEANv2
-from de_i2i_gan_torch.nn.blocks import BatchNorm, NoiseInjection
+from de_i2i_gan_torch.nn.blocks import BatchNorm, MaskToken, NoiseInjection
 from de_i2i_gan_torch.nn.layers import Conv2d, Dense
 from de_i2i_gan_torch.nn.normalization import SEAN
 
@@ -97,6 +98,9 @@ def _targets(module: nn.Module) -> Iterator[_Target]:
         elif isinstance(mod, AffineInstanceNorm):
             yield key + "scale", mod.scale, "params", path + "scale", _same
             yield key + "bias", mod.bias, "params", path + "bias", _same
+        elif isinstance(mod, MaskToken) and hasattr(mod, "mask_token"):
+            yield (key + "mask_token", mod.mask_token, "params",
+                   path + "mask_token", _same)
         elif isinstance(mod, nn.Embedding):
             yield (key + "weight", mod.weight, "params", path + "embedding",
                    _same)
@@ -234,6 +238,42 @@ def load_jax_train_state(steps, g_params: Tree, g_state: Mapping[str, Tree],
     steps.step = int(step)
 
 
+def load_jax_mae_state(steps, state) -> None:
+    """Fill an ``MAESteps`` for training from a JAX ``GANTrainState`` of the
+    JAX ``MAESteps`` (its leaves JAX or numpy arrays): G from
+    ``state.G.params["net"]`` and ``state.G.state``, the mask token from
+    ``state.G.params["token"]``, E and D from their params and state, the
+    three optimizers' moments and counts from their optax states (G's over
+    the ``{"net", "token"}`` tree: the token's moments go to the token's
+    parameter), and ``step``. Builds D and the optimizers first. Strict: a
+    key missing on either side raises."""
+    steps.init_training()
+    g_params = state.G.params
+    load_jax_module(steps.G, g_params["net"], dict(state.G.state or {}))
+    load_jax_module(steps.token, g_params["token"])
+    if (steps.E is None) != (state.E is None):
+        raise ValueError("E is in only one of the steps and the JAX state")
+    if steps.E is not None:
+        load_jax_module(steps.E, state.E.params, dict(state.E.state or {}))
+    load_jax_module(steps.D, state.D.params, dict(state.D.state or {}))
+    load_jax_opt_state(steps.tx_G, _Joined(steps.G, steps.token),
+                       state.G.opt_state)
+    load_jax_opt_state(steps.tx_D, steps.D, state.D.opt_state)
+    if steps.E is not None:
+        load_jax_opt_state(steps.tx_E, steps.E, state.E.opt_state)
+    steps.step = int(np.asarray(state.step))
+
+
+class _Joined(nn.Module):
+    """G and its mask token as one module whose flax paths are the JAX MAE
+    tree's: ``net/...`` and ``token/...`` (the order of ``tx_G``'s
+    parameters)."""
+
+    def __init__(self, net: nn.Module, token: nn.Module):
+        super().__init__()
+        self.net, self.token = net, token
+
+
 def _init_module(module: nn.Module, gen: torch.Generator, std: float) -> None:
     with torch.no_grad():
         for key, tensor, coll, path, _ in _checked_targets(module):
@@ -275,16 +315,24 @@ def load_jax_starganv2(solver, state) -> None:
     ``sean_stats``), D, M and S from their params, ``ema_G`` from
     ``state.ema_G`` with ``state.ema_sean_stats``, ``ema_M`` and ``ema_S``
     from ``state.ema_M`` and ``state.ema_S``; each optimizer's moments and
-    count from its ``opt_state`` (``load_jax_opt_state``), and ``step``.
-    Builds D and the optimizers first (``init_training``). Strict: a net the
-    solver holds and the state lacks, or the other way round, raises."""
+    count from its ``opt_state`` (``load_jax_opt_state``), and ``step``. A
+    solver in pretrain mode takes the JAX pretrain state
+    (``init_pretrain_state``): G and ``ema_G`` from the ``net`` subtrees,
+    the mask token from ``state.G.params["token"]``, G's optimizer over
+    both. Builds D and the optimizers first (``init_training``). Strict: a
+    net the solver holds and the state lacks, or the other way round,
+    raises."""
     solver.init_training()
     g_state = dict(state.G.state or {})
     ema_state = dict(g_state)
     if state.ema_sean_stats is not None:
         ema_state["sean_stats"] = state.ema_sean_stats
-    trees = {"G": (state.G.params, g_state), "D": (state.D.params, None),
-             "ema_G": (state.ema_G, ema_state),
+    g_params, ema_params = state.G.params, state.ema_G
+    if solver.token is not None:
+        load_jax_module(solver.token, g_params["token"])
+        g_params, ema_params = g_params["net"], ema_params["net"]
+    trees = {"G": (g_params, g_state), "D": (state.D.params, None),
+             "ema_G": (ema_params, ema_state),
              "M": (None if state.M is None else state.M.params, None),
              "S": (None if state.S is None else state.S.params, None),
              "ema_M": (state.ema_M, None), "ema_S": (state.ema_S, None)}
@@ -298,8 +346,11 @@ def load_jax_starganv2(solver, state) -> None:
     for name in ("G", "D", "M", "S"):
         net_state = getattr(state, name)
         if net_state is not None:
-            load_jax_opt_state(getattr(solver, f"tx_{name}"),
-                               getattr(solver, name), net_state.opt_state)
+            module = getattr(solver, name)
+            if name == "G" and solver.token is not None:
+                module = _Joined(module, solver.token)
+            load_jax_opt_state(getattr(solver, f"tx_{name}"), module,
+                               net_state.opt_state)
     solver.step = int(np.asarray(state.step))
 
 

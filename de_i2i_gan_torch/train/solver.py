@@ -33,7 +33,18 @@ from the ``generator`` a call is given, or torch's default generator of the
 device. The serving methods (``style``, ``generate``, ``track_stats_step``,
 ``finalize_ema_stats``) run under ``torch.inference_mode()``. SEAN's
 lambda_sty needs the frozen ViT and the FAN masks of ``w_hpf > 0`` need the
-FAN (ROADMAP A.7); the MAE pretraining step waits for ROADMAP A.4.
+FAN (ROADMAP A.7).
+
+MAE pretraining (solver.py:98-204, compute_mae_{d,g}_loss :413-464, the
+JAX solver's ``pretrain_step``): ``init_pretrain`` adds a mask token that
+trains with G's optimizer, and ``pretrain_step`` runs D latent, D ref, G
+latent, G ref on the repair of ``x_ref`` (shifted patch masks, the token's
+fill, G with the style of the pass), R1 on the real images, lambda_ds from
+the step, then the EMA of G. Its checkpoint keeps G as the bare
+generator's and the token apart, so ``--pretrain_dir`` restores G and
+``ema_G`` into a train run (the JAX state nests them under ``net`` and
+restores neither). AdaIN only: SEAN's pretraining style term needs the
+frozen ViT (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -48,8 +59,10 @@ from de_i2i_gan_torch.losses.common import bce_logits, l1, r1_penalty
 from de_i2i_gan_torch.models.starganv2 import (
     Generator, MappingNetwork, SEANv2, StarGANv2Discriminator, StyleEncoder,
     sean_v2_update_stats)
+from de_i2i_gan_torch.nn.blocks import MaskToken
 from de_i2i_gan_torch.train.optim import ema_update, make_solver_optimizer
 from de_i2i_gan_torch.utils.diffaug import diff_augment
+from de_i2i_gan_torch.utils.masks import generate_shifted_mask
 
 Batch = Dict[str, torch.Tensor]
 SEAN_STATS = ("mean", "std", "sum", "sumsq", "count")
@@ -125,6 +138,7 @@ class StarGANv2Solver:
                     None if ema is None else ema.requires_grad_(False))
         self.D = None
         self.tx_G = self.tx_D = self.tx_M = self.tx_S = None
+        self.token = None  # the MAE mask token, in pretrain mode
         self.step = 0  # iterations
         self._warned = set()
 
@@ -193,14 +207,17 @@ class StarGANv2Solver:
                                         cfg.max_conv_dim, dtype=cfg.dtype
                                         ).to(self.device).eval()
 
-        def adam(net, lr):
-            return make_solver_optimizer(net.parameters(), lr,
-                                         (cfg.beta1, cfg.beta2),
+        def adam(params, lr):
+            return make_solver_optimizer(params, lr, (cfg.beta1, cfg.beta2),
                                          cfg.weight_decay)
 
-        self.tx_G, self.tx_D = adam(self.G, cfg.lr), adam(self.D, cfg.lr)
+        # a mask token (pretrain mode) trains with G's optimizer
+        token = self.token.parameters() if self.token is not None else ()
+        self.tx_G = adam([*self.G.parameters(), *token], cfg.lr)
+        self.tx_D = adam(self.D.parameters(), cfg.lr)
         if self.M is not None:
-            self.tx_M, self.tx_S = adam(self.M, cfg.f_lr), adam(self.S, cfg.lr)
+            self.tx_M = adam(self.M.parameters(), cfg.f_lr)
+            self.tx_S = adam(self.S.parameters(), cfg.lr)
 
     def _batch(self, batch) -> Batch:
         """The batch's arrays on the device, domain labels as int64."""
@@ -414,3 +431,107 @@ class StarGANv2Solver:
         """Finalize G's SEAN running styles (solver.py:552), after the
         iteration's EMA of the statistics."""
         sean_v2_update_stats(self.G)
+
+    # ------------------------------------------------------------- pretrain
+    def init_pretrain(self, mask_ratio: float = 0.75, patch_size: int = 8,
+                      mask_token_type: str = "position") -> None:
+        """Pretrain mode (the JAX ``init_pretrain_state``): a mask token
+        over 3-channel images of ``img_size``, trained by ``tx_G``, and in
+        the checkpoint as ``token``. Call before the first training call."""
+        if self.D is not None:
+            raise RuntimeError("init_pretrain comes before init_training: "
+                               "G's optimizer must hold the token")
+        if self.cfg.norm_type != "adain":
+            raise NotImplementedError(
+                "MAE pretraining with --norm_type sean is not ported to the "
+                "PyTorch package yet: its style term needs the frozen ViT "
+                "(ROADMAP A.7)")
+        self._mae = (mask_ratio, patch_size)
+        self.token = MaskToken(mask_token_type, mask_ratio, 3,
+                               self.cfg.img_size).to(self.device)
+        self.STATE_NETS = (*type(self).STATE_NETS, "token")
+
+    def _repair(self, x_real: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
+                masks, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The repair of ``x_real`` (utils.py repair_mask :579-585): a shifted
+        patch mask, the token's fill, G with style ``s`` for domains ``y``."""
+        mask_ratio, patch_size = self._mae
+        b, h, w, _ = x_real.shape
+        mae_mask = generate_shifted_mask(b, h, w, patch_size, mask_ratio,
+                                         generator, x_real.device)
+        return self.G(self.token(x_real, mae_mask), s, masks, labels=y)
+
+    def mae_d_loss_fn(self, batch: Batch, *, latent: bool,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """As the JAX ``mae_d_loss_fn``: (loss, {real, fake, reg}) with D's
+        graph; R1 on the real ``x_ref`` (no augmentation), the repair without
+        gradients."""
+        cfg = self.cfg
+        x_real, y_org = batch["x_ref"], batch["y_ref"]
+        x_req = x_real.detach().requires_grad_()
+        out_real = self.D(x_req, y_org)
+        loss_real = bce_logits(out_real, torch.ones_like(out_real))
+        loss_reg = r1_penalty(out_real, x_req)
+        with torch.no_grad():
+            s = self._code(batch, y_org, "ref", latent)
+            x_fake = self._repair(x_real, s, y_org, batch.get("masks"),
+                                  generator)
+        out_fake = self.D(x_fake, y_org)
+        loss_fake = bce_logits(out_fake, torch.zeros_like(out_fake))
+        loss = loss_real + loss_fake + cfg.lambda_reg * loss_reg
+        return loss, {"real": loss_real, "fake": loss_fake, "reg": loss_reg}
+
+    def mae_g_loss_fn(self, batch: Batch, *, latent: bool,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """As the JAX ``mae_g_loss_fn``: (loss, {adv, sty, rec, ds}) with the
+        graph of G, the token, M and S: adv + lambda_sty * style
+        reconstruction of the repaired image + lambda_rec * L1 to x_ref +
+        lambda_ds * |S(x_ref) - S(x_ref2)|."""
+        cfg = self.cfg
+        x_real, x_real2, y_org = batch["x_ref"], batch["x_ref2"], batch["y_ref"]
+        s = self._code(batch, y_org, "ref", latent)
+        x_fake = self._repair(x_real, s, y_org, batch.get("masks"), generator)
+        out = self.D(x_fake, y_org)
+        loss_adv = bce_logits(out, torch.ones_like(out))
+        # style reconstruction on the repaired image (solver.py:444-446)
+        s_pred = self.M(batch["z_ref"], y_org) if latent else self.S(x_fake, y_org)
+        loss_sty = l1(s_pred, s)
+        loss_rec = l1(x_fake, x_real)
+        loss_ds = l1(self.S(x_real, y_org), self.S(x_real2, y_org))
+        # the reference's MAE G loss weighs rec with lambda_rec (solver.py:457)
+        loss = (loss_adv + cfg.lambda_sty * loss_sty +
+                cfg.lambda_rec * loss_rec +
+                self._lambda_ds(self.step) * loss_ds)
+        return loss, {"adv": loss_adv, "sty": loss_sty, "rec": loss_rec,
+                      "ds": loss_ds}
+
+    def pretrain_step(self, batch, generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """One pretraining iteration (solver.py:98-204): D latent, D ref, G
+        latent, G ref (M and S updated on the latent pass only), then the
+        EMA of G (the JAX EMA also averages the token, which nothing reads)
+        and the step count. ``batch``: NHWC ``x_ref``, ``x_ref2``,
+        domains ``y_ref`` and ``z_ref``. Returns the loss terms under the JAX
+        names as 0-d tensors."""
+        if self.token is None:
+            raise RuntimeError("pretrain_step needs init_pretrain first")
+        self.init_training()
+        batch = self._batch(batch)
+        passes = ((True, "latent"), (False, "ref"))
+        metrics = {}
+        for latent, tag in passes:
+            loss, m = self.mae_d_loss_fn(batch, latent=latent,
+                                         generator=generator)
+            self.tx_D.step(torch.autograd.grad(loss, self.tx_D.params))
+            metrics.update({f"D/{tag}_{k}": v.detach() for k, v in m.items()})
+        for latent, tag in passes:
+            loss, m = self.mae_g_loss_fn(batch, latent=latent,
+                                         generator=generator)
+            self._step_generators(loss, latent)
+            metrics.update({f"G/{tag}_{k}": v.detach() for k, v in m.items()})
+        ema_update(self.ema_G.parameters(), self.G.parameters(),
+                   self.cfg.ema_beta)
+        self.step += 1
+        return metrics

@@ -6,8 +6,10 @@
 * Importing the CUDA kernel module neither needs nor runs ``nvcc``, and
   importing the native loader neither needs nor runs ``g++``: each builds
   at first use.
-* Importing the entry points (``cli/*``), the input feeds (``data``,
-  ``runtime``) and StarGAN v2 (``models/starganv2.py``, ``train/solver.py``,
+* Importing the entry points (``cli/*``, the MAE ones among them), the
+  input feeds (``data``, ``runtime``), MAE pretraining
+  (``train/mae_steps.py``, ``utils/masks.py``) and StarGAN v2
+  (``models/starganv2.py``, ``train/solver.py``,
   ``data/starganv2_data.py``, ``utils/translate.py``) parses no arguments,
   starts no thread and writes nothing.
 """
@@ -43,7 +45,9 @@ for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
              "train.checkpoint", "train.trainer", "utils.guards",
              "utils.seed", "utils.png", "runtime.native_loader",
              "models.starganv2", "train.solver", "cli.starganv2_main",
-             "data.starganv2_data", "utils.translate", "utils.visualize"):
+             "data.starganv2_data", "utils.translate", "utils.visualize",
+             "cli.train_mae", "cli.test_mae", "cli.train_mtvec",
+             "cli.pretrain_mtvec", "train.mae_steps", "utils.masks"):
     assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
@@ -73,6 +77,8 @@ import de_i2i_gan_torch.train.steps
 import de_i2i_gan_torch.train.solver
 import de_i2i_gan_torch.cli.train_defectgan
 import de_i2i_gan_torch.cli.starganv2_main
+import de_i2i_gan_torch.cli.train_mae
+import de_i2i_gan_torch.train.mae_steps
 assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
 assert native_loader._lib is None
 """
@@ -93,6 +99,12 @@ import de_i2i_gan_torch.train.solver
 import de_i2i_gan_torch.cli.starganv2_main
 import de_i2i_gan_torch.data.starganv2_data
 import de_i2i_gan_torch.utils.translate
+import de_i2i_gan_torch.cli.train_mae
+import de_i2i_gan_torch.cli.test_mae
+import de_i2i_gan_torch.cli.train_mtvec
+import de_i2i_gan_torch.cli.pretrain_mtvec
+import de_i2i_gan_torch.train.mae_steps
+import de_i2i_gan_torch.utils.masks
 assert threading.active_count() == 1, threading.enumerate()
 assert os.listdir(".") == [], os.listdir(".")
 """

@@ -303,6 +303,52 @@ def test_bwd_sums_bit_identical_across_runs_in_every_tier(case):
         assert torch.equal(a, b_)
 
 
+# DefectGAN's MAE pretraining at its CLI's batch 32: the decoder's norm
+# call sites at 256^2 (six, one and one a G forward)
+MAE_SHAPES = [(32, 256, 64, 64), (32, 256, 128, 128), (32, 128, 256, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fwd", "bwd"])
+@pytest.mark.parametrize("shape", MAE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_tier_matches_plain_at_the_mae_shapes(op, shape, dtype):
+    """Every tier the planner can run at a batch-32 MAE shape, against the
+    plain version, each activation; the planned tier is one of them."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x, g, b, dy = _bwd_inputs(shape, dt, gen)
+    hw = shape[2] * shape[3]
+    tiers = norm_kernels.feasible_tiers(op, hw, dt)
+    assert norm_kernels.plan(op, hw, dt, True).tier in tiers and "S" in tiers
+    for act in ACTS:
+        ry, rmean, rinv = fused.modulated_instance_norm_ref(x, g, b, act)
+        if op == "bwd":
+            ref = fused.modulated_instance_norm_bwd_ref(x, g, b, rmean, rinv,
+                                                        dy, act)
+            m = rmean[:, :, None, None]
+            _, abs_dg, abs_db = fused.modulated_instance_norm_bwd_ref(
+                (x.float() - m).abs() + m, g, b, rmean, rinv, dy.float().abs())
+        for tier in tiers:
+            if op == "fwd":
+                y, mean, inv = norm_kernels.modulated_instance_norm_fwd(
+                    x, g, b, act, tier=tier)
+                torch.cuda.synchronize()
+                tol = (dict(atol=TOL, rtol=TOL) if dtype == "float32"
+                       else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+                torch.testing.assert_close(y.float(), ry.float(), **tol)
+                torch.testing.assert_close(mean, rmean, atol=TOL, rtol=TOL)
+                torch.testing.assert_close(inv, rinv, atol=TOL, rtol=TOL)
+                del y
+            else:
+                got = norm_kernels.modulated_instance_norm_bwd(
+                    x, g, b, rmean, rinv, dy, act, tier=tier)
+                torch.cuda.synchronize()
+                _check_bwd(got, ref, abs_db, abs_dg, dt)
+                del got
+
+
 @pytest.mark.gpu
 def test_forced_infeasible_tier_raises_on_card(monkeypatch):
     _need_card()
