@@ -21,7 +21,14 @@ instance norm) and the SPADE path through none:
   * MAE-GAN pretraining: ``MAESteps.super_step`` at the MAE CLI's defaults
     (batch 32, one critic, AdamW), through ``cli.train_mae`` on each input
     feed, ``cli.test_mae``, DefectGAN warm-started from the MAE run, and
-    StarGAN v2's ``--mode pretrain`` and ``--pretrain_dir``.
+    StarGAN v2's ``--mode pretrain`` and ``--pretrain_dir``;
+  * pix2pix: ``Pix2PixSteps.super_step`` at the pix2pix CLI's defaults
+    (256², batch 1, 4 iterations a super-step, the SPADE generator, a
+    2-scale PatchGAN, EMA), with FusedProp, with remat and at 512², through
+    ``cli.train_pix2pix`` on each feed and ``cli.test_pix2pix``;
+  * WGAN: ``WGanSteps.super_step`` at the WGAN CLI's defaults (64², batch
+    128, 5 critics, RMSprop), with weight clipping and with the gradient
+    penalty, through ``cli.train_wgan`` on each feed.
 
 AdaIN takes the style code from E; SEAN takes ViT-sized (8, 5, 768) style
 embeddings made on the card, tracks its running statistics and adds its
@@ -66,6 +73,12 @@ Phases, each of which raises on failure:
               of the unprofiled super-step
   6f. timing  backward kernel at each training shape as in 5, beside the
               plain version, autograd of F.instance_norm and the bound
+  6g. remat   one full-width f32 AdaIN super-step (SGD) with remat on
+              against remat off: the kernels run again in the
+              recomputation (exactly 2 more G forwards' launches, the same
+              backward launches), losses, G's and E's deltas within 6c's
+              band, G's within 6d's f32 band, G's BatchNorm statistics,
+              peak memory of both
   7a. sean    serving: 2 warm-up + 5 timed requests (the path's launch
               counts), against the use_pallas=False path within the band
               of phase 4; profile
@@ -164,6 +177,35 @@ Phases, each of which raises on failure:
               iteration at the batch-8 shapes, loader-fed time, busy share),
               then ``--mode train --pretrain_dir`` for 2 iterations, whose G
               and ema_G at load equal the pretrain run's
+  12a. p2p    a tiny f32 ``train_step`` and ``fused_train_step`` (SGD) on the
+              card against the CPU: losses rtol 2e-4, G's and D's (after -
+              before) / lr within 6c's band
+  12b.        2 warm-up + 5 timed full-width pix2pix super-steps (4
+              iterations of batch 1 at 256²) on preloaded batches, with
+              ``train_step``, with FusedProp and with the U-Net generator
+              (``--netG unet``): host clock, a profiled
+              super-step's device time, peak memory, finite losses, exactly
+              0 launches of either norm kernel (SPADE, instance norm)
+  12c.        the same with remat: peak memory beside remat off's; one f32
+              SGD iteration, remat on vs off on the card: losses, G's and
+              D's deltas within 12a's band, BatchNorm statistics equal
+  12d.        one super-step at 512² (pix2pixHD's multi-scale D with feature
+              matching)
+  12e. cli    ``cli.train_pix2pix.main`` for one epoch (48 synthetic pairs,
+              12 super-steps) on the Python loader and with
+              ``--native_loader`` (u8 ``pair`` batches): loader-fed time,
+              busy share of 3 profiled super-steps, the copies' stream, a
+              panel; ``--continue_training`` whose loaded state equals the
+              saved one; ``cli.test_pix2pix.main``: ``results.json``, panels
+              of 256 x 768 from finite pixels
+  13a. wgan   a tiny f32 clipping super-step and a GP super-step (noise and
+              eps handed in) on the card against the CPU, as 12a
+  13b.        full-width WGAN super-steps (5 critic steps of 128 at 64², one
+              G step), clipping and GP: timed, profiled, peak memory, 0
+              norm-kernel launches, the critic's weights within the clip
+  13c. cli    ``cli.train_wgan.main`` for one epoch on each feed, then a
+              resume whose loaded state (RMSprop's nu with it) equals the
+              saved one; the 4x4 sample grid
 
 Then each timed shape's planned tier against tier S and the fastest tier,
 and each path's share of the bound. The line before the last two holds the
@@ -312,6 +354,20 @@ MAE_SYNTHETIC = 512  # the MAE CLI's synthetic fusion images: 16 super-steps
 # and two G passes, each a repair with its backward: 48 + 24
 SGV2_PRETRAIN_PASSES = (4, 2)
 SGV2_PRETRAIN_ITERS = 12
+# phase 12: pix2pix at its CLI's defaults (``add_pix2pix_args``: 256^2 crop
+# from 286, batch 1, 4 iterations a super-step, resnet G (the DefectGAN
+# generator with SPADE: no kernel), a 2-scale PatchGAN D of 3 layers, lsgan,
+# lambda L1 100, lambda feat 10, EMA 0.999, Adam 2e-4, bf16, ngf=ndf=64,
+# num_res 6, hidden_nc 128, label_nc 2); the CLI's epoch capped at 48 pairs
+# (--max_dataset_size): 12 super-steps
+P2P_IMAGE = 256
+P2P_IPL = 4
+P2P_PAIRS = 48
+# phase 13: WGAN at ``add_wgan_args``' defaults (64^2, batch 128, noise 100,
+# ngf=ndf=64, 3 layers, RMSprop 5e-5, clipping 0.03, 5 critics, bf16); the
+# GP variant with gp_weight 10
+WGAN_BATCH = 128
+WGAN_GP = 10.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1161,6 +1217,83 @@ def phase_train_compare(smi, make_cfg, label, diff_aug=""):
           f"{label} bf16 kernel path G deltas differ from the f32 plain path by "
           f"{k16:.3e}, outside {band:.3e}")
     return dict(f32=f32, k16=k16, p16=p16, kp16=kp16)
+
+
+def phase_train_remat(nk, smi):
+    """6g. DefectGAN-256 AdaIN with remat: one f32 SGD super-step from one
+    state and one batch, remat on against off, each path's launches counted
+    from 0. The G step's two fused G forwards keep no activations and rerun
+    in the backward pass, kernels included: exactly G_BACKWARDS_PER_SUPER_STEP
+    more G forwards' launches, the same backward launches. Losses within
+    rtol 2e-4; G's and E's (after - before) / lr per tensor within 6c's
+    band, G's as a whole within 6d's f32 band; G's BatchNorm statistics
+    within 1e-3 (6c's; a second update in the rerun would move them by
+    about a tenth of their distance from the batch's). D's update does not
+    pass through remat."""
+    from de_i2i_gan_torch.config import TrainConfig
+
+    tcfg = TrainConfig(batch_size=BATCH, num_critics=CRITICS, lr=(2e-4, 1e-2),
+                       optimizer="sgd")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    batch = make_batches(full_config(), gen)
+    out = {}
+    for remat in (False, True):
+        cfg = full_config(compute_dtype="float32", remat=remat)
+        steps = training_steps(cfg, tcfg)
+        before = param_snapshot(steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+        m = steps.super_step(batch, torch.Generator(device="cuda")
+                             .manual_seed(SEED + 10))
+        torch.cuda.synchronize()
+        launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        fwd, bwd = expected_launches(
+            cfg, G_FORWARDS_PER_SUPER_STEP
+            + (G_BACKWARDS_PER_SUPER_STEP if remat else 0),
+            G_BACKWARDS_PER_SUPER_STEP)
+        check(launches == {"fwd": fwd, "bwd": bwd},
+              f"adain super-step remat={remat} launched {launches}, expected "
+              f"{fwd} forward and {bwd} backward")
+        metrics = {k: v.item() for k, v in m.items()}
+        check(all(math.isfinite(v) for v in metrics.values()),
+              f"adain super-step remat={remat}: non-finite loss {metrics}")
+        out[remat] = dict(steps=steps, metrics=metrics, launches=launches,
+                          peak_mb=peak_mb)
+        del steps, m
+        free_memory()
+    on, off = out[True], out[False]
+    loss = loss_gap(on["metrics"], off["metrics"])
+    lr = {"G": tcfg.lr_g, "E": tcfg.lr_g}
+    rel = delta_gap(on["steps"], off["steps"], before, lr)
+
+    def g_delta(steps):
+        return torch.cat([((p.detach().float().cpu() - before["G"][k])
+                           / tcfg.lr_g).reshape(-1)
+                          for k, p in steps.G.named_parameters()])
+
+    whole = ((g_delta(on["steps"]) - g_delta(off["steps"])).norm()
+             / g_delta(off["steps"]).norm()).item()
+    stats = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+        on["steps"].G.buffers(), off["steps"].G.buffers()))
+    print(f"adain remat on vs off, one full-width f32 SGD super-step on the "
+          f"card: launches {on['launches']} vs {off['launches']}; max loss "
+          f"diff {loss:.3f} x (rtol {LOSS_RTOL}); (after-before)/lr of G and "
+          f"E: max per-tensor L2 diff {rel:.3f} x (band {GRAD_REL_L2} |ref| + "
+          f"atol {GRAD_ATOL} sqrt(n)); G's deltas relative L2 {whole:.3e} "
+          f"(band {F32_DELTA_BAND}); G's BatchNorm statistics max diff "
+          f"{stats:.2e} (band 1e-3); peak memory {on['peak_mb']:.1f} MiB vs "
+          f"{off['peak_mb']:.1f} MiB [{smi}]")
+    check(loss <= 1.0 and rel <= 1.0 and whole <= F32_DELTA_BAND
+          and stats <= 1e-3,
+          f"remat changed the adain super-step: losses {loss:.3f}, deltas "
+          f"{rel:.3f}, G {whole:.3e}, statistics {stats:.2e}")
+    result = dict(launches=on["launches"], peak_mb=on["peak_mb"],
+                  off_peak_mb=off["peak_mb"])
+    del out, on, off
+    free_memory()
+    return result
 
 
 def phase_bwd_timing(nk, fused, smi, shapes=TRAIN_SHAPES,
@@ -2939,6 +3072,540 @@ def phase_sgv2_pretrain(nk, smi, tree):
     return pretrain, dict(launches=warm_launches)
 
 
+# ------------------------------------------------------------ 12. pix2pix
+
+
+def p2p_config(image=P2P_IMAGE, **kw):
+    """The generator of ``to_pix2pix_config`` at the pix2pix CLI's defaults:
+    SPADE (no kernel), cycle_gan (the raw tanh output), bf16."""
+    from de_i2i_gan_torch.config import DefectGanConfig
+    cfg = DefectGanConfig(image_size=image, label_nc=2, ngf=64, ndf=64,
+                          num_scales=2, num_res=6, hidden_nc=128,
+                          style_norm_block_type="spade", cycle_gan=True,
+                          compute_dtype="bfloat16")
+    return cfg.replace(**kw)
+
+
+def p2p_train_config():
+    """The pix2pix CLI's optimizer defaults: Adam (0.5, 0.999) at 2e-4, the
+    step schedule over 200 epochs, EMA 0.999, batch 1."""
+    from de_i2i_gan_torch.config import TrainConfig
+    return TrainConfig(batch_size=1, num_critics=1, lr=(2e-4,),
+                       ema_decay=0.999, num_epochs=200, num_iters=-1)
+
+
+def p2p_steps(cfg, tcfg, device="cuda", **kw):
+    """``Pix2PixSteps`` with the CLI's D (2 scales, 3 layers), weights from
+    SEED."""
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.pix2pix_steps import Pix2PixSteps
+
+    steps = Pix2PixSteps(cfg, tcfg, num_d_scales=2, n_layers_d=3,
+                         iters_per_epoch=P2P_PAIRS, num_epochs=200,
+                         device=device, **kw)
+    init_weights(steps, SEED)
+    return steps
+
+
+def p2p_batches(image, n, gen, ipl=P2P_IPL, batch=1):
+    shape = (ipl, batch, image, image, 3)
+    return [{k: torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+             for k in ("input", "target")} for _ in range(n)]
+
+
+def delta_gap(a, b, before, lr):
+    """The largest per-tensor L2 distance between two steps' (after -
+    before) / lr, in units of 6c's band (GRAD_REL_L2 of b's norm + GRAD_ATOL
+    sqrt(n)); ``lr`` by net."""
+    worst = 0.0
+    for n, rate in lr.items():
+        got = dict(getattr(a, n).named_parameters())
+        for k, ref in getattr(b, n).named_parameters():
+            gk = (got[k].detach().float().cpu() - before[n][k]) / rate
+            rk = (ref.detach().float().cpu() - before[n][k]) / rate
+            worst = max(worst, ((gk - rk).norm() / (
+                GRAD_REL_L2 * rk.norm() + GRAD_ATOL * rk.numel() ** 0.5)).item())
+    return worst
+
+
+def loss_gap(m, ref):
+    """The largest loss difference in units of LOSS_RTOL of the reference."""
+    check(sorted(m) == sorted(ref), f"loss terms {sorted(m)} vs {sorted(ref)}")
+    return max(abs(float(m[k]) - float(v)) / (LOSS_RTOL * abs(float(v)) + 1e-12)
+               for k, v in ref.items())
+
+
+def phase_p2p_small(smi):
+    """12a. A tiny f32 ``train_step`` and ``fused_train_step`` (SGD, no
+    noise) on the card against the same step on the CPU: losses within
+    rtol 2e-4, G's and D's (after - before) / lr within 6c's band."""
+    from de_i2i_gan_torch.config import TrainConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = p2p_config(32, ngf=8, ndf=8, num_res=2, hidden_nc=16,
+                     compute_dtype="float32")
+    tcfg = TrainConfig(batch_size=2, num_critics=1, lr=(2e-2, 1e-2),
+                       optimizer="sgd", ema_decay=0.999)
+    gen = torch.Generator().manual_seed(SEED + 40)
+    batch = {k: torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
+             for k in ("input", "target")}
+    for fused in (False, True):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            steps = p2p_steps(cfg, tcfg, device, fused_prop=fused)
+            before = param_snapshot(steps)
+            m = steps.train_step({k: v.to(device) for k, v in batch.items()})
+            runs[device] = (steps, before, {k: v.item() for k, v in m.items()})
+        cpu, before, rm = runs["cpu"]
+        card, _, m = runs["cuda"]
+        loss = loss_gap(m, rm)
+        rel = delta_gap(card, cpu, before, {"G": tcfg.lr_g, "D": tcfg.lr_d})
+        label = "fused_train_step" if fused else "train_step"
+        print(f"small pix2pix {label}, card vs CPU, 32x32 f32 SGD: max loss "
+              f"diff {loss:.3f} x (rtol {LOSS_RTOL}); (after-before)/lr of G "
+              f"and D: max per-tensor L2 diff {rel:.3f} x (band {GRAD_REL_L2} "
+              f"|ref| + atol {GRAD_ATOL} sqrt(n)) [{smi}]")
+        check(loss <= 1.0 and rel <= 1.0,
+              f"small pix2pix {label}: losses {loss:.3f}, deltas {rel:.3f}")
+
+
+def timed_super_steps(nk, steps, batches, label, warmup, smi, draws=None):
+    """Super-steps on preloaded batches: host-clock ms of the timed ones,
+    finite losses, no norm-kernel launch (the path has none), peak memory,
+    then one profiled super-step's device time."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    times, metrics = [], []
+    with tally_calls(nk) as calls:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            m = steps.super_step(batch, draws)
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: v.item() for k, v in m.items()})
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check(launches == {"fwd": 0, "bwd": 0} and not calls["fwd"]
+          and not calls["bwd"], f"{label}: norm kernels launched {launches}")
+    for i, m in enumerate(metrics):
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{label} super-step {i}: non-finite loss {m}")
+    for n in ("G", "D"):
+        for k, p in getattr(steps, n).named_parameters():
+            check(bool(torch.isfinite(p).all()), f"{label}: {n} {k} not finite")
+    mean_ms = sum(times) / len(times)
+    print(f"{label}: super-step ms {[round(v, 3) for v in times]} mean "
+          f"{mean_ms:.3f}, peak memory {peak_mb:.1f} MiB, norm-kernel launches "
+          f"{launches}; losses, first "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}, last "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})} "
+          f"[{smi}]")
+    dev_ms = profile_device(lambda: steps.super_step(batches[-1], draws), 1,
+                            f"{label} super-step", mean_ms, smi,
+                            conv_shapes=True)
+    return dict(launches=launches, ms=mean_ms, dev_ms=dev_ms, peak_mb=peak_mb)
+
+
+def phase_p2p_train(nk, smi, warmup=2, timed=5):
+    """12b-12d. Full-width pix2pix super-steps (4 iterations of batch 1) on
+    preloaded batches: ``train_step`` (12b), FusedProp (12b), the U-Net
+    generator of ``--netG unet`` (12b, ``skip_conn``), remat (12c:
+    also G's and D's SGD deltas of one iteration against remat off, f32 on
+    the card, within 12a's band, and the same losses), one 512^2 super-step
+    (12d). No norm-kernel launch on any of them."""
+    from de_i2i_gan_torch.config import TrainConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    batches = p2p_batches(P2P_IMAGE, warmup + timed, gen)
+    runs = {}
+    for label, cfg_kw, kw in (("train_step", {}, {}),
+                              ("fused", {}, dict(fused_prop=True)),
+                              ("remat", dict(remat=True), {}),
+                              ("unet", dict(skip_conn=True), {})):
+        steps = p2p_steps(p2p_config(**cfg_kw), p2p_train_config(), **kw)
+        runs[label] = timed_super_steps(
+            nk, steps, batches, f"pix2pix-256 {label} (batch 1, {P2P_IPL} "
+            "iterations a super-step, bf16)", warmup, smi)
+        del steps
+        free_memory()
+    print(f"pix2pix-256 peak memory: remat off {runs['train_step']['peak_mb']:.1f}"
+          f" MiB, remat on {runs['remat']['peak_mb']:.1f} MiB; super-step "
+          f"{runs['train_step']['ms']:.3f} / {runs['remat']['ms']:.3f} ms [{smi}]")
+
+    # 12c. remat on against off: one f32 SGD iteration on the card
+    tcfg = TrainConfig(batch_size=1, num_critics=1, lr=(2e-2, 1e-2),
+                       optimizer="sgd", ema_decay=0.999)
+    batch = {k: v[0] for k, v in batches[0].items()}
+    out = {}
+    for remat in (False, True):
+        steps = p2p_steps(p2p_config(compute_dtype="float32", remat=remat),
+                          tcfg)
+        before = param_snapshot(steps)
+        m = steps.train_step(batch)
+        torch.cuda.synchronize()
+        out[remat] = (steps, {k: v.item() for k, v in m.items()})
+    loss = loss_gap(out[True][1], out[False][1])
+    rel = delta_gap(out[True][0], out[False][0], before,
+                    {"G": tcfg.lr_g, "D": tcfg.lr_d})
+    stats = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+        out[True][0].G.buffers(), out[False][0].G.buffers()))
+    print(f"pix2pix-256 remat on vs off, one f32 SGD iteration on the card: "
+          f"max loss diff {loss:.3f} x (rtol {LOSS_RTOL}); (after-before)/lr "
+          f"of G and D: max per-tensor L2 diff {rel:.3f} x (band "
+          f"{GRAD_REL_L2} |ref| + atol {GRAD_ATOL} sqrt(n)); G's BatchNorm "
+          f"statistics max diff {stats:.2e} [{smi}]")
+    check(loss <= 1.0 and rel <= 1.0 and stats <= 1e-4,
+          f"remat changed the step: losses {loss:.3f}, deltas {rel:.3f}, "
+          f"statistics {stats:.2e}")
+    del out, steps
+    free_memory()
+
+    # 12d. one super-step at 512^2 (pix2pixHD's multi-scale D with feature
+    # matching at 512^2)
+    steps = p2p_steps(p2p_config(512), p2p_train_config())
+    runs["512"] = timed_super_steps(
+        nk, steps, p2p_batches(512, 2, gen), f"pix2pix-512 train_step (batch "
+        f"1, {P2P_IPL} iterations a super-step, bf16)", 1, smi)
+    del steps, batches
+    free_memory()
+    return runs
+
+
+def p2p_cli_args(name, *extra):
+    return ["--name", name, "--ckpt_dir", str(CLI_DIR / "ckpt"), "--log_dir",
+            str(CLI_DIR / "logs"), "--dataroot", "synthetic",
+            "--max_dataset_size", str(P2P_PAIRS), *extra]
+
+
+def phase_p2p_cli(nk, smi, preloaded_ms, name, *extra):
+    """12e. ``cli.train_pix2pix.main`` for one epoch at its defaults (48
+    synthetic pairs: 12 super-steps of 4 iterations), on the Python loader
+    or ``--native_loader``: no norm-kernel launch, ``latest`` and a panel
+    written, loader-fed host-clock time, the busy share over 3 profiled
+    super-steps, peak memory, the copies pinned and on a side stream."""
+    from de_i2i_gan_torch.cli.train_pix2pix import main as p2p_main
+    from de_i2i_gan_torch.train.checkpoint import read_iter_record
+    from de_i2i_gan_torch.train.pix2pix_steps import Pix2PixSteps
+
+    label = f"pix2pix CLI {name}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the trainer's run starts here
+    t0 = time.perf_counter()
+    with SuperStepClock(nk, profile_at=PROFILE_AT,
+                        target=(Pix2PixSteps, "super_step")) as clock:
+        trainer = p2p_main(p2p_cli_args(name, "--num_epochs", "1",
+                                        "--save_img_freq", "1", *extra))
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n = len(clock.ends)
+    check(n == P2P_PAIRS // P2P_IPL and trainer.iters == n * P2P_IPL
+          and launches == {"fwd": 0, "bwd": 0},
+          f"{label}: {n} super-steps, {trainer.iters} iterations, launches "
+          f"{launches}")
+    check(all(clock.on_card), f"{label}: a batch reached the step off the card")
+    check_trained(trainer, label)
+    run = CLI_DIR / "ckpt" / name
+    for f in ("latest_state.pt", "iter.txt", "opt.json"):
+        check((run / f).exists(), f"the pix2pix CLI wrote no {f}")
+    check(read_iter_record(CLI_DIR / "ckpt", name) == (1, n * P2P_IPL),
+          "iter.txt")
+    panel = CLI_DIR / "logs" / name / "Images_input_fake_target_1.png"
+    # input | fake | target of the first batch's pairs (at most 4; batch 1)
+    check(png_shape(panel) == (P2P_IMAGE, 3 * P2P_IMAGE),
+          f"{label}: panel {png_shape(panel)}")
+    steady = clock.steady_ms()
+    fed_ms = statistics.median(steady)
+    from torch.autograd import DeviceType
+    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    copies, streams = h2d_copies(clock.prof, CLI_DIR / f"p2p_{name}_trace.json")
+    check(len(copies) >= len(clock.keys[0])
+          and all("Pinned" in c[0] and c[1] not in streams for c in copies),
+          f"{label}: host-to-device copies {copies} vs kernel streams {streams}")
+    dtypes = sorted({str(d[k]) for d in clock.dtypes for k in d})
+    print(f"{label}, 1 epoch: {n} super-steps in {wall_s:.1f} s; loader-fed "
+          f"super-step ms, host clock, median of {len(steady)} steady: "
+          f"{fed_ms:.3f} {[round(v, 3) for v in steady]}; preloaded (12b) "
+          f"{preloaded_ms:.3f}; kernels a super-step over {PROFILED_SUPER_STEPS} "
+          f"profiled {dev_ms:.3f} ms, busy share {dev_ms / fed_ms:.1%}; peak "
+          f"{peak_mb:.1f} MiB; launches {launches}; batches reach the step "
+          f"as {clock.keys[0]} {dtypes}; {len(copies)} pinned copies on "
+          f"stream(s) {sorted({c[1] for c in copies})}, kernels on "
+          f"{sorted(streams)} [{smi}]")
+    out = dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+               super_steps=n, state=cpu_state(trainer.steps),
+               keys=clock.keys[0])
+    del trainer, clock
+    free_memory()
+    return out
+
+
+def phase_p2p_resume(nk, smi, trained):
+    """12e. ``--continue_training`` to epoch 2: the state loaded at resume
+    equals the saved one; the run restarts at the recorded epoch, as the
+    JAX trainer does."""
+    from de_i2i_gan_torch.cli.train_pix2pix import main as p2p_main
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint, read_iter_record
+    from de_i2i_gan_torch.train.trainer import Pix2PixTrainer
+
+    saved = read_checkpoint(CLI_DIR / "ckpt", "p2p", "latest")
+    diff = same_state(saved, trained["state"])
+    check(diff is None, f"pix2pix: the latest checkpoint differs at {diff}")
+    entry, real_train = {}, Pix2PixTrainer.train
+
+    def capture(self, *args, **kw):
+        entry.update(first_epoch=self.first_epoch, iters=self.iters,
+                     state=cpu_state(self.steps))
+        return real_train(self, *args, **kw)
+
+    n = trained["super_steps"]
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the resumed run starts here
+    Pix2PixTrainer.train = capture
+    try:
+        trainer = p2p_main(p2p_cli_args("p2p", "--continue_training",
+                                        "--num_epochs", "2"))
+    finally:
+        Pix2PixTrainer.train = real_train
+    torch.cuda.synchronize()
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    check_trained(trainer, "resumed pix2pix CLI")
+    diff = same_state(entry["state"], saved)
+    check(diff is None, f"pix2pix: the state loaded at resume differs at {diff}")
+    check((entry["first_epoch"], entry["iters"]) == (1, n * P2P_IPL)
+          and trainer.iters == 3 * n * P2P_IPL and launches == {"fwd": 0, "bwd": 0}
+          and read_iter_record(CLI_DIR / "ckpt", "p2p") == (2, 3 * n * P2P_IPL),
+          f"pix2pix resume: first_epoch {entry['first_epoch']}, iters "
+          f"{entry['iters']} -> {trainer.iters}, launches {launches}")
+    print(f"resumed pix2pix CLI: state at resume equals the saved one in all "
+          f"{len(flat_state(saved))} entries; first_epoch 1, iters "
+          f"{entry['iters']} -> {trainer.iters}; launches {launches} [{smi}]")
+    del trainer, entry, saved
+    free_memory()
+    return dict(launches=launches)
+
+
+def phase_p2p_test_cli(nk, smi):
+    """12e. ``cli.test_pix2pix.main`` on the resumed run: ``results.json``
+    with a finite ``l1`` over the test pairs (the synthetic test split's 64
+    capped at P2P_PAIRS), one panel a pair of 256 x 768 from finite
+    pixels."""
+    from de_i2i_gan_torch.cli.test_pix2pix import main as test_main
+    from de_i2i_gan_torch.train.pix2pix_steps import Pix2PixSteps
+
+    finite, real = [], Pix2PixSteps.generate
+
+    def checked(self, *args, **kw):
+        out = real(self, *args, **kw)
+        finite.append(bool(torch.isfinite(out).all()))
+        return out
+
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the test CLI's run starts here
+    Pix2PixSteps.generate = checked
+    try:
+        out = test_main(p2p_cli_args("p2p", "--results_dir",
+                                     str(CLI_DIR / "p2p_results"), "--save_img"))
+    finally:
+        Pix2PixSteps.generate = real
+    torch.cuda.synchronize()
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    saved = json.loads((CLI_DIR / "p2p_results" / "p2p" / "results.json").read_text())
+    n = min(64, P2P_PAIRS)
+    check(launches == {"fwd": 0, "bwd": 0} and all(finite) and finite
+          and saved == {"l1": out["l1"], "num_images": n}
+          and math.isfinite(saved["l1"]) and len(out["pngs"]) == n
+          and all(png_shape(p) == (P2P_IMAGE, 3 * P2P_IMAGE) for p in out["pngs"]),
+          f"pix2pix test CLI: results {saved}, {len(out['pngs'])} panels, "
+          f"finite {set(finite)}, launches {launches}")
+    print(f"pix2pix test CLI: results.json {saved}, {len(out['pngs'])} panels "
+          f"of {png_shape(out['pngs'][0])} from finite pixels, launches "
+          f"{launches} [{smi}]")
+    return dict(launches=launches)
+
+
+# ------------------------------------------------------------ 13. WGAN
+
+
+def wgan_config():
+    """``to_wgan_config`` at ``add_wgan_args``' defaults, bf16."""
+    from de_i2i_gan_torch.config import WGanConfig
+    return WGanConfig(image_size=64, noise_dim=100, ngf=64, ndf=64,
+                      num_layers=3, clipping_limit=0.03, num_critics=5,
+                      compute_dtype="bfloat16")
+
+
+def wgan_steps(cfg, tcfg, device="cuda", gp_weight=0.0):
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.wgan_steps import WGanSteps
+
+    steps = WGanSteps(cfg, tcfg, iters_per_epoch=40, num_epochs=120,
+                      gp_weight=gp_weight, device=device)
+    init_weights(steps, SEED)
+    return steps
+
+
+def phase_wgan_small(smi):
+    """13a. A tiny f32 clipping super-step and a GP super-step (2 critics,
+    SGD, the noise and eps drawn on the host and handed to both) on the
+    card against the CPU: losses within rtol 2e-4, G's and D's (after -
+    before) / lr within 6c's band."""
+    from de_i2i_gan_torch.config import TrainConfig, WGanConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = WGanConfig(image_size=32, noise_dim=16, ngf=8, ndf=8, num_layers=2,
+                     num_critics=2)
+    tcfg = TrainConfig(batch_size=4, num_critics=2, lr=(2e-2, 1e-2),
+                       optimizer="sgd")
+    gen = torch.Generator().manual_seed(SEED + 50)
+    batch = {"imgs": torch.rand((2, 4, 32, 32, 3), generator=gen) * 2 - 1}
+    z = torch.randn((3, 4, 16), generator=gen)
+    eps = torch.rand((2, 4, 1, 1, 1), generator=gen)
+    for gp in (0.0, WGAN_GP):
+        runs = {}
+        for device in ("cpu", "cuda"):
+            steps = wgan_steps(cfg, tcfg, device, gp)
+            before = param_snapshot(steps)
+            m = steps.super_step({k: v.to(device) for k, v in batch.items()},
+                                 z=z.to(device), eps=eps.to(device))
+            runs[device] = (steps, before, {k: v.item() for k, v in m.items()})
+        cpu, before, rm = runs["cpu"]
+        card, _, m = runs["cuda"]
+        loss = loss_gap(m, rm)
+        rel = delta_gap(card, cpu, before, {"G": tcfg.lr_g, "D": tcfg.lr_d})
+        stats = max((b.cpu() - a).abs().max().item() for a, b in zip(
+            cpu.D.buffers(), card.D.buffers()))
+        label = f"GP (weight {gp})" if gp else "clipping"
+        print(f"small WGAN {label} super-step, card vs CPU, 32x32 f32 SGD: "
+              f"max loss diff {loss:.3f} x (rtol {LOSS_RTOL}); (after-before)"
+              f"/lr of G and D: max per-tensor L2 diff {rel:.3f} x (band "
+              f"{GRAD_REL_L2} |ref| + atol {GRAD_ATOL} sqrt(n)); D's running "
+              f"statistics max diff {stats:.2e} [{smi}]")
+        check(loss <= 1.0 and rel <= 1.0 and stats <= 1e-4,
+              f"small WGAN {label}: losses {loss:.3f}, deltas {rel:.3f}, "
+              f"statistics {stats:.2e}")
+
+
+def phase_wgan_train(nk, smi, warmup=2, timed=5):
+    """13b. Full-width WGAN super-steps (5 critic steps of 128, then a G
+    step) on preloaded batches, clipping and GP: host-clock time, a
+    profiled super-step, peak memory, finite losses, no norm-kernel
+    launch; the critic's weights within the clip after a clipping step."""
+    from de_i2i_gan_torch.config import TrainConfig
+
+    cfg = wgan_config()
+    tcfg = TrainConfig(batch_size=WGAN_BATCH, num_critics=5, lr=(5e-5,),
+                       optimizer="rmsprop", num_epochs=120)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    shape = (cfg.num_critics, WGAN_BATCH, 64, 64, 3)
+    batches = [{"imgs": torch.rand(shape, generator=gen, device="cuda") * 2 - 1}
+               for _ in range(warmup + timed)]
+    draws = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    runs = {}
+    for label, gp in (("clipping", 0.0), ("gp", WGAN_GP)):
+        steps = wgan_steps(cfg, tcfg, gp_weight=gp)
+        runs[label] = timed_super_steps(
+            nk, steps, batches, f"WGAN-64 {label} (batch {WGAN_BATCH}, 5 "
+            "critics, RMSprop, bf16)", warmup, smi, draws)
+        check(steps.step == (warmup + timed + 1) * 5
+              and steps.tx_G.count == warmup + timed + 1,
+              f"WGAN {label}: update counts {steps.step} / {steps.tx_G.count}")
+        if not gp:
+            # the last D step clipped, then moved each weight by at most
+            # lr * |g| / sqrt(nu + eps)
+            steps.d_step({"imgs": batches[0]["imgs"][0]}, draws)
+            worst = max(p.abs().max().item() for p in steps.D.parameters())
+            print(f"WGAN clipping: the critic's largest weight after a D step "
+                  f"{worst:.5f} (clip {cfg.clipping_limit}) [{smi}]")
+            check(worst <= cfg.clipping_limit + 1e-2, f"clipped weight {worst}")
+        del steps
+        free_memory()
+    del batches
+    return runs
+
+
+def wgan_cli_args(name, *extra):
+    return ["--name", name, "--ckpt_dir", str(CLI_DIR / "ckpt"), "--log_dir",
+            str(CLI_DIR / "logs"), "--dataset_name", "synthetic", *extra]
+
+
+def phase_wgan_cli(nk, smi):
+    """13c. ``cli.train_wgan.main`` at its defaults for one epoch (the
+    synthetic dataset's 1024 images: 1 super-step of 5 x 128) on the Python
+    loader and with ``--native_loader``, then a ``--continue_training``
+    resume to epoch 2 whose loaded state equals the saved one: no
+    norm-kernel launch, checkpoints and the 4x4 sample grid written."""
+    from de_i2i_gan_torch.cli.train_wgan import main as wgan_main
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint, read_iter_record
+    from de_i2i_gan_torch.train.trainer import WGanTrainer
+    from de_i2i_gan_torch.train.wgan_steps import WGanSteps
+
+    out = {}
+    for name, extra in (("wgan", ()), ("wgan_native", ("--native_loader",))):
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the run starts here
+        t0 = time.perf_counter()
+        with SuperStepClock(nk, target=(WGanSteps, "super_step")) as clock:
+            trainer = wgan_main(wgan_cli_args(name, "--num_epochs", "1", *extra))
+        wall_s = time.perf_counter() - t0
+        launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+        grid = CLI_DIR / "logs" / name / "Images_fixed_noise_1.png"
+        check(len(clock.ends) == 1 and trainer.iters == 5
+              and launches == {"fwd": 0, "bwd": 0} and all(clock.on_card)
+              and read_iter_record(CLI_DIR / "ckpt", name) == (1, 5)
+              and png_shape(grid) == (4 * 64, 4 * 64),
+              f"WGAN CLI {name}: {len(clock.ends)} super-steps, launches "
+              f"{launches}, grid {png_shape(grid)}")
+        for n in ("G", "D"):
+            for k, p in getattr(trainer.steps, n).named_parameters():
+                check(bool(torch.isfinite(p).all()), f"WGAN CLI {name}: {n} {k}")
+        dtypes = sorted({str(d[k]) for d in clock.dtypes for k in d})
+        print(f"WGAN CLI {name}, 1 epoch: {len(clock.ends)} super-step in "
+              f"{wall_s:.1f} s (imports, cache and first-call set-up "
+              f"included); batches {clock.keys[0]} {dtypes}; grid "
+              f"{png_shape(grid)}; launches {launches} [{smi}]")
+        out[name] = dict(launches=launches, state=cpu_state(trainer.steps))
+        del trainer, clock
+        free_memory()
+    saved = read_checkpoint(CLI_DIR / "ckpt", "wgan", "latest")
+    check(same_state(saved, out["wgan"].pop("state")) is None,
+          "WGAN: the latest checkpoint differs from the trained state")
+    out["wgan_native"].pop("state")
+    entry, real_train = {}, WGanTrainer.train
+
+    def capture(self, *args, **kw):
+        entry.update(first_epoch=self.first_epoch, iters=self.iters,
+                     state=cpu_state(self.steps))
+        return real_train(self, *args, **kw)
+
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the resumed run starts here
+    WGanTrainer.train = capture
+    try:
+        trainer = wgan_main(wgan_cli_args("wgan", "--continue_training",
+                                          "--num_epochs", "2"))
+    finally:
+        WGanTrainer.train = real_train
+    torch.cuda.synchronize()
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    diff = same_state(entry["state"], saved)
+    check(diff is None and (entry["first_epoch"], entry["iters"]) == (1, 5)
+          and trainer.iters == 15 and launches == {"fwd": 0, "bwd": 0}
+          and read_iter_record(CLI_DIR / "ckpt", "wgan") == (2, 15),
+          f"WGAN resume: state differs at {diff}, first_epoch "
+          f"{entry['first_epoch']}, iters {entry['iters']} -> {trainer.iters}")
+    print(f"resumed WGAN CLI: state at resume equals the saved one in all "
+          f"{len(flat_state(saved))} entries (RMSprop's nu included); "
+          f"iters {entry['iters']} -> {trainer.iters}; launches {launches} "
+          f"[{smi}]")
+    out["wgan_resume"] = dict(launches=launches)
+    del trainer, entry, saved
+    free_memory()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2992,6 +3659,7 @@ def main() -> int:
     free_memory()
     compare = phase_train_compare(smi, full_config, "adain")
     bwd_rows = phase_bwd_timing(nk, fused, smi)
+    training_remat = phase_train_remat(nk, smi)
 
     # 7a. SEAN serving
     serving_sean = phase_serving(nk, smi, sean_config(), "sean")
@@ -3141,6 +3809,34 @@ def main() -> int:
     mae_s = time.perf_counter() - mae_started
     mae_split["11e"] = mae_s - sum(mae_split.values())
 
+    # 12. pix2pix at its CLI's defaults, no kernel on the path: a small step
+    # against the CPU (12a), full-width super-steps (12b), with remat (12c),
+    # at 512^2 (12d), the train CLI on both feeds, a resume, the test CLI (12e)
+    p2p_started = time.perf_counter()
+    phase_p2p_small(smi)
+    p2p = phase_p2p_train(nk, smi)
+    p2p_split = {"12a-d": time.perf_counter() - p2p_started}
+    p2p_cli = phase_p2p_cli(nk, smi, p2p["train_step"]["ms"], "p2p")
+    p2p_native = phase_p2p_cli(nk, smi, p2p["train_step"]["ms"], "p2p_native",
+                               "--native_loader")
+    check(p2p_cli["keys"] == ["input", "target"] and p2p_native["keys"] == ["pair"],
+          f"pix2pix feeds reached the step as {p2p_cli['keys']} and "
+          f"{p2p_native['keys']}")
+    p2p_resume = phase_p2p_resume(nk, smi, p2p_cli)
+    del p2p_cli["state"], p2p_native["state"]
+    p2p_test = phase_p2p_test_cli(nk, smi)
+    p2p_s = time.perf_counter() - p2p_started
+    p2p_split["12e"] = p2p_s - sum(p2p_split.values())
+
+    # 13. WGAN at its CLI's defaults, no kernel on the path: small clipping
+    # and GP super-steps against the CPU (13a), full-width ones (13b), the
+    # train CLI on both feeds and a resume (13c)
+    wgan_started = time.perf_counter()
+    phase_wgan_small(smi)
+    wgan = phase_wgan_train(nk, smi)
+    wgan_cli = phase_wgan_cli(nk, smi)
+    wgan_s = time.perf_counter() - wgan_started
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
@@ -3153,7 +3849,16 @@ def main() -> int:
              "sgv2_cli": sgv2_cli, "mae": mae, "mae_eval": mae["eval"],
              "mae_cli": mae_cli, "mae_cli_native": mae_native,
              "mae_test_cli": mae_test, "mae_warm_start": mae_warm,
-             "sgv2_pretrain": sgv2_pre, "sgv2_pretrain_warm": sgv2_warm}
+             "sgv2_pretrain": sgv2_pre, "sgv2_pretrain_warm": sgv2_warm,
+             "p2p": p2p["train_step"], "p2p_fused": p2p["fused"],
+             "p2p_remat": p2p["remat"], "p2p_unet": p2p["unet"],
+             "p2p_512": p2p["512"], "training_remat": training_remat,
+             "p2p_cli": p2p_cli, "p2p_cli_native": p2p_native,
+             "p2p_resume": p2p_resume, "p2p_test_cli": p2p_test,
+             "wgan": wgan["clipping"], "wgan_gp": wgan["gp"],
+             "wgan_cli": wgan_cli["wgan"],
+             "wgan_cli_native": wgan_cli["wgan_native"],
+             "wgan_resume": wgan_cli["wgan_resume"]}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
@@ -3284,10 +3989,37 @@ def main() -> int:
           f"{sgv2_pre['dev_ms'] / sgv2_pre['ms']:.1%}, peak "
           f"{sgv2_pre['peak_mb']:.1f} MiB, norm kernels {fp['ms']:.4f} + "
           f"{bp['ms']:.4f} ms an iteration [{smi}]")
+    print(f"pix2pix (256^2, batch 1, {P2P_IPL} iterations a super-step, bf16): "
+          f"train_step super-step {p2p['train_step']['ms']:.3f} ms (kernels "
+          f"{busy_ms(p2p['train_step']['dev_ms'])}), peak "
+          f"{p2p['train_step']['peak_mb']:.1f} MiB; FusedProp "
+          f"{p2p['fused']['ms']:.3f} ms (kernels {busy_ms(p2p['fused']['dev_ms'])}), "
+          f"peak {p2p['fused']['peak_mb']:.1f} MiB; remat {p2p['remat']['ms']:.3f}"
+          f" ms (kernels {busy_ms(p2p['remat']['dev_ms'])}), peak "
+          f"{p2p['remat']['peak_mb']:.1f} MiB; U-Net {p2p['unet']['ms']:.3f} ms "
+          f"(kernels {busy_ms(p2p['unet']['dev_ms'])}), peak "
+          f"{p2p['unet']['peak_mb']:.1f} MiB; 512^2 {p2p['512']['ms']:.3f} ms, "
+          f"peak {p2p['512']['peak_mb']:.1f} MiB; CLI loader-fed "
+          f"{p2p_cli['ms']:.3f} ms, busy {p2p_cli['dev_ms'] / p2p_cli['ms']:.1%}; "
+          f"native feed {p2p_native['ms']:.3f} ms, busy "
+          f"{p2p_native['dev_ms'] / p2p_native['ms']:.1%}; norm-kernel launches 0 "
+          f"on every pix2pix path [{smi}]")
+    print(f"DefectGAN adain remat (6g, one f32 SGD super-step): launches "
+          f"{training_remat['launches']}, peak {training_remat['peak_mb']:.1f} "
+          f"MiB against {training_remat['off_peak_mb']:.1f} MiB without [{smi}]")
+    print(f"WGAN (64^2, batch {WGAN_BATCH}, 5 critics, bf16): clipping "
+          f"super-step {wgan['clipping']['ms']:.3f} ms (kernels "
+          f"{busy_ms(wgan['clipping']['dev_ms'])}), peak "
+          f"{wgan['clipping']['peak_mb']:.1f} MiB; GP {wgan['gp']['ms']:.3f} ms "
+          f"(kernels {busy_ms(wgan['gp']['dev_ms'])}), peak "
+          f"{wgan['gp']['peak_mb']:.1f} MiB; norm-kernel launches 0 on every "
+          f"WGAN path [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
           f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s, 10a-10d {train_s:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())}), 11 "
-          f"{mae_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in mae_split.items())})")
+          f"{mae_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in mae_split.items())}), "
+          f"12 {p2p_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in p2p_split.items())}), "
+          f"13 {wgan_s:.1f} s")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

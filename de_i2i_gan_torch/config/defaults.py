@@ -12,6 +12,13 @@ from typing import Optional, Tuple
 import torch
 
 
+def _dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown compute_dtype {name!r}")
+    return dt
+
+
 @dataclasses.dataclass(frozen=True)
 class DefectGanConfig:
     """Architecture hyper-parameters for the DefectGAN generator/discriminator."""
@@ -60,10 +67,7 @@ class DefectGanConfig:
 
     @property
     def dtype(self) -> torch.dtype:
-        dt = getattr(torch, self.compute_dtype, None)
-        if not isinstance(dt, torch.dtype):
-            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
-        return dt
+        return _dtype(self.compute_dtype)
 
     def replace(self, **kw) -> "DefectGanConfig":
         return dataclasses.replace(self, **kw)
@@ -104,3 +108,21 @@ class TrainConfig:
     @property
     def lr_g(self) -> float:
         return self.lr[1] if len(self.lr) > 1 else self.lr[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class WGanConfig:
+    """WGAN options (options/wgan_options.py:7-72)."""
+
+    image_size: int = 64
+    noise_dim: int = 100
+    ngf: int = 64
+    ndf: int = 64
+    num_layers: int = 3
+    clipping_limit: float = 0.03
+    num_critics: int = 5
+    compute_dtype: str = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _dtype(self.compute_dtype)

@@ -16,17 +16,21 @@ config dataclasses:
 one id is that CUDA device. ``to_defectgan_config`` routes the AdaIN and
 SEAN norms through the hand-written kernel (``use_pallas=True``); the
 kernel runs for CUDA tensors only, the plain version on the CPU. Every
-other field is the JAX package's. Flags whose feature is not ported yet
-raise ``NotImplementedError`` in ``check_ported``, naming the ROADMAP item
-they wait for. The WGAN, ViT and pix2pix groups wait for their slices.
+other field is the JAX package's. ``to_pix2pix_config`` builds the
+DefectGAN generator with SPADE, which runs no kernel; the WGAN nets hold
+BatchNorm only. Flags whose feature is not ported yet raise
+``NotImplementedError`` in ``check_ported``, naming the ROADMAP item they
+wait for. The ViT groups wait for their slice (A.7).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 from pathlib import Path
 
-from de_i2i_gan_torch.config.defaults import DefectGanConfig, MAEConfig, TrainConfig
+from de_i2i_gan_torch.config.defaults import (
+    DefectGanConfig, MAEConfig, TrainConfig, WGanConfig)
 
 
 # --------------------------------------------------------------- arg groups
@@ -34,7 +38,7 @@ def add_base_args(p: argparse.ArgumentParser):
     p.add_argument("--name", type=str, default="exp",
                    help="experiment name; decides ckpt/log/result locations")
     p.add_argument("--model", type=str, default="defectgan",
-                   help="which model to use [defectgan]")
+                   help="which model to use [defectgan|wgan|pix2pix]")
     p.add_argument("--ckpt_dir", type=Path, default=Path("./ckpt"))
     p.add_argument("--log_dir", type=Path, default=Path("./logs"))
     p.add_argument("--phase", type=str, default="train",
@@ -48,7 +52,7 @@ def add_base_args(p: argparse.ArgumentParser):
     p.add_argument("--dataset_data_type", type=str, default=None)
     p.add_argument("--load_from_opt_file", type=Path, default=None)
     p.add_argument("--init_type", type=str, default="normal",
-                   help="[normal] (xavier|kaiming|orthogonal: ROADMAP A.6)")
+                   help="[normal|xavier|kaiming|orthogonal]")
     p.add_argument("--init_variance", type=float, default=0.02)
     p.add_argument("--use_spectral", action="store_true")
     p.add_argument("--load_model_name", type=str, default=None)
@@ -158,6 +162,54 @@ def add_mae_args(p: argparse.ArgumentParser):
     return p
 
 
+def add_wgan_args(p: argparse.ArgumentParser):
+    p.set_defaults(model="wgan", dataset_name="face", batch_size=128,
+                   image_size=64, optimizer="rmsprop", num_epochs=120,
+                   lr=[5e-5], num_critics=5)
+    p.add_argument("--noise_dim", type=int, default=100)
+    p.add_argument("--clipping_limit", type=float, default=0.03)
+    return p
+
+
+def add_pix2pix_args(p: argparse.ArgumentParser):
+    """The pix2pix/pix2pixHD flag surface (--dataroot --load_size
+    --crop_size --lambda_L1 --netG --netD ...)."""
+    p.set_defaults(model="pix2pix", image_size=256, batch_size=1,
+                   num_critics=1, lr=[2e-4], dataset_name="aligned",
+                   num_epochs=200, num_iters=-1, ema_decay=0.999,
+                   label_nc=2)
+    p.add_argument("--dataroot", type=Path, default=None,
+                   help="folder with <phase>/ aligned A|B images; "
+                        "'synthetic' for the procedural paired dataset")
+    p.add_argument("--direction", type=str, default="AtoB",
+                   help="[AtoB|BtoA]")
+    p.add_argument("--load_size", type=int, default=286,
+                   help="scale images to this size before cropping")
+    p.add_argument("--crop_size", type=int, default=256,
+                   help="final (train) crop fed to the nets")
+    p.add_argument("--no_flip", action="store_true")
+    p.add_argument("--lambda_L1", type=float, default=100.0)
+    p.add_argument("--lambda_feat", type=float, default=10.0,
+                   help="multi-scale feature-matching weight (pix2pixHD)")
+    p.add_argument("--gan_mode", type=str, default="lsgan",
+                   help="[lsgan|hinge]")
+    p.add_argument("--netG", type=str, default="resnet",
+                   help="[resnet|unet] generator backbone")
+    p.add_argument("--netD", type=str, default="multiscale",
+                   help="[basic|multiscale] discriminator")
+    p.add_argument("--num_D", type=int, default=2,
+                   help="discriminator pyramid scales (netD=multiscale)")
+    p.add_argument("--n_layers_D", type=int, default=3)
+    p.add_argument("--iters_per_launch", type=int, default=4,
+                   help="iterations a super-step")
+    p.add_argument("--max_dataset_size", type=int, default=0,
+                   help="cap the train set size (0 = unlimited)")
+    p.add_argument("--fused_prop", action="store_true",
+                   help="FusedProp: one G forward, both updates from the "
+                        "pre-update nets (arxiv 2004.03335)")
+    return p
+
+
 # ------------------------------------------------------------------ Options
 class Options:
     """parse/save/reload mirroring BaseOptions semantics."""
@@ -169,6 +221,12 @@ class Options:
                       add_mae_args),
         "mae_test": (add_base_args, add_defectgan_args, add_test_args,
                      add_mae_args),
+        "wgan_train": (add_base_args, add_train_args, add_wgan_args),
+        "wgan_test": (add_base_args, add_test_args, add_wgan_args),
+        "pix2pix_train": (add_base_args, add_defectgan_args, add_train_args,
+                          add_pix2pix_args),
+        "pix2pix_test": (add_base_args, add_defectgan_args, add_test_args,
+                         add_pix2pix_args),
     }
 
     def __init__(self, kind: str):
@@ -257,8 +315,6 @@ def check_ported(opt) -> None:
          "A.9"),
         ((opt.num_devices or 1) > 1, "--num_devices > 1", "A.9"),
         ("," in opt.gpu_ids.strip(","), "several --gpu_ids", "A.9"),
-        (opt.init_type != "normal" or opt.init_variance != 0.02,
-         "an --init_type other than normal(0.02)", "A.6"),
     ]
     for asked, flag, item in waits:
         if asked:
@@ -307,6 +363,30 @@ def to_train_config(opt, clf_loss_type: str = "bce") -> TrainConfig:
         loss_weight=tuple(getattr(opt, "loss_weight", (2, 5, 5, 5, 1))),
         diff_aug=getattr(opt, "diff_aug", ""), clf_loss_type=clf_loss_type,
         ema_decay=getattr(opt, "ema_decay", 0.0))
+
+
+def to_pix2pix_config(opt) -> DefectGanConfig:
+    """crop_size is the model's working resolution; netG unet -> skip_conn;
+    cycle_gan=True returns the raw tanh output (full-image synthesis, no
+    defect-overlay composition for paired translation). SPADE, always: the
+    generator runs no kernel."""
+    return DefectGanConfig(
+        image_size=opt.crop_size, input_nc=opt.input_nc,
+        output_nc=opt.output_nc, label_nc=opt.label_nc, ngf=opt.ngf,
+        num_scales=opt.num_scales, num_res=opt.num_res,
+        add_noise=opt.add_noise, style_norm_block_type="spade",
+        hidden_nc=opt.hidden_nc, ndf=opt.ndf, num_layers=opt.num_layers,
+        cycle_gan=True, skip_conn=(opt.netG == "unet"),
+        use_spectral=opt.use_spectral, compute_dtype=opt.compute_dtype)
+
+
+def to_wgan_config(opt) -> WGanConfig:
+    return WGanConfig(image_size=opt.image_size, noise_dim=opt.noise_dim,
+                      ngf=opt.ngf, ndf=opt.ndf,
+                      num_layers=int(math.log2(opt.image_size)) - 3,
+                      clipping_limit=opt.clipping_limit,
+                      num_critics=opt.num_critics,
+                      compute_dtype=opt.compute_dtype)
 
 
 def to_mae_config(opt) -> MAEConfig:

@@ -13,6 +13,8 @@ its u/v in train mode only.
 The decoder's style norm is SPADE (driven by the labels), AdaIN (a
 (N, hidden_nc) style code) or SEAN (labels and (N, num_embeds, embed_nc)
 style embeddings, or (N, hidden_nc) noise with ``inference_stats``).
+
+``WGanGenerator`` is the WGAN's noise -> image DCGAN-style generator.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from de_i2i_gan_torch.config import DefectGanConfig
+from de_i2i_gan_torch.config import DefectGanConfig, WGanConfig
 from de_i2i_gan_torch.nn.blocks import (
     ConvBlock,
     DeConvBlock,
@@ -29,7 +31,7 @@ from de_i2i_gan_torch.nn.blocks import (
     NormResBlock,
     ResBlock,
 )
-from de_i2i_gan_torch.nn.layers import avg_pool
+from de_i2i_gan_torch.nn.layers import Conv2d, avg_pool, upsample_nearest
 from de_i2i_gan_torch.nn.normalization import DistillTerms
 
 
@@ -131,3 +133,35 @@ def _shrink_to(skip: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
     if fh <= 1:
         return skip
     return avg_pool(skip, fh, fh)
+
+
+class WGanGenerator(nn.Module):
+    """Noise -> image DCGAN-style generator (JAX ``WGanGenerator``).
+
+    Spatial schedule for image_size=64, num_layers=3: 1 -> 2 (up) -> 4 ->
+    8 -> 16 -> 32 (upsampling deconvs, BatchNorm, ReLU) -> 64 (up) ->
+    4x4 'same' conv to RGB -> tanh.
+    """
+
+    def __init__(self, cfg: WGanConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.dtype
+        crt = cfg.ngf * (2 ** cfg.num_layers)
+        kw = dict(padding="same", norm="batch", act="relu", up_scale=True,
+                  dtype=dt)
+        self.head = DeConvBlock(cfg.noise_dim, crt, (4, 4), **kw)
+        for i in range(cfg.num_layers):
+            setattr(self, f"up_{i}", DeConvBlock(crt, crt // 2, (4, 4), **kw))
+            crt //= 2
+        self.to_rgb = Conv2d(crt, 3, (4, 4), (1, 1), "same", dtype=dt)
+
+    def forward(self, noise: torch.Tensor) -> torch.Tensor:
+        """noise: (N, noise_dim). Returns NHWC images in [-1, 1]."""
+        cfg = self.cfg
+        x = noise.reshape(noise.shape[0], cfg.noise_dim, 1, 1).to(cfg.dtype)
+        x = self.head(upsample_nearest(x))
+        for i in range(cfg.num_layers):
+            x = getattr(self, f"up_{i}")(x)
+        x = self.to_rgb(upsample_nearest(x))
+        return torch.tanh(x).permute(0, 2, 3, 1)

@@ -182,3 +182,15 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 def avg_pool(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor:
     """NCHW average pooling (torch nn.AvgPool2d)."""
     return F.avg_pool2d(x, window, stride)
+
+
+def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
+             padding: int = 1) -> torch.Tensor:
+    """NCHW max pooling (torch nn.MaxPool2d): the padding is -inf, as the
+    JAX package pads."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def adaptive_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool of NCHW to (N, C) (torch nn.AdaptiveAvgPool2d(1))."""
+    return x.mean(dim=(2, 3))

@@ -60,9 +60,10 @@ struct IndexHeader {
 class Loader {
  public:
   Loader(const char* cache_path, const char* index_path, int image_size,
-         int batch, int threads, uint64_t seed, int augment)
+         int batch, int threads, uint64_t seed, int augment,
+         float crop_frac)
       : image_size_(image_size), batch_(batch), augment_(augment),
-        seed_(seed) {
+        crop_frac_(crop_frac), seed_(seed) {
     // map the cache
     int fd = open(cache_path, O_RDONLY);
     if (fd < 0) { ok_ = false; return; }
@@ -112,7 +113,6 @@ class Loader {
   bool ok() const { return ok_; }
   int label_nc() const { return label_nc_; }
   uint32_t n_items() const { return (uint32_t)items_.size(); }
-  void set_crop_frac(float f) { crop_frac_ = f; }
 
   // blocking: copy one batch out. returns 0 on success.
   int next(float* out_images, float* out_labels) {
@@ -357,7 +357,7 @@ class Loader {
   static constexpr size_t kQueueCap = 8;
   bool ok_ = true;
   int image_size_, batch_, augment_;
-  float crop_frac_ = 256.f / 286.f;  // pix2pix crop_size/load_size default
+  float crop_frac_;  // paired crop window: crop_size / load_size
   uint64_t seed_;
   int label_nc_ = 0, channels_ = 3;
   const uint8_t* cache_ = nullptr;
@@ -380,11 +380,14 @@ class Loader {
 
 extern "C" {
 
+// crop_frac: the paired mode's (augment=2) crop window fraction,
+// crop_size / load_size; it is fixed before the worker threads start, so
+// every batch uses it
 void* dl_create(const char* cache_path, const char* index_path,
                 int image_size, int batch, int threads, uint64_t seed,
-                int augment) {
+                int augment, float crop_frac) {
   auto* l = new Loader(cache_path, index_path, image_size, batch, threads,
-                       seed, augment);
+                       seed, augment, crop_frac);
   if (!l->ok()) { delete l; return nullptr; }
   return l;
 }
@@ -403,11 +406,6 @@ int dl_label_nc(void* handle) {
 
 unsigned int dl_n_items(void* handle) {
   return static_cast<Loader*>(handle)->n_items();
-}
-
-// paired mode (augment=2): crop window fraction = crop_size / load_size
-void dl_set_crop_frac(void* handle, float frac) {
-  static_cast<Loader*>(handle)->set_crop_frac(frac);
 }
 
 void dl_destroy(void* handle) { delete static_cast<Loader*>(handle); }

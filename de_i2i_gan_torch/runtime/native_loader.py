@@ -12,19 +12,20 @@ Flow:
      host-to-device bytes); Python makes one call per batch, with the
      interpreter lock released (``ctypes.CDLL``).
   3. ``NativeDualStreamLoader`` fills the (num_critics, B, S, S, 3) u8
-     super-batches of the ``--native_loader`` DefectGAN feed in place, and
+     super-batches of the ``--native_loader`` DefectGAN feed in place,
      ``NativeSuperBatchLoader`` the single-stream ``{imgs, labels}`` ones of
-     the MAE feed; the trainer's ``device_prefetch`` copies them to the card
-     and the step's ``batch_images_to_float`` normalizes them there.
-     ``EpochView`` gives the infinite stream an epoch's length.
+     the MAE and WGAN feeds, and ``PairedNativeLoader`` pix2pix's u8
+     ``{pair}`` batches (input and target on 6 channels, one crop and flip
+     for both: ``aug_mode=2``); the trainer's ``device_prefetch`` copies
+     them to the card and the step's ``batch_images_to_float`` normalizes
+     (and splits) them there. ``EpochView`` gives the infinite stream an
+     epoch's length (``make_native_loader``).
 
 The library is built with g++ at first use into ``build/de_i2i_gan_torch/``
 beside the package, named by a hash of the source, the flags and the host
 (``-march=native`` builds for the CPU it runs on); importing this module
 builds nothing. A build that fails raises with the compiler's
-output: there is no fallback to the Python pipeline. The WGAN and
-pix2pix feeds (``make_native_loader``, ``PairedNativeLoader``) wait for
-ROADMAP A.5-A.6.
+output: there is no fallback to the Python pipeline.
 """
 from __future__ import annotations
 
@@ -90,7 +91,8 @@ def _load_lib():
         lib.dl_create.restype = ctypes.c_void_p
         lib.dl_create.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_uint64, ctypes.c_int]
+                                  ctypes.c_uint64, ctypes.c_int,
+                                  ctypes.c_float]
         lib.dl_next.restype = ctypes.c_int
         lib.dl_next.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
                                 ctypes.POINTER(ctypes.c_float)]
@@ -185,22 +187,30 @@ def build_cache(dataset, cache_dir: Path, max_side: Optional[int] = None,
 
 
 class NativeDataLoader:
-    """Infinite augmented-batch stream from the C++ runtime: with
-    ``augment``, random resized crops, flips and color jitter (DefectGAN's
-    training transform); without, center crops. With one thread and one
-    seed the batches are the JAX package's, bit for bit; with more, their
-    order depends on which thread finishes first.
+    """Infinite augmented-batch stream from the C++ runtime. Augmentation
+    modes (``aug_mode``, by default ``int(augment)``): 0 center crops; 1
+    random resized crops, flips and color jitter (DefectGAN's training
+    transform); 2 one random crop of ``crop_frac`` of the side and one
+    horizontal flip for all channels of a sample (pix2pix's paired
+    transform, no jitter). With one thread and one seed the batches are
+    the JAX package's, bit for bit; with more, their order depends on which
+    thread finishes first.
     """
 
     def __init__(self, cache_path: Path, index_path: Path, image_size: int,
                  batch_size: int, num_threads: int = 2, seed: int = 123,
                  augment: bool = True, channels: int = 3,
-                 output_u8: bool = False):
+                 output_u8: bool = False, aug_mode: Optional[int] = None,
+                 crop_frac: float = 256 / 286):
         lib = _load_lib()
         self._lib = lib
+        mode = int(augment) if aug_mode is None else aug_mode
+        # the crop fraction is fixed before the C++ threads start (the JAX
+        # package sets it after, so its first batches may crop with the
+        # default 256/286)
         self._handle = lib.dl_create(
             str(cache_path).encode(), str(index_path).encode(), image_size,
-            batch_size, num_threads, seed, int(augment))
+            batch_size, num_threads, seed, mode, float(crop_frac))
         if not self._handle:
             raise RuntimeError(f"the native loader could not open the cache "
                                f"{cache_path} / {index_path}")
@@ -386,3 +396,99 @@ def make_native_super_batch(dataset, cache_dir: Path, image_size: int,
                               num_threads=num_threads, seed=seed,
                               output_u8=True)
     return NativeSuperBatchLoader(native, num_critics, key=key)
+
+
+def make_native_loader(dataset, cache_dir: Path, image_size: int,
+                       batch_size: int, seed: int = 123,
+                       num_threads: int = 4, augment: bool = True,
+                       max_side: Optional[int] = None,
+                       output_u8: bool = True,
+                       value_range: Optional[str] = None) -> EpochView:
+    """Cache ``dataset`` (untransformed items: the C++ side does the random
+    resized crop and flips) under ``cache_dir`` and return an epoch of
+    ``len(dataset) // batch_size`` batches over the infinite stream, as
+    ``(images, labels, [])`` tuples. ``max_side`` defaults to twice the
+    crop; ``output_u8`` (default) ships u8 batches that the steps normalize
+    on the device."""
+    cache, index = build_cache(dataset, Path(cache_dir),
+                               max_side=max_side or image_size * 2,
+                               value_range=value_range)
+    native = NativeDataLoader(cache, index, image_size, batch_size,
+                              num_threads=num_threads, seed=seed,
+                              augment=augment, output_u8=output_u8)
+    return EpochView(native, batches_per_epoch=len(dataset) // batch_size)
+
+
+class RawPairView:
+    """A paired dataset (items: (input, target, path)) as (H, W, 6) samples
+    for the native cache, input and target on the channels, so the C++
+    side's crop window and flip apply to both halves alike."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, index: int):
+        a, b, path = self.dataset[index]
+        pair = np.concatenate([np.asarray(a), np.asarray(b)], axis=-1)
+        return pair, np.zeros(1, np.float32), path
+
+
+class PairedNativeLoader:
+    """Paired u8 batches from the C++ runtime (``aug_mode=2``), the native
+    counterpart of ``data.paired.PairedLoader``, with a leading
+    (iters_per_launch,) axis when it is above 1: ``{"pair": u8[..., 6]}``,
+    a fresh contiguous array a launch that the workers fill in place (one
+    host-to-device copy); the steps split input and target on the device
+    (``ops/fused.py::batch_images_to_float``)."""
+
+    def __init__(self, loader: NativeDataLoader, n_pairs: int,
+                 iters_per_launch: int = 1):
+        if loader.channels != 6:
+            raise ValueError("the paired cache has 6 channels")
+        self.loader = loader
+        self.iters_per_launch = iters_per_launch
+        self.batch_size = loader.batch_size
+        self._n = max(1, n_pairs // loader.batch_size
+                      // max(iters_per_launch, 1))
+
+    def __len__(self):
+        return self._n
+
+    def __iter__(self) -> Iterator:
+        ipl = max(self.iters_per_launch, 1)
+        ld = self.loader
+        s = ld.image_size
+        lbl = np.empty((ld.batch_size, ld.label_nc), np.float32)
+        for _ in range(self._n):
+            group = np.empty((ipl, ld.batch_size, s, s, 6), ld.dtype)
+            for j in range(ipl):
+                ld.next_into(group[j], lbl)
+            yield {"pair": group[0] if ipl == 1 else group}
+
+    def close(self):
+        self.loader.close()
+
+
+def make_paired_native_loader(dataset, cache_dir: Path, image_size: int,
+                              batch_size: int, *, load_size: int = 286,
+                              seed: int = 123, num_threads: int = 4,
+                              iters_per_launch: int = 1,
+                              augment: bool = True
+                              ) -> PairedNativeLoader:
+    """Cache a paired dataset (items: (input, target, path) in [-1, 1], no
+    host-side augmentation) as 6-channel samples under ``cache_dir`` and
+    stream augmented u8 pairs: ``crop_frac = image_size / load_size``
+    reproduces pix2pix's resize(load_size) -> random crop(crop_size) on the
+    cached pair."""
+    cache, index = build_cache(RawPairView(dataset), Path(cache_dir),
+                               channels=6, value_range="pm1")
+    native = NativeDataLoader(
+        cache, index, image_size, batch_size, num_threads=num_threads,
+        seed=seed, channels=6, output_u8=True,
+        aug_mode=2 if augment else 0,
+        crop_frac=min(image_size / max(load_size, image_size), 1.0))
+    return PairedNativeLoader(native, len(dataset),
+                              iters_per_launch=iters_per_launch)

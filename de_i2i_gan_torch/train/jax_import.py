@@ -26,6 +26,12 @@ A network's state arrives as the dict of its flax collections besides
 ``nu`` and ``count`` -> torch's ``exp_avg``, ``exp_avg_sq`` and ``step``;
 RMSprop ``nu``; the schedule's ``count`` -> ``Optimizer.count``). Loading
 is strict: a key missing on either side, or a shape that differs, raises.
+Whole train states load per trainer: DefectGAN's (``load_jax_train_state``),
+MAE's, pix2pix's and WGAN's, StarGAN v2's solver.
+
+``init_weights`` draws weights from a seed with the JAX init's
+distribution, and ``reinit_module`` redraws them per ``--init_type``, as
+the JAX package's ``nn/layers.py::reinit_params`` does.
 """
 from __future__ import annotations
 
@@ -289,6 +295,66 @@ def _init_module(module: nn.Module, gen: torch.Generator, std: float) -> None:
                 tensor.zero_()
 
 
+def _flax_shape(mod: nn.Module, tensor: torch.Tensor) -> Tuple[int, ...]:
+    """The flax layout's shape of a port weight: HWIO or (in, out)."""
+    if isinstance(mod, Conv2d):
+        o, i, kh, kw = tensor.shape
+        return (kh, kw, i, o)
+    return tuple(tensor.shape[::-1])
+
+
+def _orthogonal(rows: int, cols: int, gain: float,
+                gen: torch.Generator) -> torch.Tensor:
+    """A (rows, cols) matrix with orthonormal columns (rows when there are
+    fewer), times ``gain``: flax's ``orthogonal`` initializer's
+    distribution (QR of a normal draw, signs fixed by R's diagonal)."""
+    flip = rows < cols
+    a = torch.randn((cols, rows) if flip else (rows, cols), generator=gen,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return (q.T if flip else q).float() * gain
+
+
+def reinit_module(module: nn.Module, gen: torch.Generator, init_type: str,
+                  gain: float) -> None:
+    """The JAX package's ``reinit_params`` (the reference's
+    ``BaseNetwork.init_weights``) over a port module: every conv and dense
+    kernel redrawn per ``init_type`` [normal|xavier|kaiming|orthogonal],
+    with fan-in and fan-out of the flax layout (fan-in = kh*kw*in); norm
+    scales (BatchNorm's weight) drawn from N(1, gain); biases 0; the rest
+    (running statistics, spectral u/v, noise weights, embeddings, tokens)
+    left alone."""
+    if init_type not in ("normal", "xavier", "kaiming", "orthogonal"):
+        raise ValueError(f"unknown init_type {init_type}")
+    mods = dict(module.named_modules())
+    with torch.no_grad():
+        for key, tensor, coll, path, to_port in _checked_targets(module):
+            if coll != "params":
+                continue
+            name = path.rsplit("/", 1)[-1]
+            if name == "kernel" and tensor.dim() >= 2:
+                owner = key.rsplit(".", 1)[0] if "." in key else ""
+                flax_shape = _flax_shape(mods[owner], tensor)
+                fan_in = int(np.prod(flax_shape[:-1]))
+                fan_out = int(flax_shape[-1])
+                if init_type == "orthogonal":
+                    flat = _orthogonal(fan_in, fan_out, gain, gen)
+                    tensor.copy_(torch.from_numpy(np.ascontiguousarray(
+                        to_port(flat.numpy().reshape(flax_shape)))))
+                    continue
+                std = {"normal": gain,
+                       "xavier": gain * float(np.sqrt(2.0 / (fan_in + fan_out))),
+                       "kaiming": float(np.sqrt(2.0 / fan_in))}[init_type]
+                tensor.copy_(torch.empty(tensor.shape).normal_(0.0, std,
+                                                               generator=gen))
+            elif name == "scale" and tensor.dim() == 1:
+                tensor.copy_(1.0 + gain * torch.randn(tensor.shape,
+                                                      generator=gen))
+            elif name == "bias":
+                tensor.zero_()
+
+
 def init_weights(steps, seed: int) -> None:
     """Weights from ``seed`` with the JAX init's distribution: normal(0.02)
     conv and dense kernels, zero biases, BatchNorm scale 1 / bias 0 and
@@ -296,17 +362,57 @@ def init_weights(steps, seed: int) -> None:
     statistics and zero noise weights. Not the JAX init's numbers. Drawn on the CPU,
     so a seed gives the same weights on every device. G, then E, then D
     (when training has built it) draw in that order, so G's and E's weights
-    do not depend on whether D exists."""
+    do not depend on whether D exists.
+
+    A configuration with another ``init_type`` or ``init_variance`` then
+    redraws the nets that ``steps.REINIT_NETS`` names (DefectGAN's G and
+    D, as the JAX ``DefectGanSteps.init_state`` does) with
+    ``reinit_module``; the EMA generator starts as a copy of G."""
     cfg = steps.cfg
-    if cfg.init_type != "normal" or cfg.init_variance != 0.02:
-        raise NotImplementedError(
-            "only the default normal(0.02) init is ported")
+    init_type = getattr(cfg, "init_type", "normal")
+    gain = getattr(cfg, "init_variance", 0.02)
     gen = torch.Generator().manual_seed(seed)
     for net in (steps.G, steps.E, steps.D):
         if net is not None:
-            _init_module(net, gen, cfg.init_variance)
+            _init_module(net, gen, 0.02)
+    if init_type != "normal" or gain != 0.02:
+        for name in getattr(steps, "REINIT_NETS", ()):
+            net = getattr(steps, name)
+            if net is not None:
+                reinit_module(net, gen, init_type, gain)
     if steps.ema_G is not None:
         steps.ema_G.load_state_dict(steps.G.state_dict())
+
+
+def load_jax_pix2pix_state(steps, state) -> None:
+    """Fill a ``Pix2PixSteps`` from a JAX ``GANTrainState`` of the JAX
+    ``Pix2PixSteps`` (its leaves JAX or numpy arrays): G from
+    ``state.G.params`` and ``state.G.state``, ``ema_G`` from ``state.ema_G``
+    with G's state, D from ``state.D.params``, both optimizers' moments and
+    counts, and ``step``. Strict: a key missing on either side raises, and
+    so does an EMA generator in only one of the two."""
+    g_state = dict(state.G.state or {})
+    load_jax_module(steps.G, state.G.params, g_state)
+    load_jax_module(steps.D, state.D.params, dict(state.D.state or {}))
+    if (steps.ema_G is None) != (state.ema_G is None):
+        raise ValueError("ema_G is in only one of the steps and the JAX state")
+    if steps.ema_G is not None:
+        load_jax_module(steps.ema_G, state.ema_G, g_state)
+    load_jax_opt_state(steps.tx_G, steps.G, state.G.opt_state)
+    load_jax_opt_state(steps.tx_D, steps.D, state.D.opt_state)
+    steps.step = int(np.asarray(state.step))
+
+
+def load_jax_wgan_state(steps, state) -> None:
+    """Fill a ``WGanSteps`` from a JAX ``GANTrainState`` of the JAX
+    ``WGanSteps``: G and D from their params and BatchNorm statistics, both
+    optimizers' moments (RMSprop's ``nu``) and counts, and ``step``.
+    Strict: a key missing on either side raises."""
+    load_jax_module(steps.G, state.G.params, dict(state.G.state or {}))
+    load_jax_module(steps.D, state.D.params, dict(state.D.state or {}))
+    load_jax_opt_state(steps.tx_G, steps.G, state.G.opt_state)
+    load_jax_opt_state(steps.tx_D, steps.D, state.D.opt_state)
+    steps.step = int(np.asarray(state.step))
 
 
 def load_jax_starganv2(solver, state) -> None:

@@ -36,7 +36,9 @@ default generator of the device.
 
 D and the three optimizers are built at the first training call
 (``init_training``), so a ``DefectGanSteps`` that only serves holds G and E
-alone. ``remat`` is not ported and raises ``NotImplementedError`` there.
+alone. With ``remat`` the G step's G forwards keep no activations and run
+again in the backward pass (``train/remat.py``), with the same state and
+noise, as ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ from de_i2i_gan_torch.models.generator import DefectGanGenerator
 from de_i2i_gan_torch.nn.normalization import sean_update_stats
 from de_i2i_gan_torch.ops.fused import batch_images_to_float
 from de_i2i_gan_torch.train.optim import ema_update, make_optimizer
+from de_i2i_gan_torch.train.remat import remat
 from de_i2i_gan_torch.utils.diffaug import diff_augment
 from de_i2i_gan_torch.utils.labels import normal_labels
 
@@ -68,6 +71,8 @@ class DefectGanSteps:
     and the EMA generator ``ema_G`` (when ``tcfg.ema_decay > 0``) on
     ``device``; after the first training call also the discriminator ``D``
     and the optimizers ``tx_D``, ``tx_G``, ``tx_E``."""
+
+    REINIT_NETS = ("G", "D")  # redrawn for a non-default --init_type
 
     def __init__(self, cfg: DefectGanConfig,
                  tcfg: Optional[TrainConfig] = None,
@@ -113,9 +118,6 @@ class DefectGanSteps:
         if self.D is not None:
             return
         cfg, tcfg = self.cfg, self.tcfg
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (a later slice); use remat=False")
         if len(tcfg.loss_weight) != 5:
             raise ValueError("loss_weight must have 5 entries")
         # D runs in train mode inside d_step only
@@ -209,20 +211,23 @@ class DefectGanSteps:
         if cfg.fused_g_forward:
             # both directions of each hop in one 2B call; BatchNorm keeps
             # its statistics per direction (bn_groups=2)
-            h1_out, h1_p = self.G(torch.cat([bg, df]),
-                                  torch.cat([df_labels, nm_labels]),
-                                  _cat(df_feat, nm_feat), bn_groups=2, **g_kw)
+            h1_out, h1_p = self._g_train(torch.cat([bg, df]),
+                                         torch.cat([df_labels, nm_labels]),
+                                         _cat(df_feat, nm_feat), bn_groups=2,
+                                         **g_kw)
             fake_df, fake_nm = h1_out[:b], h1_out[b:]
             p_df, p_nm = h1_p[:b], h1_p[b:]
-            h2_out, h2_p = self.G(h1_out, torch.cat([nm_labels, df_labels]),
-                                  _cat(nm_feat, df_feat), bn_groups=2, **g_kw)
+            h2_out, h2_p = self._g_train(h1_out,
+                                         torch.cat([nm_labels, df_labels]),
+                                         _cat(nm_feat, df_feat), bn_groups=2,
+                                         **g_kw)
             rec_nm, rec_df = h2_out[:b], h2_out[b:]
             p_rec_df, p_rec_nm = h2_p[:b], h2_p[b:]
         else:
-            fake_df, p_df = self.G(bg, df_labels, df_feat, **g_kw)
-            rec_nm, p_rec_df = self.G(fake_df, nm_labels, nm_feat, **g_kw)
-            fake_nm, p_nm = self.G(df, nm_labels, nm_feat, **g_kw)
-            rec_df, p_rec_nm = self.G(fake_nm, df_labels, df_feat, **g_kw)
+            fake_df, p_df = self._g_train(bg, df_labels, df_feat, **g_kw)
+            rec_nm, p_rec_df = self._g_train(fake_df, nm_labels, nm_feat, **g_kw)
+            fake_nm, p_nm = self._g_train(df, nm_labels, nm_feat, **g_kw)
+            rec_df, p_rec_nm = self._g_train(fake_nm, df_labels, df_feat, **g_kw)
         self.G.eval()
 
         # the frozen D, in eval mode, on the augmented fakes (one batched 2B
@@ -269,6 +274,13 @@ class DefectGanSteps:
                        tcfg.ema_decay)
             self._sync_ema_state()
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _g_train(self, *args, **kw):
+        """A train-mode G forward of the G step; with ``cfg.remat`` its
+        activations are recomputed in the backward pass."""
+        if self.cfg.remat:
+            return remat(self.G, *args, **kw)
+        return self.G(*args, **kw)
 
     def _sync_ema_state(self) -> None:
         """generate(use_ema=True) reads G's state (BatchNorm running

@@ -17,8 +17,19 @@ super-steps in one host copy, where the NaN guard reads them. Random draws
 over ``MAESteps.super_step`` on single-stream ``{imgs, labels}``
 super-batches, with the same checkpoints; its run warm-starts DefectGAN
 through ``load_model_name``. Like the JAX MAE loop it has no NaN guard.
-The JAX trainers' data-parallel mesh waits for ROADMAP A.9; the pix2pix and
-WGAN trainers for A.5 and A.6.
+
+``Pix2PixTrainer`` trains paired translation over ``Pix2PixSteps``: a
+``super_step`` of ``iters_per_launch`` iterations a batch (``train_step``
+when it is 1), the NaN guard, 'latest' every epoch and every
+``save_latest_freq`` iterations, epoch checkpoints, and every
+``save_img_freq`` epochs an input | fake | target panel of the first
+batch's first 4 pairs by the EMA generator. ``WGanTrainer`` runs
+``WGanSteps.super_step`` (``num_critics`` critic steps and one G step) and
+writes a 4x4 grid of G's samples of a fixed noise every epoch. Images go to
+TensorBoard when it is installed, and as PNGs (``utils/png.py``) into the
+run's log directory.
+
+The JAX trainers' data-parallel mesh waits for ROADMAP A.9.
 """
 from __future__ import annotations
 
@@ -27,26 +38,34 @@ from collections import defaultdict
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
-from de_i2i_gan_torch.config import DefectGanConfig, MAEConfig, TrainConfig
+from de_i2i_gan_torch.config import (
+    DefectGanConfig, MAEConfig, TrainConfig, WGanConfig)
 from de_i2i_gan_torch.data.embeddings import attach_embeddings
 from de_i2i_gan_torch.data.pipeline import DualStreamLoader, device_prefetch
+from de_i2i_gan_torch.ops.fused import images_to_float
 from de_i2i_gan_torch.train.checkpoint import (
     latest_exists, load_checkpoint, read_iter_record, save_checkpoint)
 from de_i2i_gan_torch.train.jax_import import init_weights
 from de_i2i_gan_torch.train.mae_steps import MAESteps
+from de_i2i_gan_torch.train.pix2pix_steps import Pix2PixSteps
 from de_i2i_gan_torch.train.steps import DefectGanSteps
+from de_i2i_gan_torch.train.wgan_steps import WGanSteps
 from de_i2i_gan_torch.utils.guards import NaNGuard, metrics_finite
+from de_i2i_gan_torch.utils.png import write_png
 
 DRAIN_EVERY = 4  # super-steps between metric fetches
 
 
 class TBWriter:
-    """Thin TensorBoard wrapper (SummaryWriter if available, else no-op)."""
+    """Thin TensorBoard wrapper (SummaryWriter if available, else no-op);
+    ``image`` also writes a PNG into ``log_dir``."""
 
     def __init__(self, log_dir: Optional[Path]):
         self._w = None
+        self.log_dir = log_dir
         if log_dir is not None:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -57,6 +76,17 @@ class TBWriter:
     def scalars(self, tag, d, step):
         if self._w:
             self._w.add_scalars(tag, {k: float(v) for k, v in d.items()}, step)
+
+    def image(self, tag: str, img_hwc: np.ndarray, step: int) -> None:
+        """An (H, W, 3) image in [0, 1]: TensorBoard, and
+        ``<log_dir>/<tag with / as _>_<step>.png``."""
+        if self.log_dir is None:
+            return
+        if self._w:
+            self._w.add_image(tag, img_hwc, step, dataformats="HWC")
+        path = Path(self.log_dir) / f"{tag.replace('/', '_')}_{step}.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_png(path, np.clip(img_hwc * 255.0, 0, 255).astype(np.uint8))
 
     def close(self):
         if self._w:
@@ -301,3 +331,202 @@ def _generate_grid_impl(trainer, bg_images, labels, img_only):
     out = out.reshape(n_bg, n_lbl, *out.shape[1:])
     prob = prob.reshape(n_bg, n_lbl, *prob.shape[1:])
     return out, prob
+
+
+def _tqdm():
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return None
+    return tqdm
+
+
+class Pix2PixTrainer:
+    """Paired-i2i (pix2pix/pix2pixHD-style) loop over ``Pix2PixSteps``
+    (JAX ``Pix2PixTrainer``): one ``super_step`` a batch of the loader's
+    ``iters_per_launch`` iterations, metrics fetched every ``DRAIN_EVERY``
+    batches where the NaN guard reads them, latest/epoch checkpoints,
+    input | fake | target panels."""
+
+    def __init__(self, cfg: DefectGanConfig, tcfg: TrainConfig, *,
+                 name: str = "pix2pix_exp", ckpt_dir: Path = Path("./ckpt"),
+                 log_dir: Optional[Path] = Path("./logs"),
+                 num_d_scales: int = 2, n_layers_d: int = 3,
+                 gan_kind: str = "lsgan", lambda_l1: float = 100.0,
+                 lambda_fm: float = 10.0, iters_per_epoch: int = 1000,
+                 num_epochs: int = 200, continue_training: bool = False,
+                 save_latest_freq: int = 1000, save_ckpt_freq: int = 4,
+                 save_img_freq: int = 4, seed: int = 123,
+                 fused_prop: bool = False,
+                 device: str | torch.device = "cuda"):
+        self.cfg, self.tcfg = cfg, tcfg
+        self.name = name
+        self.ckpt_dir = Path(ckpt_dir)
+        self.log_dir = Path(log_dir) / name if log_dir else None
+        self.save_latest_freq = save_latest_freq
+        self.save_ckpt_freq = save_ckpt_freq
+        self.save_img_freq = save_img_freq
+        if num_epochs == -1:
+            num_epochs = math.ceil(tcfg.num_iters / max(iters_per_epoch, 1))
+        self.num_epochs = num_epochs
+        self.steps = Pix2PixSteps(cfg, tcfg, num_d_scales=num_d_scales,
+                                  gan_kind=gan_kind, lambda_l1=lambda_l1,
+                                  lambda_fm=lambda_fm,
+                                  iters_per_epoch=iters_per_epoch,
+                                  num_epochs=num_epochs, n_layers_d=n_layers_d,
+                                  fused_prop=fused_prop, device=device)
+        init_weights(self.steps, seed)
+        self._guard = NaNGuard()
+        self._pending: List[Dict[str, torch.Tensor]] = []
+        self.first_epoch, self.iters = 1, 0
+        if continue_training and latest_exists(self.ckpt_dir, name):
+            load_checkpoint(self.ckpt_dir, name, "latest", self.steps)
+            self.first_epoch, self.iters = read_iter_record(self.ckpt_dir, name)
+        self.generator = torch.Generator(self.steps.device).manual_seed(seed + 1)
+
+    _drain_metrics = DefectGanTrainer._drain_metrics
+
+    @staticmethod
+    def vis_batch(batch, ipl: int) -> Dict[str, torch.Tensor]:
+        """The panels' pairs: the first 4 of a loader batch (its first
+        iteration's), as [-1, 1] ``input`` and ``target``; a native
+        ``pair`` batch is split."""
+        vis = {k: images_to_float(v[0] if ipl > 1 else v)[:4]
+               for k, v in batch.items()}
+        if "pair" in vis:
+            p = vis.pop("pair")
+            vis["input"], vis["target"] = p[..., :3], p[..., 3:]
+        return vis
+
+    def panel(self, vis: Dict[str, torch.Tensor]) -> np.ndarray:
+        """Rows of input | EMA fake | target, (4H, 3W, 3) in [-1, 1]."""
+        fake = self.steps.generate(vis["input"], generator=self.generator)
+        rows = torch.cat([vis["input"].float(), fake.float(),
+                          vis["target"].float()], dim=2)
+        return rows.reshape(-1, *rows.shape[2:]).cpu().numpy()
+
+    def train(self, loader, val_loader=None, progress: bool = True):
+        writer = TBWriter(self.log_dir)
+        tqdm = _tqdm() if progress else None
+        ipl = getattr(loader, "iters_per_launch", 1)
+        step_fn = self.steps.super_step if ipl > 1 else self.steps.train_step
+        vis = None
+        for epoch in range(self.first_epoch, self.num_epochs + 1):
+            sums, counts = defaultdict(float), defaultdict(int)
+            it = device_prefetch(loader, self.steps.device)
+            bar = tqdm(it, total=len(loader), colour="MAGENTA",
+                       desc=f"pix2pix [{epoch}/{self.num_epochs}]") \
+                if tqdm else it
+            for batch in bar:
+                if vis is None:
+                    vis = self.vis_batch(batch, ipl)
+                self._pending.append(step_fn(batch, self.generator))
+                self.iters += ipl
+                if len(self._pending) >= DRAIN_EVERY:
+                    self._drain_metrics(sums, counts)
+                if tqdm and counts:
+                    bar.set_postfix({k: f"{sums[k] / counts[k]:.4f}"
+                                     for k in ("d_loss", "adv", "l1")
+                                     if counts.get(k)})
+                if self.iters % self.save_latest_freq < ipl:
+                    save_checkpoint(self.ckpt_dir, self.name, "latest",
+                                    self.steps, epoch=epoch, iters=self.iters)
+            self._drain_metrics(sums, counts)
+            writer.scalars("Losses/pix2pix", {k: sums[k] / max(counts[k], 1)
+                                              for k in sums}, epoch)
+            if epoch % self.save_img_freq == 0 and vis is not None:
+                writer.image("Images/input_fake_target",
+                             (self.panel(vis) + 1) / 2, epoch)
+            save_checkpoint(self.ckpt_dir, self.name, "latest", self.steps,
+                            epoch=epoch, iters=self.iters)
+            if epoch % self.save_ckpt_freq == 0:
+                save_checkpoint(self.ckpt_dir, self.name, epoch, self.steps,
+                                epoch=epoch, iters=self.iters)
+                if val_loader is not None:
+                    l1s = [(self.steps.generate(vb["input"]) - torch.as_tensor(
+                        vb["target"], device=self.steps.device)).abs().mean()
+                        for vb in val_loader]
+                    writer.scalars("Metrics", {"val_l1": torch.stack(
+                        l1s).mean().item()}, epoch)
+        writer.close()
+        return self.steps
+
+
+class WGanTrainer:
+    """WGAN loop (JAX ``WGanTrainer``; trainers/wgan_trainer.py): one
+    ``WGanSteps.super_step`` a super-batch, metrics fetched every
+    ``DRAIN_EVERY`` super-steps (no NaN guard, as in JAX), latest/epoch
+    checkpoints, a 4x4 grid of G's samples of a fixed noise every epoch."""
+
+    def __init__(self, cfg: WGanConfig, tcfg: TrainConfig, *,
+                 name: str = "wgan_exp", ckpt_dir: Path = Path("./ckpt"),
+                 log_dir: Optional[Path] = Path("./logs"),
+                 iters_per_epoch: int = 1000, num_epochs: int = 120,
+                 continue_training: bool = False,
+                 save_latest_freq: int = 1000, save_ckpt_freq: int = 4,
+                 seed: int = 123, device: str | torch.device = "cuda"):
+        self.cfg, self.tcfg = cfg, tcfg
+        self.name = name
+        self.ckpt_dir = Path(ckpt_dir)
+        self.log_dir = Path(log_dir) / name if log_dir else None
+        self.save_latest_freq = save_latest_freq
+        self.save_ckpt_freq = save_ckpt_freq
+        self.num_epochs = num_epochs
+        self.steps = WGanSteps(cfg, tcfg, iters_per_epoch, num_epochs,
+                               device=device)
+        init_weights(self.steps, seed)
+        self.first_epoch, self.iters = 1, 0
+        if continue_training and latest_exists(self.ckpt_dir, name):
+            load_checkpoint(self.ckpt_dir, name, "latest", self.steps)
+            self.first_epoch, self.iters = read_iter_record(self.ckpt_dir, name)
+        self.generator = torch.Generator(self.steps.device).manual_seed(seed + 1)
+        self.fixed_noise = torch.randn(
+            (16, cfg.noise_dim), generator=torch.Generator().manual_seed(seed + 2))
+
+    def grid(self) -> np.ndarray:
+        """G's samples of the fixed noise as a 4x4 grid, (4H, 4W, 3) in
+        [-1, 1]."""
+        sample = self.steps.sample(self.fixed_noise).float().cpu().numpy()
+        h, w = sample.shape[1:3]
+        return sample.reshape(4, 4, h, w, 3).transpose(0, 2, 1, 3, 4).reshape(
+            4 * h, 4 * w, 3)
+
+    def train(self, loader, progress: bool = True):
+        writer = TBWriter(self.log_dir)
+        tqdm = _tqdm() if progress else None
+        nc = self.cfg.num_critics
+        for epoch in range(self.first_epoch, self.num_epochs + 1):
+            sums, counts = defaultdict(float), defaultdict(int)
+            pending: List[Dict[str, torch.Tensor]] = []
+
+            def drain():
+                for metrics in _fetch(pending) if pending else []:
+                    for k, v in metrics.items():
+                        sums[k] += v
+                        counts[k] += 1
+                pending.clear()
+
+            it = device_prefetch(loader, self.steps.device)
+            bar = tqdm(it, total=len(loader), colour="MAGENTA",
+                       desc=f"WGAN [{epoch}/{self.num_epochs}]") \
+                if tqdm else it
+            for super_batch in bar:
+                pending.append(self.steps.super_step(super_batch,
+                                                     self.generator))
+                self.iters += nc
+                if len(pending) >= DRAIN_EVERY:
+                    drain()
+                if self.iters % self.save_latest_freq < nc:
+                    save_checkpoint(self.ckpt_dir, self.name, "latest",
+                                    self.steps, epoch=epoch, iters=self.iters)
+            drain()
+            writer.scalars("Losses/wgan", {k: sums[k] / max(counts[k], 1)
+                                           for k in sums}, epoch)
+            writer.image("Images/fixed_noise", (self.grid() + 1) / 2, epoch)
+            if epoch % self.save_ckpt_freq == 0:
+                save_checkpoint(self.ckpt_dir, self.name, epoch, self.steps,
+                                epoch=epoch, iters=self.iters)
+        save_checkpoint(self.ckpt_dir, self.name, "latest", self.steps,
+                        epoch=self.num_epochs, iters=self.iters)
+        writer.close()
+        return self.steps

@@ -6,9 +6,11 @@
 * Importing the CUDA kernel module neither needs nor runs ``nvcc``, and
   importing the native loader neither needs nor runs ``g++``: each builds
   at first use.
-* Importing the entry points (``cli/*``, the MAE ones among them), the
-  input feeds (``data``, ``runtime``), MAE pretraining
-  (``train/mae_steps.py``, ``utils/masks.py``) and StarGAN v2
+* Importing the entry points (``cli/*``, the MAE, pix2pix and WGAN ones
+  among them), the input feeds (``data``, ``runtime``), MAE pretraining
+  (``train/mae_steps.py``, ``utils/masks.py``), pix2pix and WGAN
+  (``train/pix2pix_steps.py``, ``train/wgan_steps.py``,
+  ``train/remat.py``, ``data/paired.py``) and StarGAN v2
   (``models/starganv2.py``, ``train/solver.py``,
   ``data/starganv2_data.py``, ``utils/translate.py``) parses no arguments,
   starts no thread and writes nothing.
@@ -47,7 +49,10 @@ for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
              "models.starganv2", "train.solver", "cli.starganv2_main",
              "data.starganv2_data", "utils.translate", "utils.visualize",
              "cli.train_mae", "cli.test_mae", "cli.train_mtvec",
-             "cli.pretrain_mtvec", "train.mae_steps", "utils.masks"):
+             "cli.pretrain_mtvec", "train.mae_steps", "utils.masks",
+             "data.paired", "train.pix2pix_steps", "train.wgan_steps",
+             "train.remat", "cli.train_pix2pix", "cli.test_pix2pix",
+             "cli.train_wgan"):
     assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
@@ -79,6 +84,11 @@ import de_i2i_gan_torch.cli.train_defectgan
 import de_i2i_gan_torch.cli.starganv2_main
 import de_i2i_gan_torch.cli.train_mae
 import de_i2i_gan_torch.train.mae_steps
+import de_i2i_gan_torch.cli.train_pix2pix
+import de_i2i_gan_torch.cli.test_pix2pix
+import de_i2i_gan_torch.cli.train_wgan
+import de_i2i_gan_torch.train.pix2pix_steps
+import de_i2i_gan_torch.train.wgan_steps
 assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
 assert native_loader._lib is None
 """
@@ -105,6 +115,13 @@ import de_i2i_gan_torch.cli.train_mtvec
 import de_i2i_gan_torch.cli.pretrain_mtvec
 import de_i2i_gan_torch.train.mae_steps
 import de_i2i_gan_torch.utils.masks
+import de_i2i_gan_torch.cli.train_pix2pix
+import de_i2i_gan_torch.cli.test_pix2pix
+import de_i2i_gan_torch.cli.train_wgan
+import de_i2i_gan_torch.data.paired
+import de_i2i_gan_torch.train.pix2pix_steps
+import de_i2i_gan_torch.train.wgan_steps
+import de_i2i_gan_torch.train.remat
 assert threading.active_count() == 1, threading.enumerate()
 assert os.listdir(".") == [], os.listdir(".")
 """

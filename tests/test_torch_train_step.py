@@ -42,7 +42,8 @@ from de_i2i_gan_tpu.config import DefectGanConfig as JaxConfig
 from de_i2i_gan_tpu.config import TrainConfig as JaxTrainConfig
 from de_i2i_gan_tpu.train.steps import DefectGanSteps as JaxSteps
 from de_i2i_gan_torch.config import DefectGanConfig, TrainConfig
-from de_i2i_gan_torch.train.jax_import import _flatten, _targets, load_jax_train_state
+from de_i2i_gan_torch.train.jax_import import (
+    _flatten, _targets, init_weights, load_jax_train_state)
 from de_i2i_gan_torch.train.steps import DefectGanSteps
 from de_i2i_gan_torch.utils import diffaug
 from tests.test_torch_train_options import jax_draws
@@ -311,13 +312,26 @@ def test_training_state_is_built_at_first_training_call():
 
 @pytest.mark.parametrize("option", [dict(remat=True)])
 def test_unported_training_options_raise(option):
-    cfg = DefectGanConfig(**TINY, **{k: v for k, v in option.items()
-                                     if k == "remat"})
-    tcfg = TrainConfig(**ADAM, **{k: v for k, v in option.items()
-                                  if k != "remat"})
-    steps = DefectGanSteps(cfg, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
+    """``remat`` raised while it was not ported; now it builds the training
+    state and its super-step is the one without it (losses and every
+    parameter within 1e-6; ``tests/test_torch_remat.py`` holds it with noise,
+    spectral norm and SEAN's statistics)."""
+    runs = []
+    for cfg_kw in (option, {}):
+        steps = DefectGanSteps(DefectGanConfig(**TINY, **cfg_kw),
+                               TrainConfig(**ADAM), device="cpu")
         steps.init_training()
+        init_weights(steps, 0)
+        metrics = steps.super_step({k: torch.from_numpy(v)
+                                    for k, v in _batches(2).items()})
+        runs.append((steps, metrics))
+    (on, m_on), (off, m_off) = runs
+    for k in m_off:
+        torch.testing.assert_close(m_on[k], m_off[k], rtol=1e-6, atol=0)
+    for net in ("G", "E", "D"):
+        for (k, p), q in zip(getattr(on, net).named_parameters(),
+                             getattr(off, net).parameters()):
+            torch.testing.assert_close(p, q, rtol=0, atol=1e-6, msg=k)
 
 
 def test_diff_aug_super_step_matches_jax(monkeypatch):

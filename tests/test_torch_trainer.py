@@ -346,8 +346,7 @@ def test_cli_train_resume_then_test(tmp_path, monkeypatch):
 UNPORTED = {
     "train": [["--val_metrics", "fid"],
               ["--data_parallel", "on"], ["--num_devices", "2"],
-              ["--gpu_ids", "0,1"], ["--init_type", "xavier"],
-              ["--init_variance", "0.05"]],
+              ["--gpu_ids", "0,1"]],
     "test": [["--metrics", "fid"], ["--cal_mfid"], ["--save_stats"],
              ["--vis_style_embeds", "hidden"], ["--gpu_ids", "0,1"]],
 }
@@ -360,6 +359,40 @@ def test_unported_flags_raise(cli, flags, tmp_path):
     main = train_defectgan.main if cli == "train" else test_defectgan.main
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.\d+"):
         main(["--name", "x"] + _tiny_argv(tmp_path) + flags)
+
+
+@pytest.mark.parametrize("flags,std", [
+    (["--init_type", "xavier"], lambda fan_in, fan_out: 0.02 * math.sqrt(
+        2.0 / (fan_in + fan_out))),
+    (["--init_variance", "0.05"], lambda fan_in, fan_out: 0.05)],
+    ids=lambda v: " ".join(v) if isinstance(v, list) else "")
+def test_init_flags_draw_their_weights(flags, std, tmp_path, monkeypatch):
+    """The init flags (once unported, now ``init_weights``' redraw): one
+    tiny super-step through the train CLI; G's and D's conv kernels as
+    drawn hold the flag's std within 10% (kernels of 1000 or more
+    elements)."""
+    writer = trainer_module.TBWriter
+    monkeypatch.setattr(trainer_module, "TBWriter", lambda _: writer(None))
+    drawn, real = {}, DefectGanTrainer.train
+
+    def capture(self, *args, **kw):
+        for net in ("G", "D"):
+            for k, p in getattr(self.steps, net).named_parameters():
+                if k.endswith("conv.weight") and p.numel() >= 1000:
+                    drawn[f"{net}.{k}"] = p.detach().clone()
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(DefectGanTrainer, "train", capture)
+    argv = ["--name", "x"] + _tiny_argv(tmp_path) + flags
+    argv[argv.index("--batch_size") + 1] = "64"
+    trainer = train_defectgan.main(argv + ["--num_critics", "8",
+                                           "--num_epochs", "1"])
+    assert trainer.iters == 8  # one super-step of 8 critics
+    assert len(drawn) >= 4
+    for k, w in drawn.items():
+        fan_in, fan_out = w[0].numel(), w.shape[0]
+        want = std(fan_in, fan_out)
+        assert abs(w.std().item() - want) <= 0.1 * want, (k, w.std(), want)
 
 
 def test_cli_test_grids_match_the_jax_clis(tmp_path):
