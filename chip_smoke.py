@@ -28,7 +28,13 @@ instance norm) and the SPADE path through none:
     ``cli.train_pix2pix`` on each feed and ``cli.test_pix2pix``;
   * WGAN: ``WGanSteps.super_step`` at the WGAN CLI's defaults (64², batch
     128, 5 critics, RMSprop), with weight clipping and with the gradient
-    penalty, through ``cli.train_wgan`` on each feed.
+    penalty, through ``cli.train_wgan`` on each feed;
+  * the frozen nets: ViT-B/16 embedding requests, ``cli.train_vit`` and
+    ``cli.test_vit`` and their bank as DefectGAN SEAN's ``--embed_path``,
+    StarGAN v2 SEAN with lambda_sty through the solver and through
+    ``cli.starganv2_main --vit_path`` and ``--mode update_stats``; FAN, the
+    CelebA-HQ command (``w_hpf 1``) with ``--wing_ckpt`` and ``--mode
+    align``.
 
 AdaIN takes the style code from E; SEAN takes ViT-sized (8, 5, 768) style
 embeddings made on the card, tracks its running statistics and adds its
@@ -188,7 +194,9 @@ Phases, each of which raises on failure:
               0 launches of either norm kernel (SPADE, instance norm)
   12c.        the same with remat: peak memory beside remat off's; one f32
               SGD iteration, remat on vs off on the card: losses, G's and
-              D's deltas within 12a's band, BatchNorm statistics equal
+              D's deltas within 12a's band, BatchNorm statistics equal; the
+              remat-off iteration run twice, its spread printed beside on
+              vs off's (whether cuDNN alone moves the step that far)
   12d.        one super-step at 512² (pix2pixHD's multi-scale D with feature
               matching)
   12e. cli    ``cli.train_pix2pix.main`` for one epoch (48 synthetic pairs,
@@ -207,6 +215,36 @@ Phases, each of which raises on failure:
               resume whose loaded state (RMSprop's nu with it) equals the
               saved one; the 4x4 sample grid
 
+  14a. vit    ViT-B/16 from a seed (hidden 768, 12 layers, 224^2 from
+              256^2): the card against the CPU, f32 with TF32 off, relative
+              L2 within 1e-4; batch-32 embedding requests in bf16: host and
+              device time, peak memory, no norm-kernel launch
+  14b. cli    ``cli.train_vit`` for one epoch on the synthetic DefectGAN
+              data (batch 32), ``cli.test_vit --save_embeddings
+              --calc_classifier_acc``; the bank as ``cli.train_defectgan
+              --embed_path`` with SEAN for an epoch: exactly 56/16 launches
+              a super-step
+  14c. sgv2   StarGAN v2 SEAN with lambda_sty through the solver
+              (``set_frozen_nets`` on ViT-B), AFHQ flags, batch 8, 256^2,
+              bf16: exactly 48/24 launches an iteration, the style term
+              live, peak memory, a profiled iteration and the ViT's share of
+              its device time; G's gradient of the lambda_sty term alone,
+              kernel path vs plain, in 10c's bands
+  14d. cli    ``cli.starganv2_main --norm_type sean --vit_path`` (a .bin
+              with HF key names written from the seed) for 4 loader-fed
+              iterations (48/24 each), then ``--mode update_stats``
+  15a. fan    FAN from a seed at 256^2: the heatmaps before the threshold,
+              card vs CPU (f32, TF32 off, relative L2 within 1e-4); the
+              masks of a batch of 8 timed on the card
+  15b. sgv2   the upstream README's CelebA-HQ command (w_hpf 1, AdaIN,
+              batch 8, bf16) with ``--wing_ckpt`` for 8 loader-fed
+              iterations: the FAN masks of x_src and of each pass's x_fake,
+              exactly 14 forward launches a masked G forward and each
+              iteration's launches G's passes times that, the iteration's
+              device time and the FAN's share of it
+  15c. align  ``--mode align`` on 3 synthetic faces with ``--lm_path`` mean
+              landmarks written from a seed: the aligned PNGs
+
 Then each timed shape's planned tier against tier S and the fastest tier,
 and each path's share of the bound. The line before the last two holds the
 kernels' JSON record (per shape: the tier, its cluster size, tier S's time
@@ -218,6 +256,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -368,6 +407,41 @@ P2P_PAIRS = 48
 # GP variant with gp_weight 10
 WGAN_BATCH = 128
 WGAN_GP = 10.0
+# phase 14: the frozen ViT-B/16 (hidden 768, 12 layers, 224^2) from a seed;
+# the card against the CPU, f32 with TF32 off: relative L2
+VIT_F32_BAND = 1e-4
+VIT_BATCH = 32  # an embedding request; the ViT CLIs' batch
+VIT_TIMED = 10
+SGV2_SEAN_ITERS = (2, 3)  # 14c: warm-up, timed iterations
+SGV2_SEAN_CLI_ITERS = 4
+SGV2_STATS_SAMPLES = 8  # 14d: update_stats' styles a domain
+# phase 15: FAN at 256^2 from a seed, and the upstream README's CelebA-HQ
+# command (clova-ai/stargan-v2, "Training networks")
+FAN_BAND = 1e-4  # heatmaps, card vs CPU, relative L2
+# the masks' steps on the same input, card vs CPU: the heatmaps' 64 -> 256
+# upsample, preprocess_heatmaps, the generator's antialiased mask resize to
+# 32/64/128 (f32 sums in another order, a pow a ulp apart)
+MASK_ATOL = 1e-5
+# the share of the pixels of each landmark channel that crosses
+# preprocess_heatmaps' 0.1 threshold once 15a shifts the seeded FAN's head
+# (with the seeded head every channel lights up and both masks clip to 1)
+FAN_ACTIVE = 0.02
+SGV2_CELEBA = ["--num_domains", "2", "--w_hpf", "1", "--lambda_reg", "1",
+               "--lambda_sty", "1", "--lambda_ds", "1", "--lambda_cyc", "1"]
+SGV2_CELEBA_ITERS = 8
+CELEBA_PROFILE_AT = 3
+# w_hpf 1 adds an encoder block down to 8^2 and its styled decoder block:
+# 7 styled blocks of 2 norms, against 6 of AFHQ's w_hpf 0. The call sites
+# of one G forward at batch 8: two bottleneck blocks and the first upsample
+# block's first norm at 8^2, then each upsample block's two norms
+CELEBA_TRAIN_SHAPES = {(SGV2_TRAIN_BATCH, 512, 8, 8): 5,
+                       (SGV2_TRAIN_BATCH, 512, 16, 16): 2,
+                       (SGV2_TRAIN_BATCH, 512, 32, 32): 2,
+                       (SGV2_TRAIN_BATCH, 256, 64, 64): 2,
+                       (SGV2_TRAIN_BATCH, 128, 128, 128): 2,
+                       (SGV2_TRAIN_BATCH, 64, 256, 256): 1}
+CELEBA_FWD_PER_FORWARD = sum(CELEBA_TRAIN_SHAPES.values())
+ALIGN_FACES = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -787,22 +861,48 @@ def tally_calls(nk):
         nk.modulated_instance_norm_bwd = bwd
 
 
+def profiled(fn, runs, record_shapes=False):
+    """torch.profiler over ``runs`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
 def profile_device(fn, runs, label, wall_ms, smi, conv_shapes=False):
     """Where the device time of ``fn`` goes: torch.profiler over ``runs``
     calls, device kernels summed by name; with ``conv_shapes`` also the
     convolution ops with the most device time, by their input shapes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    return report_profile(profiled(fn, runs, conv_shapes), runs, label,
+                          wall_ms, smi, conv_shapes)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=conv_shapes) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    dev_ms = sum(e.self_device_time_total for e in kernels) / (1e3 * runs)
+
+def device_kernels(prof):
+    """The device events of ``prof`` summed by name, without the device
+    spans of ``record_function`` ranges (``Optimizer.step``, the solver's
+    frozen nets), which cover the kernels inside them and the gaps between."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_ms(prof, runs):
+    """Device ms of ``prof``'s kernels a run."""
+    return sum(e.self_device_time_total for e in device_kernels(prof)) / (
+        1e3 * runs)
+
+
+def report_profile(prof, runs, label, wall_ms, smi, conv_shapes=False):
+    """Prints the device kernels of ``prof`` summed by name; returns their
+    device ms a run (None where the profiler saw none)."""
+    kernels = sorted(device_kernels(prof), key=lambda e: e.self_device_time_total,
+                     reverse=True)
+    dev_ms = kernel_ms(prof, runs)
     if dev_ms == 0:
         print(f"profile {label}: the profiler saw no device time (not measured)")
         return None
@@ -822,6 +922,41 @@ def profile_device(fn, runs, label, wall_ms, smi, conv_shapes=False):
             print(f"  conv op {e.device_time_total / (1e3 * runs):8.3f} ms "
                   f"x{e.count // runs:<4d} {e.key} {str(e.input_shapes)[:160]}")
     return dev_ms
+
+
+def range_device_ms(prof, name, runs):
+    """Device ms a run of the kernels launched inside the profiler range
+    ``name`` (``torch.profiler.record_function``), and of the backward of
+    the autograd nodes made inside it: autograd's ``evaluate_function``
+    events whose forward thread and sequence number are those of a forward
+    op inside the range and of none outside it (an op records the next
+    node's number, and makes no node under ``no_grad``). Returns (forward
+    ms, backward ms)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [(e.thread, e.time_range.start, e.time_range.end)
+             for e in events if e.name == name]
+    fwd_us = sum(e.device_time_total for e in events if e.name == name)
+    def in_backward(e):
+        while e is not None:
+            if e.name.startswith("autograd::engine"):
+                return True
+            e = e.cpu_parent
+        return False
+
+    inside, outside = set(), set()
+    for e in events:
+        if e.sequence_nr < 0 or in_backward(e):
+            continue
+        within = any(t == e.thread and a <= e.time_range.start
+                     and e.time_range.end <= b for t, a, b in spans)
+        (inside if within else outside).add((e.thread, e.sequence_nr))
+    nodes = inside - outside
+    bwd_us = sum(e.device_time_total for e in events
+                 if e.name.startswith("autograd::engine::evaluate_function:")
+                 and (e.fwd_thread, e.sequence_nr) in nodes)
+    return fwd_us / (1e3 * runs), bwd_us / (1e3 * runs)
 
 
 # ------------------------------------------------------------ 5. timing
@@ -1666,9 +1801,7 @@ def phase_cli_train(nk, smi, preloaded_ms, name="adain", *extra):
     image_dtypes = {d[k] for d in clock.dtypes for k in ("df", "bg")}
     steady = clock.steady_ms()
     fed_ms = statistics.median(steady)
-    from torch.autograd import DeviceType
-    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    dev_ms = kernel_ms(clock.prof, PROFILED_SUPER_STEPS)
     # every host-to-device copy in the window is a super-batch's, pinned and
     # on the prefetch stream: the step's own torch.as_tensor copied nothing
     copies, streams = h2d_copies(clock.prof, CLI_DIR / f"{name}_trace.json")
@@ -2360,50 +2493,65 @@ def norm_in_float64(x, g, b, act=None, eps=1e-5):
     return y.to(x.dtype)
 
 
-def phase_sgv2_train_agreement(nk, fused, smi):
-    """10c. G's, M's and S's gradients of one latent G loss at full width,
-    kernel path against the plain version swapped into
-    ``models/starganv2.py``'s name, relative L2 per net: the f32 control
-    (TF32 off) within SGV2_TRAIN_F32_BAND + F32_CONTROL_FACTOR x the f32
-    plain path's distance from itself with the norm computed in float64; in
-    bf16 the kernel path no further from the f32 plain path than
+def phase_sgv2_train_agreement(nk, fused, smi, kind="adain"):
+    """10c (``kind`` adain): G's, M's and S's gradients of one latent G loss
+    at full width; 14c (``sty``): G's gradient of SEAN's lambda_sty term
+    alone (the frozen ViT's embedding of x_fake against the references'),
+    one reference-pass G loss. Kernel path against the plain version swapped
+    into ``models/starganv2.py``'s name, relative L2 per net: the f32
+    control (TF32 off) within SGV2_TRAIN_F32_BAND + F32_CONTROL_FACTOR x the
+    f32 plain path's distance from itself with the norm computed in float64;
+    in bf16 the kernel path no further from the f32 plain path than
     BF16_DELTA_FACTOR times the bf16 plain path is, + SGV2_TRAIN_F32_BAND."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = sgv2_train_config("adain")
+    f = SGV2_FWD_PER_FORWARD
+    if kind == "adain":
+        cfg = sgv2_train_config("adain")
+        net_names, latent, want = ("G", "M", "S"), True, (3 * f, 2 * f)
+    else:  # the G forwards of x_fake, x_fake2 and x_rec; x_fake's backward
+        cfg = sgv2_train_config("sean", allow_degraded_losses=False)
+        net_names, latent, want = ("G",), False, (3 * f, f)
     solvers = {"bfloat16": sgv2_trainer(cfg)}
     solvers["float32"] = sgv2_trainer_like(solvers["bfloat16"], "float32")
+    if kind == "sty":
+        vit = seeded_vit("cuda")
+        for solver in solvers.values():
+            solver.set_frozen_nets(vit=vit)
     raw = sgv2_train_batches(cfg, 1, SEED + 22)[0]
-    per_fwd, per_bwd = 3 * SGV2_FWD_PER_FORWARD, 2 * SGV2_FWD_PER_FORWARD
     grads, losses = {}, {}
     paths = {"kernel": contextlib.nullcontext, "plain": lambda: plain_sgv2_norm(fused),
              "plain64": lambda: sgv2_norm(norm_in_float64)}
     for dt, solver in solvers.items():
         batch = solver._batch(raw)
-        nets = {n: list(getattr(solver, n).parameters()) for n in ("G", "M", "S")}
+        nets = {n: list(getattr(solver, n).parameters()) for n in net_names}
         for path, ctx in paths.items():
             if dt == "bfloat16" and path == "plain64":
                 continue
             fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
             with ctx():
-                loss, _ = solver.g_loss_fn(batch, latent=True)
+                loss, m = solver.g_loss_fn(batch, latent=latent)
+                if kind == "sty":
+                    loss = m["sty"]
                 flat = torch.autograd.grad(
                     loss, [p for ps in nets.values() for p in ps],
                     allow_unused=True, materialize_grads=True)
             torch.cuda.synchronize()
-            want = (per_fwd, per_bwd) if path == "kernel" else (0, 0)
-            check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == want,
-                  f"sgv2 G loss {dt} {path} path: launches "
-                  f"{nk.LAUNCHES - fwd0}/{nk.BWD_LAUNCHES - bwd0}, expected {want}")
+            expect = want if path == "kernel" else (0, 0)
+            check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == expect,
+                  f"sgv2 {kind} G loss {dt} {path} path: launches "
+                  f"{nk.LAUNCHES - fwd0}/{nk.BWD_LAUNCHES - bwd0}, expected "
+                  f"{expect}")
             start = 0
             for name, ps in nets.items():
                 grads[dt, path, name] = torch.cat(
                     [g.float().reshape(-1) for g in flat[start:start + len(ps)]])
                 start += len(ps)
             losses[dt, path] = loss.item()
-            del flat, loss
+            del flat, loss, m
+    label = "latent G loss" if kind == "adain" else "lambda_sty term"
     result = {}
-    for name in ("G", "M", "S"):
+    for name in net_names:
         def rel(a, b):
             return ((grads[(*a, name)] - grads[(*b, name)]).norm()
                     / grads[(*b, name)].norm()).item()
@@ -2415,7 +2563,7 @@ def phase_sgv2_train_agreement(nk, fused, smi):
         band32 = SGV2_TRAIN_F32_BAND + F32_CONTROL_FACTOR * c32
         band = BF16_DELTA_FACTOR * p16 + SGV2_TRAIN_F32_BAND
         result[name] = dict(f32=f32, c32=c32, k16=k16, p16=p16)
-        print(f"sgv2 latent G loss, {name}'s gradient, kernel path vs plain "
+        print(f"sgv2 {label}, {name}'s gradient, kernel path vs plain "
               f"path, relative L2: f32 (TF32 off) {f32:.3e}, the f32 plain "
               f"path with the norm in float64 vs the f32 plain path {c32:.3e} "
               f"(band {SGV2_TRAIN_F32_BAND} + {F32_CONTROL_FACTOR} x that = "
@@ -2423,24 +2571,25 @@ def phase_sgv2_train_agreement(nk, fused, smi):
               f"bf16 plain vs f32 plain {p16:.3e} (band {BF16_DELTA_FACTOR} x "
               f"that + {SGV2_TRAIN_F32_BAND} = {band:.3e}) [{smi}]")
         check(f32 <= band32,
-              f"sgv2 {name} f32 kernel path gradient differs by {f32:.3e}, "
-              f"outside {band32:.3e}")
-        check(k16 <= band, f"sgv2 {name} bf16 kernel path gradient {k16:.3e} "
-              f"from the f32 plain path, outside {band:.3e}")
+              f"sgv2 {kind} {name} f32 kernel path gradient differs by "
+              f"{f32:.3e}, outside {band32:.3e}")
+        check(k16 <= band, f"sgv2 {kind} {name} bf16 kernel path gradient "
+              f"{k16:.3e} from the f32 plain path, outside {band:.3e}")
     print(f"  losses: {json.dumps({f'{k[0]} {k[1]}': round(v, 6) for k, v in losses.items()})}")
     del solvers, grads
     free_memory()
     return result
 
 
-def sgv2_image_tree(root, seed):
-    """SGV2_CLI_IMAGES PNGs of 256^2 in each of 3 domains, smooth random
-    images from a seed."""
+def sgv2_image_tree(root, seed, domains=("cat", "dog", "wild"),
+                    count=SGV2_CLI_IMAGES):
+    """``count`` PNGs of 256^2 in each of ``domains``, smooth random images
+    from a seed."""
     from de_i2i_gan_torch.utils.png import write_png
     gen = torch.Generator().manual_seed(seed)
-    for domain in ("cat", "dog", "wild"):
+    for domain in domains:
         (root / domain).mkdir(parents=True)
-        for i in range(SGV2_CLI_IMAGES):
+        for i in range(count):
             low = torch.rand((1, 3, 8, 8), generator=gen)
             img = F.interpolate(low, size=(SGV2_IMAGE, SGV2_IMAGE),
                                 mode="bilinear", align_corners=False)[0]
@@ -2538,9 +2687,7 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
           f"debug grid {png_shape(cycle)}")
     steady = clock.steady_ms()
     fed_ms = statistics.median(steady)
-    from torch.autograd import DeviceType
-    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    dev_ms = kernel_ms(clock.prof, PROFILED_SUPER_STEPS)
     train_launches = (nk.LAUNCHES, nk.BWD_LAUNCHES)
     print(f"sgv2 train CLI (AFHQ flags, {SGV2_CLI_ITERS} iterations, batch "
           f"{SGV2_TRAIN_BATCH}, {SGV2_IMAGE}^2, bf16) in {wall_s:.1f} s: loader-fed "
@@ -2846,9 +2993,7 @@ def phase_mae_cli(nk, smi, preloaded_ms, name, *extra):
     check(read_iter_record(CLI_DIR / "ckpt", name) == (1, n), "iter.txt")
     steady = clock.steady_ms()
     fed_ms = statistics.median(steady)
-    from torch.autograd import DeviceType
-    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    dev_ms = kernel_ms(clock.prof, PROFILED_SUPER_STEPS)
     copies, streams = h2d_copies(clock.prof, CLI_DIR / f"mae_{name}_trace.json")
     keys = len(clock.keys[0])
     check(len(copies) >= keys and all("Pinned" in c[0] and c[1] not in streams
@@ -3020,9 +3165,7 @@ def phase_sgv2_pretrain(nk, smi, tree):
         check((run / f).exists(), f"the sgv2 pretrain wrote no {f}")
     steady = clock.steady_ms()
     fed_ms = statistics.median(steady)
-    from torch.autograd import DeviceType
-    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    dev_ms = kernel_ms(clock.prof, PROFILED_SUPER_STEPS)
     print(f"sgv2 pretrain CLI (AFHQ flags, patch 32, mask ratio 0.65, "
           f"{n} iterations, batch {SGV2_TRAIN_BATCH}, {SGV2_IMAGE}^2, bf16) in "
           f"{wall_s:.1f} s: loader-fed iteration, median of {len(steady)} "
@@ -3235,31 +3378,50 @@ def phase_p2p_train(nk, smi, warmup=2, timed=5):
           f" MiB, remat on {runs['remat']['peak_mb']:.1f} MiB; super-step "
           f"{runs['train_step']['ms']:.3f} / {runs['remat']['ms']:.3f} ms [{smi}]")
 
-    # 12c. remat on against off: one f32 SGD iteration on the card
+    # 12c. remat on against off: one f32 SGD iteration on the card; the
+    # remat-off step twice, so that the spread of off against off (cuDNN's
+    # choices of algorithm, its non-deterministic backward kernels) stands
+    # beside that of on against off (ROADMAP C.2)
     tcfg = TrainConfig(batch_size=1, num_critics=1, lr=(2e-2, 1e-2),
                        optimizer="sgd", ema_decay=0.999)
     batch = {k: v[0] for k, v in batches[0].items()}
     out = {}
-    for remat in (False, True):
+    for label, remat in (("off", False), ("off again", False), ("on", True)):
         steps = p2p_steps(p2p_config(compute_dtype="float32", remat=remat),
                           tcfg)
         before = param_snapshot(steps)
         m = steps.train_step(batch)
         torch.cuda.synchronize()
-        out[remat] = (steps, {k: v.item() for k, v in m.items()})
-    loss = loss_gap(out[True][1], out[False][1])
-    rel = delta_gap(out[True][0], out[False][0], before,
-                    {"G": tcfg.lr_g, "D": tcfg.lr_d})
-    stats = max((a.float() - b.float()).abs().max().item() for a, b in zip(
-        out[True][0].G.buffers(), out[False][0].G.buffers()))
+        out[label] = (steps, {k: v.item() for k, v in m.items()})
+
+    def spread(label, ref="off"):
+        (a, ma), (b, mb) = out[label], out[ref]
+        return (loss_gap(ma, mb),
+                delta_gap(a, b, before, {"G": tcfg.lr_g, "D": tcfg.lr_d}),
+                max((x.float() - y.float()).abs().max().item()
+                    for x, y in zip(a.G.buffers(), b.G.buffers())))
+
+    (loss, rel, stats), again = spread("on"), spread("off again")
+    later = spread("on", "off again")
+    remat_spread = {"on_vs_off": rel, "off_vs_off": again[1],
+                    "on_vs_off_again": later[1], "loss_on_vs_off": loss,
+                    "loss_off_vs_off": again[0],
+                    "loss_on_vs_off_again": later[0]}
     print(f"pix2pix-256 remat on vs off, one f32 SGD iteration on the card: "
           f"max loss diff {loss:.3f} x (rtol {LOSS_RTOL}); (after-before)/lr "
           f"of G and D: max per-tensor L2 diff {rel:.3f} x (band "
           f"{GRAD_REL_L2} |ref| + atol {GRAD_ATOL} sqrt(n)); G's BatchNorm "
-          f"statistics max diff {stats:.2e} [{smi}]")
+          f"statistics max diff {stats:.2e}; remat off vs off (the same step "
+          f"twice): loss {again[0]:.3f} x, deltas {again[1]:.3f} x, "
+          f"statistics {again[2]:.2e}; remat on vs the second off (both "
+          f"after the first call): loss {later[0]:.3f} x, deltas "
+          f"{later[1]:.3f} x, statistics {later[2]:.2e} (cuDNN benchmark "
+          f"{torch.backends.cudnn.benchmark}, deterministic "
+          f"{torch.backends.cudnn.deterministic}) [{smi}]")
     check(loss <= 1.0 and rel <= 1.0 and stats <= 1e-4,
           f"remat changed the step: losses {loss:.3f}, deltas {rel:.3f}, "
           f"statistics {stats:.2e}")
+    runs["remat_spread"] = remat_spread
     del out, steps
     free_memory()
 
@@ -3320,9 +3482,7 @@ def phase_p2p_cli(nk, smi, preloaded_ms, name, *extra):
           f"{label}: panel {png_shape(panel)}")
     steady = clock.steady_ms()
     fed_ms = statistics.median(steady)
-    from torch.autograd import DeviceType
-    dev_ms = sum(e.self_device_time_total for e in clock.prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / (1e3 * PROFILED_SUPER_STEPS)
+    dev_ms = kernel_ms(clock.prof, PROFILED_SUPER_STEPS)
     copies, streams = h2d_copies(clock.prof, CLI_DIR / f"p2p_{name}_trace.json")
     check(len(copies) >= len(clock.keys[0])
           and all("Pinned" in c[0] and c[1] not in streams for c in copies),
@@ -3606,6 +3766,547 @@ def phase_wgan_cli(nk, smi):
     return out
 
 
+# --------------------------------------------- 14. the frozen ViT (SEAN)
+
+
+def seeded_vit(device, dtype=torch.float32):
+    """ViT-B/16 (hidden 768, 12 layers, 224^2) with weights from SEED,
+    drawn on ``device``."""
+    from de_i2i_gan_torch.models.vit import ViTEncoder
+    return ViTEncoder("base", dtype=dtype, device=device,
+                      generator=torch.Generator(device).manual_seed(SEED))
+
+
+def rel_l2(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_vit(nk, smi):
+    """14a. ViT-B/16 from a seed: the last hidden state of 2 images of
+    256^2 (resized to 224^2) on the card against the CPU, f32 with TF32 off,
+    relative L2 within VIT_F32_BAND; then batch-32 embedding requests in
+    bf16 through ``FeatureExtractor``: host and device time, peak memory,
+    no norm-kernel launch."""
+    from de_i2i_gan_torch.models.vit import FeatureExtractor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(
+        SEED + 60)) * 2 - 1
+    cpu = seeded_vit("cpu")
+    with torch.no_grad():
+        ref = cpu(x)
+        out = copy.deepcopy(cpu).to("cuda")(x.cuda())
+    err = rel_l2(out, ref)
+    print(f"ViT-B/16 at 224^2 from 256^2, f32 (TF32 off), card vs CPU: last "
+          f"hidden state {tuple(out.shape)}, relative L2 {err:.3e} (band "
+          f"{VIT_F32_BAND}) [{smi}]")
+    check(out.shape == (2, 197, 768) and err <= VIT_F32_BAND,
+          f"ViT card vs CPU: {tuple(out.shape)}, relative L2 {err:.3e}")
+    del cpu, out
+    free_memory()
+
+    fe = FeatureExtractor(seeded_vit("cuda", torch.bfloat16))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    reqs = [torch.rand((VIT_BATCH, 256, 256, 3), generator=gen, device="cuda")
+            * 2 - 1 for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    times = []
+    for i in range(2 + VIT_TIMED):
+        t0 = time.perf_counter()
+        emb = fe.extract(reqs[i % 2], 1)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check(emb.shape == (VIT_BATCH, 1, 768) and emb.dtype == torch.bfloat16
+          and bool(torch.isfinite(emb).all()), f"ViT embeddings {emb.shape}")
+    check(launches == {"fwd": 0, "bwd": 0}, f"the ViT launched {launches}")
+    dev_ms = device_ms(lambda i: fe.extract(reqs[i % 2], 1), VIT_TIMED)
+    ms = statistics.median(times)
+    print(f"ViT-B/16 embedding request, batch {VIT_BATCH} of 256^2, bf16: "
+          f"host {ms:.3f} ms (median of {len(times)}), device {dev_ms:.3f} ms "
+          f"({VIT_BATCH * 1e3 / dev_ms:.1f} img/s), peak {peak_mb:.1f} MiB, "
+          f"norm-kernel launches {launches} [{smi}]")
+    del fe, reqs
+    free_memory()
+    return dict(launches=launches, ms=ms, dev_ms=dev_ms, peak_mb=peak_mb,
+                err=err)
+
+
+def phase_vit_cli(nk, smi):
+    """14b. ``cli.train_vit`` for one epoch on the synthetic DefectGAN data
+    (ViT-B from the CLI's seed, 224^2, batch VIT_BATCH), ``cli.test_vit
+    --save_embeddings --calc_classifier_acc``, then that bank as DefectGAN
+    SEAN's ``--embed_path`` through ``cli.train_defectgan`` for an epoch:
+    exactly 56/16 launches a super-step, the bank's embeddings at the
+    step."""
+    from de_i2i_gan_torch.cli import test_vit, train_vit
+    from de_i2i_gan_torch.cli.train_defectgan import main as train_main
+    from de_i2i_gan_torch.data.embeddings import EmbeddingBank
+
+    root = CLI_DIR / "vit"
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--name", "vit", "--dataset_name", "synthetic", "--batch_size",
+            str(VIT_BATCH), "--ckpt_dir", str(root / "ckpt"), "--log_dir",
+            str(root / "logs")]
+    t0 = time.perf_counter()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the ViT CLIs' run starts here
+    steps = train_vit.main(base + ["--num_epochs", "1"])
+    t1 = time.perf_counter()
+    out = test_vit.main(base + ["--results_dir", str(root / "results"),
+                                "--save_embeddings", "--calc_classifier_acc"])
+    vit_launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    check(steps.step == 512 // VIT_BATCH and vit_launches == {"fwd": 0, "bwd": 0},
+          f"train_vit: {steps.step} steps, launches {vit_launches}")
+    bank = EmbeddingBank.load(out["embeddings_path"])
+    check(bank.embed_nc == 768 and bank.label_nc == 6
+          and int(bank.counts.sum()) == 64, f"the ViT bank: {bank.embed_nc} "
+          f"wide, {int(bank.counts.sum())} embeddings")
+    print(f"ViT CLIs: train_vit one epoch ({steps.step} head steps of "
+          f"{VIT_BATCH}) {t1 - t0:.1f} s; test_vit accuracy "
+          f"{out['accuracy']:.3f}, loss {out['loss']:.4f}, bank of "
+          f"{int(bank.counts.sum())} embeddings over "
+          f"{int((bank.counts > 0).sum())} labels in "
+          f"{time.perf_counter() - t1:.1f} s [{smi}]")
+
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the SEAN trainer's run starts here
+    with SuperStepClock(nk) as clock:
+        trainer = train_main(cli_args(
+            "vit_bank", "--style_norm_block_type", "sean", "--embed_path",
+            str(out["embeddings_path"]), "--num_epochs", "1"))
+    launches = check_trainer_launches(nk, clock, "train CLI sean with the "
+                                      "ViT bank", trainer.cfg)  # ... ends here
+    check_trained(trainer, "train CLI sean with the ViT bank")
+    check(all("df_embeds" in k and "nm_embeds" in k for k in clock.keys),
+          "the ViT bank's embeddings did not reach the step")
+    print(f"train CLI sean --embed_path <the ViT bank>: {len(clock.ends)} "
+          f"super-steps, loader-fed super-step ms median "
+          f"{statistics.median(clock.steady_ms()):.3f}, launches {launches} "
+          f"({launches['fwd'] // len(clock.ends)}/"
+          f"{launches['bwd'] // len(clock.ends)} a super-step) [{smi}]")
+    del trainer, clock, steps
+    free_memory()
+    return dict(launches=vit_launches), dict(launches=launches)
+
+
+def phase_sgv2_sean_vit(nk, smi):
+    """14c. StarGAN v2 SEAN with lambda_sty through the solver: the AFHQ
+    flags at batch 8, 256^2, bf16, (8, 5, 768) embeddings made on the card,
+    ViT-B attached by ``set_frozen_nets``. SGV2_SEAN_ITERS warm-up and timed
+    iterations (exactly 48/24 launches each: the ViT adds none), the style
+    term live, peak memory, a profiled iteration, and the ViT's share of its
+    device time, read from that profile: the kernels of the solver's
+    ``solver.embed_fake`` range and of their backward."""
+    cfg = sgv2_train_config("sean", allow_degraded_losses=False)
+    solver = sgv2_trainer(cfg)
+    solver.set_frozen_nets(vit=seeded_vit("cuda"))
+    warmup, timed = SGV2_SEAN_ITERS
+    batches = sgv2_train_batches(cfg, warmup + timed, SEED + 62)
+    draws = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    per_fwd, per_bwd = (SGV2_FWD_PER_FORWARD * n for n in SGV2_G_PASSES["sean"])
+
+    def step(batch):
+        m = solver.train_step(batch, draws)
+        solver.update_sean_stats()
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    times, metrics = [], []
+    for i, batch in enumerate(batches):
+        fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == (per_fwd, per_bwd),
+              f"sgv2 sean+ViT iteration {i}: {nk.LAUNCHES - fwd0}/"
+              f"{nk.BWD_LAUNCHES - bwd0} launches, expected {per_fwd}/{per_bwd}")
+        metrics.append({k: v.item() for k, v in m.items()})
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check(all(math.isfinite(v) for m in metrics for v in m.values())
+          and all(m["G/ref_sty"] > 0 for m in metrics),
+          f"sgv2 sean+ViT losses {metrics[-1]}")
+    check(solver.vit.dtype == torch.bfloat16
+          and not any(p.requires_grad for p in solver.vit.parameters()),
+          "the solver's ViT is not the frozen bf16 copy")
+    ms = sum(times) / len(times)
+    prof = profiled(lambda: step(batches[-1]), 1)
+    dev_ms = report_profile(prof, 1, "sgv2 sean+ViT iteration", ms, smi)
+    vit_fwd, vit_bwd = range_device_ms(prof, "solver.embed_fake", 1)
+    check(dev_ms is None or (vit_fwd > 0 and vit_bwd > 0 and not any(
+        e.key == "solver.embed_fake" for e in device_kernels(prof))),
+          f"the profiled iteration's ViT: forward {vit_fwd:.3f} ms, backward "
+          f"{vit_bwd:.3f} ms, or its range summed as a kernel")
+    share = None if dev_ms is None else (vit_fwd + vit_bwd) / dev_ms
+    print(f"training StarGAN v2 AFHQ sean with lambda_sty (ViT-B/16 frozen, "
+          f"bf16, batch {SGV2_TRAIN_BATCH}): iteration ms "
+          f"{[round(v, 3) for v in times]} mean {ms:.3f}, kernels "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, of "
+          f"which the ViT (profiled range solver.embed_fake) forward "
+          f"{vit_fwd:.3f} ms + backward {vit_bwd:.3f} ms = "
+          f"{'not measured' if share is None else f'{share:.1%}'}; peak "
+          f"{peak_mb:.1f} MiB, launches "
+          f"{launches} ({per_fwd}/{per_bwd} an iteration); losses, last "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})} "
+          f"[{smi}]")
+    del solver, batches
+    free_memory()
+    return dict(launches=launches, ms=ms, dev_ms=dev_ms, vit_fwd_ms=vit_fwd,
+                vit_bwd_ms=vit_bwd, share=share, peak_mb=peak_mb)
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output kept; returns (its result,
+    the output)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    out = buf.getvalue()
+    print("\n".join(out.splitlines()[-6:]))
+    return result, out
+
+
+def logged_losses(out, prefix="Iteration ["):
+    """{name: value} of the last line of ``out`` that starts with
+    ``prefix``."""
+    line = [ln for ln in out.splitlines() if ln.startswith(prefix)][-1]
+    return {k: float(v) for k, v in re.findall(r"(\S+): \[([-\d.e]+)\]", line)}
+
+
+def phase_sgv2_sean_cli(nk, smi):
+    """14d. ``cli.starganv2_main --norm_type sean --vit_path <a .bin with
+    HF key names, written here from ViT-B's seed>`` on 10d's image tree with
+    the AFHQ flags: SGV2_SEAN_CLI_ITERS loader-fed iterations (exactly 48/24
+    launches each; the fetcher's f32 ViT and the loss's bf16 copy launch no
+    norm kernel), the style term live, then ``--mode update_stats`` from
+    that checkpoint (12 forward launches a tracked batch)."""
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.models.vit import hf_state_dict
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+
+    root = CLI_DIR / "sgv2_sean"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "vit").mkdir(parents=True)
+    torch.save({f"vit.{k}": v for k, v in hf_state_dict(seeded_vit("cuda")).items()},
+               root / "vit" / "pytorch_model.bin")
+    tree = CLI_DIR / "sgv2" / "afhq"
+    n = SGV2_SEAN_CLI_ITERS
+    base = [*SGV2_AFHQ, "--norm_type", "sean", "--vit_path", str(root / "vit"),
+            "--img_size", str(SGV2_IMAGE), "--batch_size", str(SGV2_TRAIN_BATCH),
+            "--train_img_dir", str(tree), "--val_img_dir", str(tree),
+            "--checkpoint_dir", str(root / "ckpt"), "--sample_dir",
+            str(root / "samples"), "--device", CARD]
+    per_fwd, per_bwd = (SGV2_FWD_PER_FORWARD * k for k in SGV2_G_PASSES["sean"])
+    t0 = time.perf_counter()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's runs start here
+    with SuperStepClock(nk, target=(StarGANv2Solver, "train_step")) as clock:
+        solver, out = run_cli(sgv2_cli.main, base + [
+            "--mode", "train", "--total_iters", str(n), "--save_every", str(n),
+            "--sample_every", "1000", "--print_every", str(n)])
+    prev = (0, 0)
+    for i, cur in enumerate(clock.launches):
+        check((cur[0] - prev[0], cur[1] - prev[1]) == (per_fwd, per_bwd),
+              f"sgv2 sean CLI iteration {i}: {cur[0] - prev[0]}/"
+              f"{cur[1] - prev[1]} launches, expected {per_fwd}/{per_bwd}")
+        prev = cur
+    losses = logged_losses(out)
+    check(len(clock.ends) == n and solver.step == n and solver.vit is not None
+          and losses["G/ref_sty"] > 0 and all(clock.on_card),
+          f"sgv2 sean CLI: {len(clock.ends)} iterations, losses {losses}")
+    train_s = time.perf_counter() - t0
+    del solver
+    free_memory()
+    fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+    run_cli(sgv2_cli.main, base + ["--mode", "update_stats", "--resume_iter",
+                                   str(n), "--num_stats_samples",
+                                   str(SGV2_STATS_SAMPLES)])
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+    tracked = (launches["fwd"] - fwd0) // SGV2_FWD_PER_FORWARD
+    check(tracked > 0 and launches["fwd"] - fwd0 == tracked * SGV2_FWD_PER_FORWARD
+          and launches["bwd"] == bwd0, f"update_stats launches {launches}")
+    saved = read_checkpoint(root / "ckpt", "starganv2", "stats_updated")
+    means = [v for k, v in saved["ema_G"].items() if k.endswith(".mean")]
+    check(means and all(bool(torch.isfinite(v).all()) for v in means),
+          "update_stats: the finalized running styles")
+    print(f"sgv2 CLI sean --vit_path (HF keys, ViT-B from a seed): {n} "
+          f"iterations in {train_s:.1f} s, lambda_sty {losses['G/ref_sty']:.4f}"
+          f", {per_fwd}/{per_bwd} launches an iteration; update_stats "
+          f"{tracked} tracked batches of {SGV2_TRAIN_BATCH} "
+          f"({SGV2_FWD_PER_FORWARD} forward launches each), "
+          f"{time.perf_counter() - t0 - train_s:.1f} s; launches {launches} "
+          f"[{smi}]")
+    return dict(launches=launches)
+
+
+# ------------------------------------------------ 15. the FAN (CelebA-HQ)
+
+
+def sparse_fan(device):
+    """The FAN from SEED (drawn on the CPU) with its landmark head shifted
+    channel by channel so that FAN_ACTIVE of the pixels of a calibration
+    image (drawn from SEED + 71) cross preprocess_heatmaps' 0.1 threshold;
+    a channel's argmax, and so the landmarks, stay where they were."""
+    from de_i2i_gan_torch.models import wing
+
+    fan = wing.make_fan("cpu", SEED)
+    x = torch.rand((1, 256, 256, 3), generator=torch.Generator().manual_seed(
+        SEED + 71)) * 2 - 1
+    with torch.no_grad():
+        hm = wing.landmark_heatmaps(fan, x).reshape(-1, 98)
+        fan.l0.bias[:98] += 0.1 - torch.quantile(hm, 1 - FAN_ACTIVE, dim=0)
+    return fan.to(device)
+
+
+def bump_heatmaps(seed, n=2, size=64):
+    """Landmark-like FAN output (N, size, size, 98): one Gaussian bump a
+    channel, peaks from 0.3 to 1.2, over noise below 0.02."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    out = []
+    for _ in range(n):
+        cy, cx = rng.uniform(8, size - 8, (2, 98))
+        width = rng.uniform(2, 6, 98)
+        hm = np.exp(-((yy[..., None] - cy) ** 2 + (xx[..., None] - cx) ** 2)
+                    / (2 * width ** 2))
+        out.append(hm * rng.uniform(0.3, 1.2, 98)
+                   + rng.uniform(0, 0.02, hm.shape))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+def check_masks_flat(masks, label):
+    """Masks that neither clip to 1 nor vanish everywhere; returns their
+    means."""
+    means = [m.float().mean().item() for m in masks]
+    check(all(0.01 < v < 0.99 for v in means), f"{label}: mask means {means}")
+    return means
+
+
+def phase_fan(nk, smi):
+    """15a. FAN from a seed at 256^2, its head shifted by ``sparse_fan``:
+    the 98 landmark heatmaps before the 0.1 threshold on the card against
+    the CPU (f32, TF32 off, 2 images), relative L2 within FAN_BAND; the
+    masks' steps on the same non-flat input on the card against the CPU,
+    within MASK_ATOL (bump heatmaps from a seed: the 64 -> 256 upsample,
+    preprocess_heatmaps on the CPU's upsample, the generator's antialiased
+    resize of the masks to 32/64/128); the FAN's masks end to end, printed
+    (the threshold can flip a pixel), not flat on either; then the two masks
+    of a batch of 8 timed on the card, no norm-kernel launch."""
+    from de_i2i_gan_torch.models import wing
+    from de_i2i_gan_torch.models.vit import resize_bilinear
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = sparse_fan("cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(
+        SEED + 65)) * 2 - 1
+    with torch.no_grad():
+        ref = wing.landmark_heatmaps(cpu, x)
+        got = wing.landmark_heatmaps(card, x.cuda())
+    err = rel_l2(got, ref)
+    check(got.shape == (2, 64, 64, 98) and err <= FAN_BAND,
+          f"FAN card vs CPU: relative L2 {err:.3e}")
+    ends = [wing.fan_masks(cpu, x), wing.fan_masks(card, x.cuda())]
+    flips = [[((a.cpu() - b).abs() > tol).float().mean().item()
+              for a, b in zip(ends[1], ends[0])] for tol in (MASK_ATOL, 1e-2)]
+    fan_means = [check_masks_flat(m, f"the FAN's masks on the {d}")
+                 for m, d in zip(ends, ("CPU", "card"))]
+
+    # the masks' steps on the same input
+    hm = bump_heatmaps(SEED + 72).permute(0, 3, 1, 2)
+    up = resize_bilinear(hm, 256)
+    steps = {"upsample": (resize_bilinear(hm.cuda(), 256), up)}
+    up = up.permute(0, 2, 3, 1)
+    masks = wing.preprocess_heatmaps(up)
+    steps.update(zip(("mask 1", "mask 2"),
+                     zip(wing.preprocess_heatmaps(up.cuda()), masks)))
+    for size in (32, 64, 128):
+        m = masks[0] if size == 32 else masks[1]
+        m = m.permute(0, 3, 1, 2)
+        steps[f"resize to {size}"] = (resize_bilinear(m.cuda(), size),
+                                      resize_bilinear(m, size))
+    diffs = {k: (a.cpu() - b).abs().max().item() for k, (a, b) in steps.items()}
+    bump_means = check_masks_flat(masks, "the bump heatmaps' masks")
+    check(max(diffs.values()) <= MASK_ATOL,
+          f"the masks' steps card vs CPU: {diffs} (atol {MASK_ATOL})")
+    print(f"FAN at 256^2, f32 (TF32 off), card vs CPU: heatmaps "
+          f"{tuple(got.shape)} relative L2 {err:.3e} (band {FAN_BAND}); its "
+          f"masks end to end (the threshold flips pixels near 0.1): "
+          f"{flips[0][0]:.2e} / {flips[0][1]:.2e} of the pixels differ by "
+          f"more than {MASK_ATOL}, {flips[1][0]:.2e} / {flips[1][1]:.2e} by "
+          f"more than 1e-2, means "
+          f"{[round(v, 4) for v in fan_means[1]]}; the masks' steps on bump "
+          f"heatmaps (mask means {[round(v, 4) for v in bump_means]}), max "
+          f"abs diff {json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})}"
+          f" (atol {MASK_ATOL}) [{smi}]")
+    del cpu, ends, steps
+    xb = torch.rand((SGV2_TRAIN_BATCH, 256, 256, 3), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED + 66))
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    m1, m2 = wing.fan_masks(card, xb)
+    fan_ms = device_ms(lambda i: wing.fan_masks(card, xb), 5)
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    check(launches == {"fwd": 0, "bwd": 0} and m1.shape == (8, 256, 256, 1)
+          and bool(torch.isfinite(m1).all() and torch.isfinite(m2).all()),
+          f"FAN masks: launches {launches}")
+    print(f"FAN masks of a batch of {SGV2_TRAIN_BATCH} at 256^2 (f32): "
+          f"{fan_ms:.3f} ms on the card; mask means {m1.mean().item():.4f} / "
+          f"{m2.mean().item():.4f} [{smi}]")
+    del xb
+    free_memory()
+    return dict(launches=launches, fan_ms=fan_ms, err=err, fan=card)
+
+
+def phase_sgv2_celeba_cli(nk, smi, fan):
+    """15b. The upstream README's CelebA-HQ command (SGV2_CELEBA: w_hpf 1,
+    AdaIN) at batch 8, 256^2, bf16, with ``--wing_ckpt`` (15a's FAN under
+    the reference's key names), on an image tree of 2 domains:
+    SGV2_CELEBA_ITERS loader-fed iterations. Each takes the FAN's masks of
+    x_src and of both passes' x_fake, none of them flat; the kernels' calls
+    are counted by shape, the same each iteration, G's passes times one
+    masked G forward's CELEBA_TRAIN_SHAPES; a profiled window gives the
+    iteration's device time and the FAN's share of it (the kernels of the
+    solver's ``solver.heatmaps`` range)."""
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.models import wing
+    from de_i2i_gan_torch.train.solver import StarGANv2Solver
+
+    root = CLI_DIR / "sgv2_celeba"
+    shutil.rmtree(root, ignore_errors=True)
+    tree = sgv2_image_tree(root / "celeba_hq", SEED + 67, ("female", "male"))
+    wing_ckpt = root / "wing.ckpt"
+    torch.save({"state_dict": wing.wing_state_dict(fan)}, wing_ckpt)
+    n = SGV2_CELEBA_ITERS
+    mask_calls, real = [], wing.fan_masks
+
+    def counted(fan, x):
+        masks = real(fan, x)  # their means read after the run (no sync)
+        mask_calls.append((tuple(x.shape),
+                           torch.stack([m.float().mean() for m in masks])))
+        return masks
+
+    wing.fan_masks = counted
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+    try:
+        with tally_calls(nk) as calls, SuperStepClock(
+                nk, profile_at=CELEBA_PROFILE_AT,
+                target=(StarGANv2Solver, "train_step")) as clock:
+            solver, out = run_cli(sgv2_cli.main, [
+                *SGV2_CELEBA, "--img_size", str(SGV2_IMAGE), "--batch_size",
+                str(SGV2_TRAIN_BATCH), "--train_img_dir", str(tree),
+                "--val_img_dir", str(tree), "--checkpoint_dir",
+                str(root / "ckpt"), "--sample_dir", str(root / "samples"),
+                "--device", CARD, "--wing_ckpt", str(wing_ckpt), "--mode",
+                "train", "--total_iters", str(n), "--save_every", "1000",
+                "--sample_every", "1000", "--print_every", str(n)])
+    finally:
+        wing.fan_masks = real
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    steps, prev = [], (0, 0)
+    for cur in clock.launches:
+        steps.append((cur[0] - prev[0], cur[1] - prev[1]))
+        prev = cur
+    check(len(steps) == n and len(set(steps)) == 1 and all(clock.on_card),
+          f"CelebA-HQ CLI iterations' launches {steps}")
+    check([c[0] for c in mask_calls]
+          == [(SGV2_TRAIN_BATCH, SGV2_IMAGE, SGV2_IMAGE, 3)] * 3 * n,
+          f"CelebA-HQ CLI: FAN mask calls {mask_calls[:4]}... ({len(mask_calls)})")
+    means = [v for c in mask_calls for v in c[1].tolist()]
+    check(all(0.01 < v < 0.99 for v in means),
+          f"CelebA-HQ CLI: flat masks, means {min(means)} .. {max(means)}")
+    g_fwd, g_bwd = SGV2_G_PASSES["adain"]
+    check(calls["fwd"] == Counter({s: n * g_fwd * c
+                                   for s, c in CELEBA_TRAIN_SHAPES.items()})
+          and calls["bwd"] == Counter({s: n * g_bwd * c
+                                       for s, c in CELEBA_TRAIN_SHAPES.items()}),
+          f"CelebA-HQ CLI calls by shape over {n} iterations: {calls}")
+    # one masked G forward, counted alone (outside the path's run)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 68)
+    x = torch.rand((SGV2_TRAIN_BATCH, SGV2_IMAGE, SGV2_IMAGE, 3),
+                   generator=gen, device="cuda") * 2 - 1
+    y = torch.randint(0, 2, (SGV2_TRAIN_BATCH,), generator=gen, device="cuda")
+    with torch.no_grad():
+        s = solver.M(torch.randn((SGV2_TRAIN_BATCH, 16), generator=gen,
+                                 device="cuda"), y)
+        masks = solver._heatmaps(x)
+        with tally_calls(nk) as one:
+            fwd0 = nk.LAUNCHES
+            solver.G(x, s, masks, labels=y)
+            per_forward = nk.LAUNCHES - fwd0
+    check(one["fwd"] == Counter(CELEBA_TRAIN_SHAPES) and not one["bwd"]
+          and per_forward == CELEBA_FWD_PER_FORWARD
+          and steps[0] == (g_fwd * per_forward, g_bwd * per_forward),
+          f"CelebA-HQ: {per_forward} forward launches a masked G forward "
+          f"({dict(one['fwd'])}), {steps[0]} an iteration")
+    losses = logged_losses(out)
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"CelebA-HQ CLI losses {losses}")
+    dev_ms = kernel_ms(clock.prof, PROFILED_SUPER_STEPS)
+    fan_ms, fan_bwd = range_device_ms(clock.prof, "solver.heatmaps",
+                                      PROFILED_SUPER_STEPS)
+    check(fan_bwd == 0 and (dev_ms == 0 or fan_ms > 0),
+          f"the profiled FAN: {fan_ms:.3f} ms, backward {fan_bwd:.3f} ms")
+    fed_ms = statistics.median(clock.steady_ms())
+    share = fan_ms / dev_ms if dev_ms else None
+    print(f"sgv2 CLI CelebA-HQ (w_hpf 1, --wing_ckpt, AdaIN, batch "
+          f"{SGV2_TRAIN_BATCH}, bf16): {n} iterations, loader-fed iteration "
+          f"median {fed_ms:.3f} ms, kernels {dev_ms:.3f} ms an iteration "
+          f"(busy {dev_ms / fed_ms:.1%}), of which the FAN's 3 mask calls "
+          f"(profiled range solver.heatmaps) {fan_ms:.3f} ms = "
+          f"{'not measured' if share is None else f'{share:.1%}'}; mask means "
+          f"{min(means):.4f} .. {max(means):.4f}; {per_forward} forward "
+          f"launches a masked G forward ({dict(one['fwd'])}), "
+          f"{steps[0][0]}/{steps[0][1]} an iteration; launches {launches} "
+          f"[{smi}]")
+    del solver
+    free_memory()
+    return dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, fan_ms=fan_ms,
+                share=share, per_forward=per_forward, per_iteration=steps[0],
+                calls=calls, iterations=n, wing_ckpt=wing_ckpt)
+
+
+def phase_align_cli(nk, smi, wing_ckpt):
+    """15c. ``cli.starganv2_main --mode align`` on ALIGN_FACES synthetic
+    faces of 256^2 with 15b's ``--wing_ckpt`` and an ``--lm_path`` of mean
+    landmarks written here from a seed: the aligned PNGs, no launch."""
+    import numpy as np
+
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+
+    root = CLI_DIR / "align"
+    shutil.rmtree(root, ignore_errors=True)
+    sgv2_image_tree(root / "in", SEED + 69, ("faces",), ALIGN_FACES)
+    rng = np.random.default_rng(SEED + 70)
+    np.savez(root / "lm.npz", mean=rng.uniform(60, 200, (98, 2)).astype(np.float32))
+    faces = sorted((root / "in" / "faces").glob("*.png"))
+    t0 = time.perf_counter()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    written = sgv2_cli.main(["--mode", "align", "--device", CARD, "--img_size",
+                             str(SGV2_IMAGE), "--inp_dir", str(root / "in" / "faces"),
+                             "--out_dir", str(root / "out"), "--lm_path",
+                             str(root / "lm.npz"), "--wing_ckpt", str(wing_ckpt)])
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    check([p.name for p in written] == [p.name for p in faces]
+          and all(png_shape(p) == (SGV2_IMAGE, SGV2_IMAGE) for p in written)
+          and launches == {"fwd": 0, "bwd": 0},
+          f"align: {[p.name for p in written]}, launches {launches}")
+    print(f"sgv2 CLI --mode align: {len(written)} faces of {SGV2_IMAGE}^2 "
+          f"aligned in {time.perf_counter() - t0:.1f} s [{smi}]")
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3837,6 +4538,43 @@ def main() -> int:
     wgan_cli = phase_wgan_cli(nk, smi)
     wgan_s = time.perf_counter() - wgan_started
 
+    # 14. the frozen ViT: ViT-B card vs CPU and a bf16 request (14a), the
+    # ViT CLIs and their bank feeding DefectGAN SEAN (14b), StarGAN v2 SEAN
+    # with lambda_sty through the solver (14c) and its G gradient kernel vs
+    # plain, the SEAN CLI with --vit_path and update_stats (14d)
+    vit_started = time.perf_counter()
+    vit = phase_vit(nk, smi)
+    vit_cli, vit_bank = phase_vit_cli(nk, smi)
+    sgv2_vit = phase_sgv2_sean_vit(nk, smi)
+    sty_agree = phase_sgv2_train_agreement(nk, fused, smi, "sty")
+    sgv2_vit_cli = phase_sgv2_sean_cli(nk, smi)
+    vit_s = time.perf_counter() - vit_started
+
+    # 15. the FAN: card vs CPU and the masks (15a), the CelebA-HQ command
+    # with --wing_ckpt (15b), --mode align (15c); first both kernels at the
+    # shapes of the CelebA-HQ path that 10a does not hold (w_hpf 1's 8^2
+    # rows), against the plain version in every tier and timed
+    fan_started = time.perf_counter()
+    c_shapes = tuple(s for s in CELEBA_TRAIN_SHAPES if s not in SGV2_TRAIN_SHAPES)
+    celeba_fwd_worst = phase_fwd_vs_plain(nk, fused, smi, c_shapes, (None,),
+                                          boundaries=False)
+    celeba_bwd_worst = phase_bwd_vs_plain(nk, fused, smi, c_shapes, (None,),
+                                          boundaries=False)
+    fwd_celeba_rows = phase_fwd_timing(nk, fused, c_shapes, smi)
+    bwd_celeba_rows = phase_bwd_timing(nk, fused, smi, c_shapes,
+                                       SGV2_LIBRARY_SUM_BAND)
+    for kind, rows in (("fwd", fwd_celeba_rows), ("bwd", bwd_celeba_rows)):
+        for r in rows:
+            print(f"CelebA-HQ shape {tuple(r['shape'])} {kind}: tier "
+                  f"{r['tier']}, kernel {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%} of it, "
+                  f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f}"
+                  f" ms [{smi}]")
+    fan = phase_fan(nk, smi)
+    celeba = phase_sgv2_celeba_cli(nk, smi, fan.pop("fan"))
+    align = phase_align_cli(nk, smi, celeba["wing_ckpt"])
+    fan_s = time.perf_counter() - fan_started
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
@@ -3858,7 +4596,11 @@ def main() -> int:
              "wgan": wgan["clipping"], "wgan_gp": wgan["gp"],
              "wgan_cli": wgan_cli["wgan"],
              "wgan_cli_native": wgan_cli["wgan_native"],
-             "wgan_resume": wgan_cli["wgan_resume"]}
+             "wgan_resume": wgan_cli["wgan_resume"],
+             "vit_request": vit, "vit_cli": vit_cli,
+             "vit_bank_sean": vit_bank, "sgv2_sean_vit": sgv2_vit,
+             "sgv2_sean_vit_cli": sgv2_vit_cli, "fan": fan,
+             "sgv2_celeba_cli": celeba, "align_cli": align}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
@@ -3868,7 +4610,8 @@ def main() -> int:
             "AdaIN training iteration at batch 8; per_mae_super_step: over "
             "one DefectGAN MAE super-step at batch 32; "
             "per_sgv2_pretrain_iteration: over one StarGAN v2 AdaIN "
-            "pretraining iteration at batch 8")
+            "pretraining iteration at batch 8; per_sgv2_celeba_iteration: "
+            "over one iteration of the CelebA-HQ command (w_hpf 1) at batch 8")
     fwd_sgv2_rows = with_calls(fwd_sgv2_rows, sgv2_adain["calls"],
                                sgv2_adain["forwards"])
     sgv2t_rows = {kind: with_calls(rows, sgv2_train["calls"][kind],
@@ -3913,6 +4656,17 @@ def main() -> int:
         {**per_iteration(sgv2t_rows["bwd"]),
          **mae_paths("bwd", bwd_mae_rows, bwd_sgv2t_rows)})
     fwd["launch_floor_ms"], bwd["launch_floor_ms"] = floor["fwd_ms"], floor["bwd_ms"]
+    # the CelebA-HQ command (w_hpf 1): the calls of one masked G forward, as
+    # counted in 15b, and the kernels' time over one iteration's calls (15's
+    # rows at its 8^2 shape, 10a's at the others)
+    fwd["calls_per_sgv2_celeba_g_forward"] = celeba["per_forward"]
+    for rec, kind, rows in ((fwd, "fwd", fwd_celeba_rows + fwd_sgv2t_rows),
+                            (bwd, "bwd", bwd_celeba_rows + bwd_sgv2t_rows)):
+        rec.update(per_path("per_sgv2_celeba_iteration", with_calls(
+            [r for r in rows if tuple(r["shape"]) in CELEBA_TRAIN_SHAPES],
+            celeba["calls"][kind], celeba["iterations"])))
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], celeba_fwd_worst)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], celeba_bwd_worst)
     record = {"kernels": [fwd, bwd]}
     report_tiers(record, smi)
     print(f"per super-step ({sum(train_calls['fwd'].values())} forward, "
@@ -4014,12 +4768,33 @@ def main() -> int:
           f"(kernels {busy_ms(wgan['gp']['dev_ms'])}), peak "
           f"{wgan['gp']['peak_mb']:.1f} MiB; norm-kernel launches 0 on every "
           f"WGAN path [{smi}]")
+    print(f"frozen nets: ViT-B/16 card vs CPU relative L2 {vit['err']:.3e}, a "
+          f"batch-{VIT_BATCH} bf16 request {vit['dev_ms']:.3f} ms on the card, "
+          f"peak {vit['peak_mb']:.1f} MiB; StarGAN v2 SEAN with lambda_sty "
+          f"{sgv2_vit['ms']:.3f} ms an iteration (kernels "
+          f"{busy_ms(sgv2_vit['dev_ms'])}), of which the ViT "
+          f"{sgv2_vit['vit_fwd_ms'] + sgv2_vit['vit_bwd_ms']:.3f} ms "
+          f"(profiled), peak {sgv2_vit['peak_mb']:.1f} MiB; "
+          f"G's lambda_sty gradient agreement {sty_agree}; FAN card vs CPU "
+          f"{fan['err']:.3e}, masks of 8 {fan['fan_ms']:.3f} ms; CelebA-HQ "
+          f"with the FAN {celeba['ms']:.3f} ms an iteration (kernels "
+          f"{busy_ms(celeba['dev_ms'])}), of which the FAN "
+          f"{celeba['fan_ms']:.3f} ms (profiled), {celeba['per_forward']} "
+          f"forward launches a G forward, {celeba['per_iteration']} an "
+          f"iteration, norm kernels "
+          f"{fwd['per_sgv2_celeba_iteration']['ms']:.4f} + "
+          f"{bwd['per_sgv2_celeba_iteration']['ms']:.4f} ms an iteration "
+          f"(bounds {fwd['per_sgv2_celeba_iteration']['bound_ms']:.4f} + "
+          f"{bwd['per_sgv2_celeba_iteration']['bound_ms']:.4f}); remat 12c "
+          f"spread on vs off {p2p['remat_spread']['on_vs_off']:.3f}, off vs "
+          f"off {p2p['remat_spread']['off_vs_off']:.3f}, on vs off again "
+          f"{p2p['remat_spread']['on_vs_off_again']:.3f} of the band [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
           f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s, 10a-10d {train_s:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())}), 11 "
           f"{mae_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in mae_split.items())}), "
           f"12 {p2p_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in p2p_split.items())}), "
-          f"13 {wgan_s:.1f} s")
+          f"13 {wgan_s:.1f} s, 14 {vit_s:.1f} s, 15 {fan_s:.1f} s")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,12 +13,35 @@
     python -m de_i2i_gan_torch.cli.starganv2_main --mode train \
         --pretrain_dir expr/checkpoints ...
 
-Modes ``train`` (the AdaIN decoder), ``pretrain`` (MAE repair pretraining,
-main.py:76-112) and ``sample``. The nets run on CUDA device 0; ``--device
-cpu`` runs them on the CPU. Checkpoints go to
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode train \
+        --norm_type sean --vit_path /path/to/hf_vit --embed_nc 768 ...
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode update_stats \
+        --norm_type sean --resume_iter 100000 ...
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode train \
+        --num_domains 2 --w_hpf 1 --lambda_reg 1 --lambda_sty 1 \
+        --lambda_ds 1 --lambda_cyc 1 --wing_ckpt expr/checkpoints/wing.ckpt
+    python -m de_i2i_gan_torch.cli.starganv2_main --mode align \
+        --inp_dir assets/representative/custom/female --out_dir out \
+        --lm_path expr/checkpoints/celeba_lm_mean.npz --wing_ckpt ...
+
+Modes ``train`` (AdaIN or SEAN), ``pretrain`` (MAE repair pretraining,
+main.py:76-112), ``sample``, ``update_stats`` (SEAN's running styles swept
+over ``--val_img_dir``, solver.py:379-406) and ``align`` (offline face
+alignment with the FAN, main.py:143-145). The nets run on CUDA device 0;
+``--device cpu`` runs them on the CPU.
+
+SEAN's fetcher embeds the reference stacks with a frozen ViT-B/16 (f32): the
+HF checkpoint of ``--vit_path``, which also joins the G loss (lambda_sty on
+x_fake, in the compute dtype), or one drawn from a seed, with a warning and
+the style term inactive (``--allow_degraded_losses`` needed), its embeddings
+cut to ``--embed_nc``. ``--wing_ckpt`` loads the reference's FAN: with
+``w_hpf > 0`` the training iterations take its masks (the reference's
+solver.py:263, 529; the JAX CLI reads the FAN in align mode only and trains
+without masks), and align mode warps with its landmarks. Checkpoints go to
 ``<checkpoint_dir>/starganv2/<%06d iteration | latest>_state.pt``, in
 pretrain mode to ``starganv2_pretrain/``; ``--resume_iter`` restores one of
-the mode's own strictly (the JAX CLI reads ``starganv2/`` in every mode).
+the mode's own, strictly but for update_stats (the JAX CLI reads
+``starganv2/`` in every mode).
 ``--mode train --pretrain_dir <dir>`` warm-starts from
 ``<dir>/starganv2_pretrain/<%06d --pretrain_iter | latest>_state.pt`` by the
 filtered restore: G and ``ema_G`` take the pretrained generator, D, M, S
@@ -113,8 +136,9 @@ def build_parser():
                    help="sample mode: also render the reference-guided "
                         "interpolation video (ROADMAP A.9)")
     p.add_argument("--vit_path", type=str, default=None,
-                   help="HF ViT name/local path for the frozen sean-mode "
-                        "feature extractor (ROADMAP A.7)")
+                   help="local HF ViT directory or weight file for the "
+                        "frozen sean-mode feature extractor (random init if "
+                        "omitted)")
     p.add_argument("--DiffAugment", type=str, default="")
     p.add_argument("--fused_prop", action="store_true",
                    help="FusedProp joint D+G update (arxiv 2004.03335; "
@@ -142,8 +166,9 @@ def build_parser():
     return p
 
 
-WAITS = {"eval": "A.8", "update_stats": "A.7", "align": "A.7"}
+WAITS = {"eval": "A.8"}
 PRETRAIN_NAME = "starganv2_pretrain"  # the pretrain mode's checkpoints
+VIT_MODEL_SIZE = "base"  # the frozen ViT of SEAN (ViT-B/16, as the JAX CLI)
 
 
 def check_ported(args) -> None:
@@ -151,11 +176,6 @@ def check_ported(args) -> None:
     port does not have yet, naming the ROADMAP item it waits for."""
     waits = [
         (args.mode in WAITS, f"--mode {args.mode}", WAITS.get(args.mode)),
-        (args.norm_type == "sean",
-         "--norm_type sean (its fetcher embeds the references with the "
-         "frozen ViT)", "A.7"),
-        (args.vit_path is not None, "--vit_path", "A.7"),
-        (args.wing_ckpt is not None, "--wing_ckpt", "A.7"),
         (args.make_video, "--make_video", "A.9"),
         (args.data_parallel == "on", "--data_parallel on", "A.9"),
     ]
@@ -203,6 +223,65 @@ def make_fetcher(args, root, transform, batch_size, ref_root=None):
                         args.hidden_nc, args.seed)
 
 
+class SlicedExtractor:
+    """A random ViT's embeddings cut to ``--embed_nc`` (the JAX CLI's
+    ``_Sliced``): reduced configs run the SEAN flow without a ViT-sized
+    width."""
+
+    def __init__(self, base, dim: int):
+        self.base, self.dim, self.device = base, dim, base.device
+
+    def extract(self, x_ref, num_embeds, generator=None):
+        e = self.base.extract(x_ref, num_embeds, generator)
+        if self.dim > e.shape[-1]:
+            raise ValueError(f"--embed_nc {self.dim} > ViT width {e.shape[-1]}")
+        return e[..., :self.dim]
+
+
+def make_train_fetcher(args, img_dir, transform, solver=None):
+    """The training fetcher (JAX ``_make_train_fetcher``): sources and
+    references, and for SEAN the frozen-ViT embeddings of the reference
+    stacks (``SEANInputFetcher``). With ``--vit_path`` the same ViT joins
+    ``solver``'s G loss."""
+    import logging
+
+    import torch
+
+    from de_i2i_gan_torch.data.starganv2_data import (
+        BalancedLoader, RandomReferenceDataset, SEANInputFetcher)
+    from de_i2i_gan_torch.models.vit import (
+        FeatureExtractor, ViTEncoder, load_hf_vit_weights)
+    fetcher = make_fetcher(args, img_dir, transform, args.batch_size)
+    if args.norm_type != "sean":
+        return fetcher
+    vit = ViTEncoder(VIT_MODEL_SIZE, device=args.device,
+                     generator=torch.Generator(args.device).manual_seed(0))
+    if args.vit_path:
+        load_hf_vit_weights(args.vit_path, vit)
+        if solver is not None:
+            # the style reconstruction embeds x_fake through the same frozen
+            # ViT (reference solver.py:515); a random ViT would add its cost
+            # for a meaningless term
+            solver.set_frozen_nets(vit=vit)
+    else:
+        logging.getLogger(__name__).warning(
+            "sean mode without --vit_path: style embeddings come from a "
+            "randomly initialized ViT (shapes/flow exercised, styles not "
+            "semantic) and lambda_sty is inactive")
+    extractor = FeatureExtractor(vit)
+    if args.embed_nc != vit.hidden:
+        if args.vit_path:
+            raise SystemExit(f"--embed_nc {args.embed_nc} must match the "
+                             f"frozen ViT's hidden width ({vit.hidden}) when "
+                             "--vit_path is given")
+        extractor = SlicedExtractor(extractor, args.embed_nc)
+    style = BalancedLoader(
+        RandomReferenceDataset(img_dir, args.num_embeds, transform, args.seed),
+        args.batch_size, seed=args.seed + 2)
+    return SEANInputFetcher(fetcher, style, extractor, args.num_embeds,
+                            args.seed)
+
+
 def train(args, solver) -> None:
     """The training loop (main.py / solver.py:258-349): fetcher ->
     device_prefetch -> ``train_step``, SEAN's statistics, running-mean
@@ -215,9 +294,10 @@ def train(args, solver) -> None:
 
     tf = TrainTransform(args.img_size, jitter=False, vflip=False,
                         randcrop_prob=args.randcrop_prob)
-    fetcher = make_fetcher(args, args.train_img_dir, tf, args.batch_size)
-    # fixed val inputs for the periodic debug grids (core/solver.py:228-229)
-    if Path(args.val_img_dir).is_dir():
+    fetcher = make_train_fetcher(args, args.train_img_dir, tf, solver)
+    # fixed val inputs for the periodic debug grids (core/solver.py:228-229);
+    # SEAN's come from the train fetcher, which embeds the references
+    if args.norm_type != "sean" and Path(args.val_img_dir).is_dir():
         inputs_val = next(make_fetcher(args, args.val_img_dir,
                                        EvalTransform(args.img_size),
                                        args.val_batch_size))
@@ -275,7 +355,7 @@ def pretrain(args, solver) -> None:
     from de_i2i_gan_torch.train.checkpoint import save_checkpoint
 
     tf = TrainTransform(args.img_size, jitter=False, vflip=False)
-    fetcher = make_fetcher(args, args.train_img_dir, tf, args.batch_size)
+    fetcher = make_train_fetcher(args, args.train_img_dir, tf, solver)
     # the masks' draws; the JAX CLI's PRNGKey(seed) stream
     generator = torch.Generator(device=solver.device).manual_seed(args.seed)
     running = defaultdict(float)
@@ -322,14 +402,73 @@ def sample(args, solver) -> None:
     print(f"samples written to {args.sample_dir}")
 
 
+def update_stats(args, solver) -> None:
+    """Sweep the EMA generator with its statistics tracked until every
+    domain has ``--num_stats_samples`` styles (solver.py:379-406), over the
+    SEAN fetcher of ``--val_img_dir``; finalize and save the checkpoint
+    ``stats_updated``."""
+    from de_i2i_gan_torch.data.transforms import TrainTransform
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+
+    if args.norm_type != "sean":
+        raise SystemExit("--mode update_stats: only SEAN needs to update stats")
+    tf = TrainTransform(args.img_size, jitter=False, vflip=False)
+    fetcher = make_train_fetcher(args, args.val_img_dir, tf)
+    counts = np.zeros(args.num_domains, np.int64)
+    while counts.min() < args.num_stats_samples:
+        batch = next(fetcher)
+        solver.track_stats_step(batch["x_src"], batch["s_ref"], batch["y_ref"])
+        np.add.at(counts, np.asarray(batch["y_ref"]), 1)
+        print(dict(enumerate(counts.tolist())))
+    solver.finalize_ema_stats()
+    save_checkpoint(args.checkpoint_dir, "starganv2", "stats_updated", solver)
+    print(f"running styles updated; checkpoint saved under "
+          f"{args.checkpoint_dir}")
+
+
+def align_faces(args) -> list:
+    """main.py:143-145 / core/wing.py:407-431: each image of ``--inp_dir``
+    resized to ``--img_size``, its FAN landmarks, the similarity warp to the
+    mean landmarks of ``--lm_path``, written as PNG to ``--out_dir``.
+    Returns the written paths."""
+    from PIL import Image
+
+    from de_i2i_gan_torch.models.wing import FaceAligner, WingHeatmapper, make_fan
+    from de_i2i_gan_torch.utils.png import write_png
+
+    if not (args.inp_dir and args.out_dir and args.lm_path):
+        raise SystemExit("--inp_dir/--out_dir/--lm_path required for align")
+    fan = make_fan(args.device, seed=0, wing_ckpt=args.wing_ckpt)
+    aligner = FaceAligner(WingHeatmapper(fan, args.img_size), str(args.lm_path),
+                          args.img_size)
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    written = []
+    for fname in sorted(p for p in Path(args.inp_dir).iterdir()
+                        if p.suffix.lower() in (".png", ".jpg", ".jpeg")):
+        img = Image.open(fname).convert("RGB").resize(
+            (args.img_size, args.img_size), Image.BILINEAR)
+        x = np.asarray(img, np.float32)[None] / 127.5 - 1.0
+        aligned = aligner.align(x)[0]
+        path = out_dir / f"{fname.stem}.png"
+        write_png(path, np.clip((aligned + 1) * 127.5, 0, 255).astype(np.uint8))
+        written.append(path)
+    print(f"aligned {len(written)} images -> {out_dir}")
+    return written
+
+
 def main(argv=None):
-    """Run a mode; returns the solver."""
+    """Run a mode; returns the solver (align mode: the written paths)."""
+    from de_i2i_gan_torch.models.wing import make_fan
     from de_i2i_gan_torch.train.checkpoint import load_checkpoint
     from de_i2i_gan_torch.train.jax_import import init_starganv2_weights
     from de_i2i_gan_torch.train.solver import StarGANv2Solver
 
     args = build_parser().parse_args(argv)
     check_ported(args)
+    if args.mode == "align":
+        # offline alignment: the frozen FAN and the mean landmarks alone
+        return align_faces(args)
     solver = StarGANv2Solver(to_config(args), device=args.device)
     if args.mode == "pretrain":
         # the mask token joins G's optimizer (main.py:76-112)
@@ -340,7 +479,11 @@ def main(argv=None):
     run_name = PRETRAIN_NAME if args.mode == "pretrain" else "starganv2"
     if args.resume_iter > 0:
         load_checkpoint(args.checkpoint_dir, run_name,
-                        f"{args.resume_iter:06d}", solver, strict=True)
+                        f"{args.resume_iter:06d}", solver,
+                        strict=args.mode != "update_stats")
+    if args.wing_ckpt is not None and args.w_hpf > 0 and args.mode == "train":
+        solver.set_frozen_nets(fan=make_fan(args.device,
+                                            wing_ckpt=args.wing_ckpt))
     if args.mode == "train" and args.pretrain_dir is not None:
         # MAE warm start (solver.py:57-69, 236-240): the filtered restore
         tag = f"{args.pretrain_iter:06d}" if args.pretrain_iter else "latest"
@@ -350,6 +493,8 @@ def main(argv=None):
         train(args, solver)
     elif args.mode == "pretrain":
         pretrain(args, solver)
+    elif args.mode == "update_stats":
+        update_stats(args, solver)
     else:
         sample(args, solver)
     return solver

@@ -9,9 +9,14 @@ JAX CLI does) and runs the reference's test modes:
   --save_img               plain translated images
   --save_diverse_images    Multiple_<combo>/Single_<class> grids
   --cal_clf                discriminator classifier accuracy on real data
+  --vis_style_embeds T     PCA scatters of the style MLPs' activations per
+                           label (test_defectgan.py:69-79): T = hidden
+                           (mlp_shared / mlp_latent, after the ReLU), mean
+                           (mlp_beta) or std (mlp_gamma), one PNG a layer
+                           under ``pca/``; no ViT is needed
 PNGs go to ``<results_dir>/<name>/``. ``--metrics``, ``--cal_mfid`` and
-``--save_stats`` wait for ROADMAP A.8, ``--vis_style_embeds`` for A.7:
-they raise ``NotImplementedError``. ``--gpu_ids -1`` runs on the CPU.
+``--save_stats`` wait for ROADMAP A.8: they raise ``NotImplementedError``.
+``--gpu_ids -1`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from de_i2i_gan_torch.utils.png import write_png
 
@@ -151,7 +157,79 @@ def main(argv=None):
             grid_for(row, out_dir / f"Single_{class_idx}.png")
         print(f"wrote {len(multi)} multi-label + {cfg.label_nc - 1} "
               f"single-label grids to {out_dir}")
+
+    if opt.vis_style_embeds:
+        result["style_embeds"] = style_embeds(opt, cfg, steps, df_loader,
+                                              results_dir)
     return result
+
+
+STYLE_LAYERS = {"hidden": ("mlp_shared", "mlp_latent"), "mean": ("mlp_beta",),
+                "std": ("mlp_gamma",)}
+
+
+def style_embeds(opt, cfg, steps, df_loader, results_dir: Path) -> dict:
+    """--vis_style_embeds: each style-MLP layer's first activation of every
+    generate call over the defect set (a forward hook on G's modules of
+    that name), averaged over the embedding axis of a 3-D output and the
+    spatial axes of a 4-D one (test_defectgan.py:49-51), after a ReLU for
+    ``hidden``; grouped by label and drawn as a PCA scatter a layer
+    (``pca/<layer>.png``). SEAN takes the --embed_path bank's draws, or
+    zero embeddings without one. Returns {layer: {label: [vectors]}}."""
+    from de_i2i_gan_torch.data.embeddings import EmbeddingBank
+    from de_i2i_gan_torch.utils.visualize import visualize_embeddings
+
+    etype = opt.vis_style_embeds
+    if etype not in STYLE_LAYERS:
+        raise ValueError(f"--vis_style_embeds must be one of "
+                         f"{list(STYLE_LAYERS)}")
+    bank = None
+    if cfg.style_norm_block_type == "sean" and opt.embed_path:
+        p = str(opt.embed_path)
+        bank = (EmbeddingBank.load(opt.embed_path) if p.endswith(".npz")
+                else EmbeddingBank.from_torch_file(opt.embed_path, cfg.label_nc))
+    captured = {}
+
+    def hook(name):
+        def keep(_mod, _inp, out):
+            if name in captured:  # the first call, as flax's capture keeps
+                return
+            v = out.detach().float()
+            v = v.mean(dim=1) if v.dim() == 3 else (
+                v.mean(dim=(2, 3)) if v.dim() == 4 else v)
+            captured[name] = F.relu(v) if etype == "hidden" else v
+        return keep
+
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in steps.G.named_modules()
+               if n.rsplit(".", 1)[-1] in STYLE_LAYERS[etype]]
+    device = steps.device
+    gen = torch.Generator(device).manual_seed(opt.seed)
+    layer_embeds: dict = {}
+    try:
+        with torch.no_grad():
+            for imgs, labels, _ in df_loader:
+                labels_t = torch.as_tensor(labels, device=device)
+                feat = None
+                if cfg.style_norm_block_type == "sean":
+                    feat = (bank.sample(labels_t, cfg.num_embeds, gen) if bank
+                            else torch.zeros((labels_t.shape[0], cfg.num_embeds,
+                                              cfg.embed_nc), device=device))
+                captured.clear()
+                steps.generate(imgs, labels_t, feat, generator=gen)
+                for lname, v in captured.items():
+                    d = layer_embeds.setdefault(lname, {})
+                    for e, lbl in zip(_host(v), np.asarray(labels)):
+                        d.setdefault(tuple(int(x) for x in lbl), []).append(e)
+    finally:
+        for h in handles:
+            h.remove()
+    for lname, embeds in layer_embeds.items():
+        visualize_embeddings(embeds, results_dir / "pca" / f"{lname}.png",
+                             reduction="pca")
+    print(f"wrote {len(layer_embeds)} style-embed PCA scatters ({etype}) to "
+          f"{results_dir / 'pca'}")
+    return layer_embeds
 
 
 if __name__ == "__main__":

@@ -18,9 +18,10 @@ SEAN norms through the hand-written kernel (``use_pallas=True``); the
 kernel runs for CUDA tensors only, the plain version on the CPU. Every
 other field is the JAX package's. ``to_pix2pix_config`` builds the
 DefectGAN generator with SPADE, which runs no kernel; the WGAN nets hold
-BatchNorm only. Flags whose feature is not ported yet raise
+BatchNorm only. The ViT kinds (``vit_train``, ``vit_test``) take the
+frozen backbone's flags. Flags whose feature is not ported yet raise
 ``NotImplementedError`` in ``check_ported``, naming the ROADMAP item they
-wait for. The ViT groups wait for their slice (A.7).
+wait for.
 """
 from __future__ import annotations
 
@@ -210,6 +211,28 @@ def add_pix2pix_args(p: argparse.ArgumentParser):
     return p
 
 
+def add_vit_args(p: argparse.ArgumentParser):
+    p.set_defaults(model="vit", image_size=224, optimizer="adamw",
+                   scheduler="cos", num_epochs=20, lr=[1e-4])
+    p.add_argument("--model_size", type=str, default="base",
+                   help="[base|large]")
+    p.add_argument("--vit_path", type=str, default=None,
+                   help="local HF ViT directory or weight file (frozen "
+                        "backbone); drawn from --seed when omitted")
+    return p
+
+
+def add_vit_test_args(p: argparse.ArgumentParser):
+    """ViT test flags (reference: options/vit_options.py:57-77)."""
+    p.add_argument("--save_embeddings", action="store_true")
+    p.add_argument("--visualize_tsne", action="store_true")
+    p.add_argument("--calc_classifier_acc", action="store_true")
+    p.add_argument("--data_type", type=str, default="fusion",
+                   help="[defects|background|fusion]")
+    p.add_argument("--num_embeddings_epochs", type=int, default=1)
+    return p
+
+
 # ------------------------------------------------------------------ Options
 class Options:
     """parse/save/reload mirroring BaseOptions semantics."""
@@ -223,6 +246,9 @@ class Options:
                      add_mae_args),
         "wgan_train": (add_base_args, add_train_args, add_wgan_args),
         "wgan_test": (add_base_args, add_test_args, add_wgan_args),
+        "vit_train": (add_base_args, add_train_args, add_vit_args),
+        "vit_test": (add_base_args, add_test_args, add_vit_args,
+                     add_vit_test_args),
         "pix2pix_train": (add_base_args, add_defectgan_args, add_train_args,
                           add_pix2pix_args),
         "pix2pix_test": (add_base_args, add_defectgan_args, add_test_args,
@@ -310,7 +336,6 @@ def check_ported(opt) -> None:
         (getattr(opt, "metrics", None), "--metrics", "A.8"),
         (getattr(opt, "cal_mfid", False), "--cal_mfid", "A.8"),
         (getattr(opt, "save_stats", False), "--save_stats", "A.8"),
-        (getattr(opt, "vis_style_embeds", None), "--vis_style_embeds", "A.7"),
         (getattr(opt, "data_parallel", "auto") == "on", "--data_parallel on",
          "A.9"),
         ((opt.num_devices or 1) > 1, "--num_devices > 1", "A.9"),

@@ -10,9 +10,11 @@ Mirrors the reference's stargan-v2/core/data_loader.py:
                                      per sample (SEAN style banks)
 
 Domain labels are integer ids derived from subdirectory names. Batches are
-NHWC numpy, the JAX package's bit for bit, z draws included. The SEAN
-fetcher, which embeds the reference stacks with the frozen ViT, waits for
-ROADMAP A.7.
+NHWC numpy, the JAX package's bit for bit, z draws included.
+``SEANInputFetcher`` adds the frozen ViT's embeddings of the reference
+stacks (float32 numpy, made on the extractor's device); its draws of how
+many references a stack gives come from a ``torch.Generator`` seeded from
+the fetcher's numpy stream, so they are not the JAX package's.
 """
 from __future__ import annotations
 
@@ -165,6 +167,45 @@ class InputFetcher:
             "z_src": self._rng.standard_normal(
                 (b, self.latent_dim)).astype(np.float32),
         }
+        return batch
+
+
+class SEANInputFetcher:
+    """The SEAN fetcher (JAX :169): wraps ``InputFetcher`` and attaches the
+    frozen-ViT style embeddings the solver's SEAN path takes (get_style_code,
+    utils.py:485-516: s_trg = feature_extractor(reference stacks); the cycle
+    pass embeds x_src). Two independent stack draws give s_ref and s_ref2
+    (the diversity loss); y_ref follows the stacks' labels. ``extractor``:
+    a ``models/vit.py::FeatureExtractor`` or anything with its ``extract``.
+    """
+
+    def __init__(self, base_fetcher: InputFetcher, style_loader, extractor,
+                 num_embeds: int = 5, seed: int = 777):
+        self.base = base_fetcher
+        self.style = InfiniteLoader(style_loader)
+        self.extractor = extractor
+        self.num_embeds = num_embeds
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        return self
+
+    def _embed(self, x, num_embeds, generator=None) -> np.ndarray:
+        e = self.extractor.extract(x, num_embeds, generator)
+        return e.float().cpu().numpy()
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        import torch
+        batch = next(self.base)
+        b = batch["x_src"].shape[0]
+        stacks, y, _ = next(self.style)      # (N, E, H, W, C)
+        stacks2, _, _ = next(self.style)
+        gen = torch.Generator(self.extractor.device).manual_seed(
+            int(self._rng.integers(2 ** 31)))
+        batch["y_ref"] = y[:b].astype(np.int32)
+        batch["s_ref"] = self._embed(stacks[:b], self.num_embeds, gen)
+        batch["s_ref2"] = self._embed(stacks2[:b], self.num_embeds, gen)
+        batch["s_src"] = self._embed(batch["x_src"], 1)
         return batch
 
 

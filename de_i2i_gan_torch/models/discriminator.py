@@ -7,7 +7,8 @@ same as four batches of B. Spectral norm, where configured, covers the stem
 and the encoder convs, not the heads; it updates its u/v in train mode only.
 
 ``WGanDiscriminator`` is the WGAN critic: a BatchNorm conv stack, a max
-pool, a global average pool and one linear output.
+pool, a global average pool and one linear output. ``ViTClassifier`` is the
+linear head of the ViT classifier.
 """
 from __future__ import annotations
 
@@ -81,3 +82,16 @@ class WGanDiscriminator(nn.Module):
         for i in range(cfg.num_layers):
             feat = getattr(self, f"enc_{i}")(feat)
         return self.critic(adaptive_avg_pool(feat))
+
+
+class ViTClassifier(nn.Module):
+    """The linear head over frozen ViT CLS embeddings
+    (``de_i2i_gan_tpu/models/discriminator.py::ViTClassifier``, the
+    reference's discriminator.py:157-164): ``clf``, hidden -> label_nc."""
+
+    def __init__(self, hidden: int, label_nc: int):
+        super().__init__()
+        self.clf = Dense(hidden, label_nc)
+
+    def forward(self, embeds: torch.Tensor) -> torch.Tensor:
+        return self.clf(embeds)

@@ -20,8 +20,9 @@ images, as the JAX modules do; the blocks inside work in NCHW. Domain labels
 are integer ids (N,). ``StyleAdaIN`` and ``SEANv2`` end in the fused
 modulated instance norm (``ops/fused.py``), which launches the hand-written
 CUDA kernel for a CUDA tensor; in the JAX package they have no switch for
-it, and here neither. The FAN-mask high-pass path of ``Generator``
-(``masks``) waits for ROADMAP A.7; ``w_hpf > 0`` without masks runs.
+it, and here neither. With ``w_hpf > 0`` the generator takes FAN masks
+(``models/wing.py``): the high-pass of its encoder skips at 32, 64 and 128
+px, weighted by the masks resized as ``jax.image.resize`` does.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from de_i2i_gan_torch.models.vit import resize_bilinear
 from de_i2i_gan_torch.nn.layers import Conv2d, Dense, avg_pool, upsample_nearest
 from de_i2i_gan_torch.nn.normalization import (
     finalize_running_stats, instance_norm)
@@ -235,8 +237,9 @@ class Generator(nn.Module):
     layer_split_index=None, **sean_kw)``: x NHWC images; s the style
     ((N, style_dim) for AdaIN, (N, num_embeds, embed_nc) embeddings or
     (N, hidden_nc) noise for SEAN, with a second style on axis 1 when
-    ``layer_split_index`` lists decoder layers that take it); labels the
-    domain ids SEAN needs. Returns NHWC images."""
+    ``layer_split_index`` lists decoder layers that take it); masks the two
+    NHWC FAN masks (``models/wing.py::fan_masks``) of ``w_hpf > 0``, or
+    None; labels the domain ids SEAN needs. Returns NHWC images."""
 
     def __init__(self, img_size: int = 256, style_dim: int = 64,
                  max_conv_dim: int = 512, w_hpf: float = 1.0,
@@ -244,7 +247,7 @@ class Generator(nn.Module):
                  label_nc: int = 3, hidden_nc: int = 256,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.w_hpf = dtype, w_hpf
         dim_in, dims, d = _encoder_plan(img_size, max_conv_dim, w_hpf)
         self.num_encode = len(dims)
         self.from_rgb = _conv3(3, dim_in, dtype)
@@ -270,12 +273,11 @@ class Generator(nn.Module):
                 labels: Optional[torch.Tensor] = None,
                 layer_split_index: Optional[Sequence[int]] = None,
                 **sean_kw) -> torch.Tensor:
-        if masks is not None:
-            raise NotImplementedError(
-                "the FAN-mask high-pass path (masks) is not ported to the "
-                "PyTorch package yet (ROADMAP A.7)")
         x = self.from_rgb(x.permute(0, 3, 1, 2).contiguous().to(self.dtype))
+        cache = {}  # the encoder's skips at 32, 64 and 128 px (masks only)
         for i in range(self.num_encode):
+            if masks is not None and x.shape[2] in (32, 64, 128):
+                cache[x.shape[2]] = x
             x = getattr(self, f"encode_{i}")(x)
         for i in range(2):
             x = getattr(self, f"encode_bottleneck_{i}")(x)
@@ -291,6 +293,14 @@ class Generator(nn.Module):
             f"decode_{i}" for i in range(self.num_encode)]
         for idx, name in enumerate(blocks):
             x = getattr(self, name)(x, style_for(idx), labels, **sean_kw)
+            size = x.shape[2]
+            if masks is not None and size in (32, 64, 128) and \
+                    name.startswith("decode_"):
+                # the FAN masks' high-pass of the skip (model.py:381-393);
+                # the masks are float32, so x leaves in float32, as in JAX
+                mask = masks[0] if size == 32 else masks[1]
+                mask = resize_bilinear(mask.permute(0, 3, 1, 2).float(), size)
+                x = x + high_pass(mask * cache[size], self.w_hpf)
         x = self.to_rgb(_leaky(self.to_rgb_norm(x)))
         return x.permute(0, 2, 3, 1)
 

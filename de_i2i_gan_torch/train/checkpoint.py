@@ -17,7 +17,8 @@ parameter name, and ``step``, the count of D updates. A
 ``StarGANv2Solver``'s has the same form over the nets and optimizers its
 ``STATE_NETS`` and ``STATE_OPTIMIZERS`` name (G, D, M, S, the EMA nets with
 ema_G's SEAN statistics; ``step`` counts iterations), under
-``ckpt_dir/starganv2/<%06d iteration | latest>_state.pt``.
+``ckpt_dir/starganv2/<%06d iteration | latest>_state.pt``. A ``ViTSteps``
+holds its linear head and its optimizer.
 
 MAE pretraining (an ``MAESteps``, or a ``StarGANv2Solver`` in pretrain
 mode) keeps G as the bare generator's ``state_dict`` and the mask token as
@@ -130,7 +131,8 @@ def load_train_state(steps, state: Dict[str, Any], strict: bool = True
             steps.step = value
         else:  # tx_<net>/count
             getattr(steps, path.split("/")[0]).count = value
-    if steps.ema_G is not None and hasattr(steps, "_sync_ema_state"):
+    if getattr(steps, "ema_G", None) is not None and \
+            hasattr(steps, "_sync_ema_state"):
         steps._sync_ema_state()  # DefectGAN's EMA generator shares G's state
     return stats
 

@@ -489,3 +489,81 @@ def init_starganv2_weights(solver, seed: int) -> None:
             ema = getattr(solver, f"ema_{name}", None)
             if ema is not None:
                 ema.load_state_dict(net.state_dict())
+
+
+def _unstack_blocks(params: Tree) -> Dict[str, Any]:
+    """The scanned layout (``blocks_scan/block`` with a leading layer axis,
+    JAX ``ViTEncoderScanned``) as the unrolled one (``block_<i>``)."""
+    params = dict(params)
+    scanned = params.pop("blocks_scan", None)
+    if scanned is None:
+        return params
+    flat = _flatten(scanned["block"])
+    layers = {a.shape[0] for a in flat.values()}
+    if len(layers) != 1:
+        raise ValueError(f"blocks_scan leaves disagree on the layer axis {layers}")
+    for i in range(layers.pop()):
+        block: Dict[str, Any] = {}
+        for path, a in flat.items():
+            *parents, leaf = path.split("/")
+            node = block
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = a[i]
+        params[f"block_{i}"] = block
+    return params
+
+
+def load_jax_vit(net, params: Tree) -> None:
+    """Fill a ``models/vit.py::ViTEncoder`` from the JAX ViTEncoder's
+    ``params`` tree, or ViTEncoderScanned's (``blocks_scan/block`` stacked on
+    a layer axis, unstacked here): patch_embed HWIO -> OIHW; the attention's
+    query/key/value kernels (hidden, heads, head_dim) and biases
+    (heads, head_dim) -> (hidden, hidden) and (hidden,); out (heads,
+    head_dim, hidden) -> (hidden, hidden); Dense kernels transposed;
+    LayerNorm scale/bias -> weight/bias. Strict: every leaf fills one
+    tensor and every tensor is filled."""
+    flat = _flatten(_unstack_blocks(params))
+    hidden = net.hidden
+    maps = {"cls_token": ("cls_token", _same),
+            "pos_embed": ("pos_embed", _same),
+            "patch_embed.weight": ("patch_embed/kernel",
+                                   lambda a: a.transpose(3, 2, 0, 1)),
+            "patch_embed.bias": ("patch_embed/bias", _same)}
+    for i in range(len(net.blocks)):
+        src, dst = f"block_{i}/", f"blocks.{i}."
+        for ln in ("ln1", "ln2"):
+            maps[dst + ln + ".weight"] = (src + ln + "/scale", _same)
+            maps[dst + ln + ".bias"] = (src + ln + "/bias", _same)
+        for name in ("query", "key", "value", "out"):
+            maps[dst + name + ".weight"] = (
+                f"{src}attn/{name}/kernel",
+                lambda a: a.reshape(hidden, hidden).T)
+            maps[dst + name + ".bias"] = (f"{src}attn/{name}/bias",
+                                          lambda a: a.reshape(hidden))
+        for name in ("fc1", "fc2"):
+            maps[dst + name + ".weight"] = (f"{src}{name}/kernel",
+                                            lambda a: a.T)
+            maps[dst + name + ".bias"] = (f"{src}{name}/bias", _same)
+    own = net.state_dict()
+    used = {path for path, _ in maps.values()}
+    missing = sorted(used - set(flat))
+    if set(maps) != set(own) or missing or set(flat) != used:
+        raise KeyError(f"ViT: missing {missing}, unexpected "
+                       f"{sorted(set(flat) - used)}, unmapped "
+                       f"{sorted(set(own) ^ set(maps))}")
+    with torch.no_grad():
+        for key, (path, to_port) in maps.items():
+            arr = np.array(to_port(flat[path]), np.float32)
+            if arr.shape != tuple(own[key].shape):
+                raise ValueError(f"{path}: shape {arr.shape} does not fit "
+                                 f"{key} {tuple(own[key].shape)}")
+            own[key].copy_(torch.from_numpy(arr))
+
+
+def load_jax_fan(fan, variables: Mapping[str, Tree]) -> None:
+    """Fill a ``models/wing.py::FAN`` from the JAX FAN's variables
+    (``params`` and ``batch_stats``): its module paths are the flax tree's,
+    so ``load_jax_module`` maps them. Strict, as it is."""
+    load_jax_module(fan, variables["params"],
+                    {"batch_stats": variables["batch_stats"]})

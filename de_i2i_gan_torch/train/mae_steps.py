@@ -22,6 +22,8 @@ As ``DefectGanSteps``, the modules hold the state and the steps update it in
 place; D and the optimizers are built at the first training call
 (``init_training``). ``step`` counts D updates. The masks, E's latent noise
 and the noise injection draw from the ``generator`` a call is given.
+``cfg.remat`` is accepted and has no effect: the JAX ``MAESteps`` never
+reads it, so the MAE forward keeps its activations in both packages.
 
 A checkpoint (``train/checkpoint.py::train_state``) holds G as the bare
 generator's ``state_dict`` and the token as an entry of its own,
@@ -83,9 +85,6 @@ class MAESteps:
         if self.D is not None:
             return
         cfg, tcfg = self.cfg, self.tcfg
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (a later slice); use remat=False")
         self.D = DefectGanDiscriminator(cfg).to(self.device).eval()
         sched = (self.iters_per_epoch, self.num_epochs)
         self.tx_D = make_optimizer(tcfg, self.D.parameters(), tcfg.lr_d, *sched)

@@ -31,9 +31,15 @@ modules and optimizers hold the state and the steps update it in place.
 ``step`` counts iterations, as ``state.step`` does. DiffAugment draws come
 from the ``generator`` a call is given, or torch's default generator of the
 device. The serving methods (``style``, ``generate``, ``track_stats_step``,
-``finalize_ema_stats``) run under ``torch.inference_mode()``. SEAN's
-lambda_sty needs the frozen ViT and the FAN masks of ``w_hpf > 0`` need the
-FAN (ROADMAP A.7).
+``finalize_ema_stats``) run under ``torch.inference_mode()``.
+
+The frozen nets (``set_frozen_nets``, JAX :145): with the ViT, SEAN's
+lambda_sty term embeds x_fake through it (solver.py:515), its gradient
+reaching G through x_fake and never the ViT's parameters; with the FAN and
+``w_hpf > 0``, ``train_step`` takes the masks of x_src (the reference's
+``fan.get_heatmap(x_real)``, solver.py:263) and the cycle pass those of
+x_fake (solver.py:529), both without gradients. Without them SEAN and the
+masked cycle need ``allow_degraded_losses``, as in JAX.
 
 MAE pretraining (solver.py:98-204, compute_mae_{d,g}_loss :413-464, the
 JAX solver's ``pretrain_step``): ``init_pretrain`` adds a mask token that
@@ -43,8 +49,8 @@ fill, G with the style of the pass), R1 on the real images, lambda_ds from
 the step, then the EMA of G. Its checkpoint keeps G as the bare
 generator's and the token apart, so ``--pretrain_dir`` restores G and
 ``ema_G`` into a train run (the JAX state nests them under ``net`` and
-restores neither). AdaIN only: SEAN's pretraining style term needs the
-frozen ViT (ROADMAP A.7).
+restores neither). SEAN pretrains on the reference pass alone, its style
+term through the frozen ViT when one is attached (else none, as in JAX).
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from de_i2i_gan_torch.losses.common import bce_logits, l1, r1_penalty
+from de_i2i_gan_torch.models import wing
 from de_i2i_gan_torch.models.starganv2 import (
     Generator, MappingNetwork, SEANv2, StarGANv2Discriminator, StyleEncoder,
     sean_v2_update_stats)
@@ -139,8 +146,37 @@ class StarGANv2Solver:
         self.D = None
         self.tx_G = self.tx_D = self.tx_M = self.tx_S = None
         self.token = None  # the MAE mask token, in pretrain mode
+        self.vit = self.fan = None  # the frozen nets (set_frozen_nets)
         self.step = 0  # iterations
         self._warned = set()
+
+    def set_frozen_nets(self, vit=None, fan=None) -> None:
+        """Attach the frozen ViT (``models/vit.py::ViTEncoder``, run in the
+        solver's compute dtype, as the JAX solver builds it) and/or the FAN
+        (``models/wing.py::FAN``) so that the G loss is the reference's:
+        SEAN's style reconstruction embeds x_fake through the ViT, and with
+        ``w_hpf > 0`` the masks come from the FAN."""
+        if vit is not None:
+            vit = vit.to(self.device).requires_grad_(False)
+            if vit.dtype != self.cfg.dtype:
+                vit = vit.frozen_copy(self.cfg.dtype)
+            self.vit = vit.eval()
+        if fan is not None:
+            self.fan = fan.to(self.device).eval().requires_grad_(False)
+
+    def _embed_fake(self, x_fake: torch.Tensor) -> torch.Tensor:
+        """The frozen ViT's CLS embedding of x_fake, (N, 1, hidden) (JAX
+        :174); differentiable in x_fake only. Its ops run in the profiler
+        range ``solver.embed_fake``."""
+        with torch.profiler.record_function("solver.embed_fake"):
+            return self.vit(x_fake)[:, 0, :][:, None, :]
+
+    def _heatmaps(self, x: torch.Tensor):
+        """FAN get_heatmap of NHWC x (wing.py:248-261, JAX ``_heatmaps_fake``
+        :186): the two masks, without gradients, in the profiler range
+        ``solver.heatmaps``."""
+        with torch.profiler.record_function("solver.heatmaps"):
+            return wing.fan_masks(self.fan, x.detach())
 
     def nets(self) -> Dict[str, torch.nn.Module]:
         """The solver's serving networks by name: G, M, S and their EMA
@@ -220,9 +256,14 @@ class StarGANv2Solver:
             self.tx_S = adam(self.S.parameters(), cfg.lr)
 
     def _batch(self, batch) -> Batch:
-        """The batch's arrays on the device, domain labels as int64."""
-        return {k: torch.as_tensor(v, device=self.device).long()
-                if k.startswith("y_") else torch.as_tensor(v, device=self.device)
+        """The batch's arrays on the device, domain labels as int64, the
+        masks a list."""
+        def on(v):
+            if isinstance(v, (list, tuple)):
+                return [torch.as_tensor(m, device=self.device) for m in v]
+            return torch.as_tensor(v, device=self.device)
+
+        return {k: on(v).long() if k.startswith("y_") else on(v)
                 for k, v in batch.items()}
 
     def _warn_once(self, key: str, msg: str) -> None:
@@ -294,17 +335,22 @@ class StarGANv2Solver:
         # style reconstruction (solver.py:515-517)
         if adain:
             loss_sty = l1(self.S(x_fake, y_trg), s_trg)
+        elif self.vit is not None:
+            # the frozen ViT's embedding of x_fake, (N, 1, E) against the
+            # (N, k, E) reference embeddings
+            loss_sty = l1(self._embed_fake(x_fake), s_trg)
         else:
             s_pred = batch.get("s_fake_pred")
             if s_pred is None:
                 msg = ("sean mode without the frozen ViT: the lambda_sty "
                        "style-reconstruction loss is INACTIVE (reference "
-                       "solver.py:515 embeds x_fake through it; ROADMAP A.7)")
+                       "solver.py:515 embeds x_fake through it)")
                 if not cfg.allow_degraded_losses:
                     raise ValueError(
                         msg + ". Refusing to train with a silently zeroed "
-                        "loss term; set StarGANv2Config.allow_degraded_losses "
-                        "to proceed.")
+                        "loss term; pass --vit_path (or set_frozen_nets), or "
+                        "set StarGANv2Config.allow_degraded_losses to "
+                        "proceed.")
                 self._warn_once("sean_sty", msg)
                 loss_sty = torch.zeros((), device=self.device)
             else:
@@ -317,9 +363,25 @@ class StarGANv2Solver:
                              masks, labels=y_trg, track_stats=track)
         loss_ds = l1(x_fake, x_fake2)
 
-        # cycle consistency (solver.py:529-533)
+        # cycle consistency (solver.py:529-533): the reference recomputes
+        # the masks from x_fake
+        if cfg.w_hpf > 0 and self.fan is not None:
+            masks_fake = self._heatmaps(x_fake)
+        else:
+            if cfg.w_hpf > 0 and masks is not None \
+                    and "masks_fake" not in batch:
+                msg = ("w_hpf > 0 without the FAN: the cycle pass reuses the "
+                       "SOURCE masks instead of fan.get_heatmap(x_fake) "
+                       "(reference solver.py:529)")
+                if not cfg.allow_degraded_losses:
+                    raise ValueError(
+                        msg + ". Refusing to train with wrong cycle masks; "
+                        "pass --wing_ckpt (or set_frozen_nets), or set "
+                        "StarGANv2Config.allow_degraded_losses to proceed.")
+                self._warn_once("cyc_masks", msg)
+            masks_fake = batch.get("masks_fake", masks)
         s_org = self.S(x_real, y_org) if adain else batch["s_src"]
-        x_rec = self.G(x_fake, s_org, masks, labels=y_org)
+        x_rec = self.G(x_fake, s_org, masks_fake, labels=y_org)
         loss_cyc = l1(x_rec, x_real)
 
         loss = (loss_adv + cfg.lambda_sty * loss_sty -
@@ -403,9 +465,13 @@ class StarGANv2Solver:
         pass. Then the EMA updates and the step count. ``batch``: NHWC
         ``x_src``, ``x_ref``, ``x_ref2``, domains ``y_src``, ``y_ref``, and
         ``z_ref``, ``z_ref2`` (AdaIN) or ``s_ref``, ``s_ref2``, ``s_src``
-        (SEAN). Returns the loss terms under the JAX names as 0-d tensors."""
+        (SEAN), and the two NHWC ``masks`` of ``w_hpf > 0``, which the FAN
+        makes from x_src when attached and the batch has none. Returns the
+        loss terms under the JAX names as 0-d tensors."""
         self.init_training()
         batch = self._batch(batch)
+        if self.cfg.w_hpf > 0 and self.fan is not None and "masks" not in batch:
+            batch["masks"] = self._heatmaps(batch["x_src"])
         passes = ((True, "latent"), (False, "ref")) if self.M is not None \
             else ((False, "ref"),)
         metrics = {}
@@ -441,11 +507,6 @@ class StarGANv2Solver:
         if self.D is not None:
             raise RuntimeError("init_pretrain comes before init_training: "
                                "G's optimizer must hold the token")
-        if self.cfg.norm_type != "adain":
-            raise NotImplementedError(
-                "MAE pretraining with --norm_type sean is not ported to the "
-                "PyTorch package yet: its style term needs the frozen ViT "
-                "(ROADMAP A.7)")
         self._mae = (mask_ratio, patch_size)
         self.token = MaskToken(mask_token_type, mask_ratio, 3,
                                self.cfg.img_size).to(self.device)
@@ -488,18 +549,27 @@ class StarGANv2Solver:
         """As the JAX ``mae_g_loss_fn``: (loss, {adv, sty, rec, ds}) with the
         graph of G, the token, M and S: adv + lambda_sty * style
         reconstruction of the repaired image + lambda_rec * L1 to x_ref +
-        lambda_ds * |S(x_ref) - S(x_ref2)|."""
+        lambda_ds * |S(x_ref) - S(x_ref2)|. SEAN's style term embeds the
+        repair through the frozen ViT (none without it), and it has no
+        diversity term."""
         cfg = self.cfg
-        x_real, x_real2, y_org = batch["x_ref"], batch["x_ref2"], batch["y_ref"]
+        x_real, y_org = batch["x_ref"], batch["y_ref"]
         s = self._code(batch, y_org, "ref", latent)
         x_fake = self._repair(x_real, s, y_org, batch.get("masks"), generator)
         out = self.D(x_fake, y_org)
         loss_adv = bce_logits(out, torch.ones_like(out))
+        zero = torch.zeros((), device=self.device)
         # style reconstruction on the repaired image (solver.py:444-446)
-        s_pred = self.M(batch["z_ref"], y_org) if latent else self.S(x_fake, y_org)
-        loss_sty = l1(s_pred, s)
+        if cfg.norm_type == "adain":
+            s_pred = (self.M(batch["z_ref"], y_org) if latent
+                      else self.S(x_fake, y_org))
+            loss_sty = l1(s_pred, s)
+            loss_ds = l1(self.S(x_real, y_org), self.S(batch["x_ref2"], y_org))
+        else:
+            loss_sty = (l1(self._embed_fake(x_fake), s) if self.vit is not None
+                        else zero)
+            loss_ds = zero
         loss_rec = l1(x_fake, x_real)
-        loss_ds = l1(self.S(x_real, y_org), self.S(x_real2, y_org))
         # the reference's MAE G loss weighs rec with lambda_rec (solver.py:457)
         loss = (loss_adv + cfg.lambda_sty * loss_sty +
                 cfg.lambda_rec * loss_rec +
@@ -512,14 +582,16 @@ class StarGANv2Solver:
         """One pretraining iteration (solver.py:98-204): D latent, D ref, G
         latent, G ref (M and S updated on the latent pass only), then the
         EMA of G (the JAX EMA also averages the token, which nothing reads)
-        and the step count. ``batch``: NHWC ``x_ref``, ``x_ref2``,
-        domains ``y_ref`` and ``z_ref``. Returns the loss terms under the JAX
-        names as 0-d tensors."""
+        and the step count; SEAN runs the reference passes alone. ``batch``:
+        NHWC ``x_ref``, ``x_ref2``, domains ``y_ref`` and ``z_ref`` (AdaIN)
+        or the embeddings ``s_ref`` (SEAN). Returns the loss terms under the
+        JAX names as 0-d tensors."""
         if self.token is None:
             raise RuntimeError("pretrain_step needs init_pretrain first")
         self.init_training()
         batch = self._batch(batch)
-        passes = ((True, "latent"), (False, "ref"))
+        passes = ((True, "latent"), (False, "ref")) if self.M is not None \
+            else ((False, "ref"),)
         metrics = {}
         for latent, tag in passes:
             loss, m = self.mae_d_loss_fn(batch, latent=latent,

@@ -1,10 +1,72 @@
-"""Result grids, a copy of ``de_i2i_gan_tpu/utils/visualize.py::make_grid``
-(the reference's torchvision ``make_grid``). The ablation figures and the
-embedding scatter of the JAX module need matplotlib and wait for ROADMAP
-A.9."""
+"""Result visualization, counterpart of ``de_i2i_gan_tpu/utils/visualize.py``:
+``make_grid`` (the reference's torchvision ``make_grid``) and the embedding
+scatter (defectGAN/utils/util.py:122-156).
+
+``reduce_embeddings`` reduces an embedding bank to 2-D: PCA by SVD (numpy
+alone), or t-SNE (sklearn). ``visualize_embeddings`` then plots it with
+matplotlib; without matplotlib, or without sklearn for t-SNE, it prints and
+skips the plot, as the JAX module does. The ablation figures wait for
+ROADMAP A.9.
+"""
 from __future__ import annotations
 
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
 import numpy as np
+
+
+def _plt():
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        return plt
+    except Exception:
+        print("[visualize] matplotlib unavailable; skipping plot")
+        return None
+
+
+def reduce_embeddings(embeddings: Dict, reduction: str = "pca"
+                      ) -> Optional[Tuple[np.ndarray, List]]:
+    """{label: [vectors]} -> ((n, 2) points, the label of each), or None
+    when t-SNE is asked for and sklearn is missing. PCA: the centred
+    vectors on their first two right singular vectors."""
+    vecs = np.concatenate([np.stack(v) for v in embeddings.values()], axis=0)
+    labels = [k for k, v in embeddings.items() for _ in v]
+    if reduction == "pca":
+        c = vecs - vecs.mean(0)
+        _, _, vt = np.linalg.svd(c, full_matrices=False)
+        return c @ vt[:2].T, labels
+    try:
+        from sklearn.manifold import TSNE
+    except ImportError:
+        print("[visualize] sklearn unavailable; skipping t-SNE")
+        return None
+    return TSNE(n_components=2, random_state=0).fit_transform(vecs), labels
+
+
+def visualize_embeddings(embeddings: Dict, out_path: Path,
+                         reduction: str = "pca") -> Optional[np.ndarray]:
+    """Per-label scatter of the reduced embeddings (util.py:122-156) written
+    to ``out_path``; returns the 2-D points (None where skipped)."""
+    reduced = reduce_embeddings(embeddings, reduction)
+    plt = _plt()
+    if reduced is None or plt is None:
+        return None if reduced is None else reduced[0]
+    red, labels = reduced
+    fig, ax = plt.subplots(figsize=(8, 8))
+    for u in sorted(set(labels)):
+        mask = np.asarray([lbl == u for lbl in labels])
+        name = "-".join(str(j) for j, b in enumerate(u) if b == 1) \
+            if isinstance(u, tuple) else str(u)
+        ax.scatter(red[mask, 0], red[mask, 1], s=6, label=name)
+    ax.legend(fontsize=6)
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(out_path)
+    plt.close(fig)
+    return red
 
 
 def make_grid(images: np.ndarray, nrow: int, pad: int = 2) -> np.ndarray:

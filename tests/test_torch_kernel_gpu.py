@@ -315,6 +315,20 @@ MAE_SHAPES = [(32, 256, 64, 64), (32, 256, 128, 128), (32, 128, 256, 256)]
 def test_every_tier_matches_plain_at_the_mae_shapes(op, shape, dtype):
     """Every tier the planner can run at a batch-32 MAE shape, against the
     plain version, each activation; the planned tier is one of them."""
+    _every_tier_matches_plain(op, shape, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_every_tier_matches_plain_at_the_celeba_shape(op, dtype):
+    """The same at the 8^2 rows of StarGAN v2's CelebA-HQ generator (w_hpf
+    1, batch 8): 64 elements a row, 8 bf16 or 16 f32 vectors, so that most
+    of a tier-W warp's 32 lanes hold none."""
+    _every_tier_matches_plain(op, (8, 512, 8, 8), dtype)
+
+
+def _every_tier_matches_plain(op, shape, dtype):
     _need_card()
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(sum(shape))

@@ -154,7 +154,7 @@ def test_pretrain_step_ema_and_step_match_jax():
 
 def test_pretrain_mode_wiring():
     """The token joins G's optimizer and the checkpoint; it must come
-    before the training state; SEAN waits for the frozen ViT."""
+    before the training state; SEAN's too."""
     port = pretrain_solver(config("adain"))
     port.init_training()
     token = port.token.mask_token
@@ -167,5 +167,33 @@ def test_pretrain_mode_wiring():
     with pytest.raises(RuntimeError, match="init_pretrain first"):
         plain.pretrain_step(torch_batch(make_batch(0)))
     sean = StarGANv2Solver(StarGANv2Config(**config("sean")), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        sean.init_pretrain()
+    sean.init_pretrain()  # SEAN pretrains too (its style term: the ViT)
+    sean.init_training()
+    assert any(p is sean.token.mask_token for p in sean.tx_G.params)
+    assert sean.M is None and sean.tx_M is None
+
+
+def test_sean_pretrain_through_the_cli(tmp_path, monkeypatch, capsys):
+    """StarGAN v2 ``--mode pretrain --norm_type sean`` with ``--vit_path``
+    (a tiny HF-keyed ViT the test writes): the reference passes alone, the
+    style term live, no diversity term; the pretrain checkpoint."""
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint
+    from tests.test_torch_starganv2_train_cli import (
+        _argv, _iteration_losses, _tiny_vit_bin)
+    from tests.test_torch_starganv2_train_fused import _image_tree
+
+    monkeypatch.setattr(sgv2_cli, "VIT_MODEL_SIZE", "tiny")
+    _image_tree(tmp_path / "tree", 3, per_domain=2)
+    solver = sgv2_cli.main(_argv(
+        tmp_path, "--mode", "pretrain", "--norm_type", "sean", "--embed_nc",
+        "16", "--num_embeds", "2", "--hidden_nc", "16", "--vit_path",
+        str(_tiny_vit_bin(tmp_path / "vit.bin")), "--total_iters", "1",
+        "--patch_size", "16", "--save_every", "100"))
+    assert solver.step == 1 and solver.vit is not None
+    out = capsys.readouterr().out.replace("Pretrain [", "Iteration [")
+    losses = _iteration_losses(out)
+    assert losses["G/ref_sty"] > 0 and losses["G/ref_ds"] == 0
+    assert not any(k.startswith(("D/latent", "G/latent")) for k in losses)
+    state = read_checkpoint(tmp_path / "ckpt", "starganv2_pretrain", "latest")
+    assert state["step"] == 1 and "token" in state

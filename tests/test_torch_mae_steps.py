@@ -17,7 +17,10 @@ gradient checks (``tests/test_torch_train_step.py``):
     atol 1e-6, a few float32 ulps of the weights; and the moments and
     counts carried on;
   * G's BatchNorm running statistics, 1e-4;
-  * ``eval_losses`` rtol 2e-4 and ``repair_grid`` 5e-4 (forward).
+  * ``eval_losses`` rtol 2e-4 and ``repair_grid`` 5e-4 (forward);
+  * ``remat=True``, which both packages accept and neither applies to MAE:
+    the port's super-step equals its own with remat off bit for bit, and
+    the JAX ``MAESteps`` with remat on as above.
 """
 import functools
 
@@ -29,8 +32,10 @@ import jax
 import jax.numpy as jnp
 
 from tests.test_torch_mae import (
-    BATCH, CRITICS, MAE, fixed_mask, jax_state, jax_steps, make_batches,
-    masks_fed, port_params, port_steps)
+    BATCH, CRITICS, MAE, STYLES, DefectGanConfig, JaxConfig, JaxMAEConfig,
+    JaxTrainConfig, MAEConfig, TrainConfig, fixed_mask, jax_mae_steps,
+    jax_state, jax_steps, make_batches, mae_steps, masks_fed, port_params,
+    port_steps)
 from de_i2i_gan_torch.train.jax_import import _flatten, _targets, load_jax_mae_state
 
 torch.set_num_threads(1)
@@ -249,3 +254,46 @@ def test_eval_losses_and_repair_grid_match_jax(style):
 def test_loss_weight_must_have_three_entries():
     with pytest.raises(ValueError, match="3 entries"):
         port_steps("adain", dict(SGD, loss_weight=(2, 5, 5, 5, 1)))
+
+
+def test_remat_is_accepted_and_changes_nothing():
+    """ROADMAP C.1: the JAX ``MAESteps`` never reads ``cfg.remat``; the port
+    accepts it too. One SGD super-step with remat on equals one with it off
+    (every tensor and loss, bit for bit), and JAX's with remat on (the
+    tolerances above)."""
+    style = "adain"
+    jsteps = jax_mae_steps.MAESteps(
+        JaxConfig(**STYLES[style], remat=True), JaxMAEConfig(**MAE),
+        JaxTrainConfig(**SGD), iters_per_epoch=10, num_epochs=2)
+    state = jax_state(jsteps, 0)
+    batches = make_batches(2, style)
+    runs = {}
+    with masks_fed(fixed_mask(3)):
+        after, jmetrics = jax.jit(jsteps.super_step)(
+            state, {k: jnp.asarray(v) for k, v in batches.items()},
+            jax.random.PRNGKey(1))
+        for remat in (False, True):
+            port = mae_steps.MAESteps(
+                DefectGanConfig(**STYLES[style], remat=remat),
+                MAEConfig(**MAE), TrainConfig(**SGD), device="cpu",
+                iters_per_epoch=10, num_epochs=2)
+            load_jax_mae_state(port, state)
+            runs[remat] = (port, port.super_step(
+                {k: torch.from_numpy(v) for k, v in batches.items()}))
+    (off, m_off), (on, m_on) = runs[False], runs[True]
+    assert on.cfg.remat and sorted(m_on) == sorted(m_off)
+    assert all(torch.equal(m_on[k], m_off[k]) for k in m_off)
+    for name in ("G", "token", "E", "D"):
+        a, b = getattr(on, name).state_dict(), getattr(off, name).state_dict()
+        assert all(torch.equal(a[k], b[k]) for k in b), name
+    close_metrics(m_on, jax.device_get(jmetrics))
+    after = jax.device_get(after)
+    for name in net_names(style):
+        module, before_tree, after_tree, lr = nets(on, state, after, name)
+        before = port_params(module, before_tree)
+        for key, (tensor, ref_after) in port_params(module, after_tree).items():
+            start = before[key][1]
+            np.testing.assert_allclose(
+                (tensor.detach().numpy() - start) / lr,
+                (ref_after - start) / lr, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                err_msg=f"remat {name} {key}")

@@ -2,7 +2,8 @@
 plan``), on the CPU: torch only, no card.
 
 Every shape on the port's paths (``chip_smoke.py``'s ``SLICE_SHAPES``,
-``TRAIN_SHAPES``, ``SGV2_SHAPES`` and ``SGV2_TRAIN_SHAPES``) maps to its
+``TRAIN_SHAPES``, ``SGV2_SHAPES``, ``SGV2_TRAIN_SHAPES`` and
+``CELEBA_TRAIN_SHAPES``) maps to its
 intended tier and cluster size, forward and backward, in bfloat16 and
 float32; the tier boundaries land where the plan says; every plan stays
 within the H100's limits; ragged rows and unaligned pointers stream (tier
@@ -46,19 +47,20 @@ def _smoke():
 _SMOKE = _smoke()
 PATH_SHAPES = sorted({s for shapes in (_SMOKE.SLICE_SHAPES, _SMOKE.TRAIN_SHAPES,
                                        _SMOKE.SGV2_SHAPES,
-                                       _SMOKE.SGV2_TRAIN_SHAPES)
+                                       _SMOKE.SGV2_TRAIN_SHAPES,
+                                       _SMOKE.CELEBA_TRAIN_SHAPES)
                       for s in shapes})
 
 # the intended (tier, cluster) of each row length on the paths
 INTENDED = {
-    ("fwd", "bfloat16"): {256: ("W", 1), 1024: ("W", 1), 4096: ("B", 1),
-                          16384: ("C", 1), 65536: ("C", 2)},
-    ("bwd", "bfloat16"): {256: ("W", 1), 1024: ("W", 1), 4096: ("B", 1),
-                          16384: ("C", 1), 65536: ("C", 4)},
-    ("fwd", "float32"): {256: ("W", 1), 1024: ("W", 1), 4096: ("B", 1),
-                         16384: ("C", 1), 65536: ("C", 4)},
-    ("bwd", "float32"): {256: ("W", 1), 1024: ("W", 1), 4096: ("B", 1),
-                         16384: ("C", 2), 65536: ("C", 8)},
+    ("fwd", "bfloat16"): {64: ("W", 1), 256: ("W", 1), 1024: ("W", 1),
+                          4096: ("B", 1), 16384: ("C", 1), 65536: ("C", 2)},
+    ("bwd", "bfloat16"): {64: ("W", 1), 256: ("W", 1), 1024: ("W", 1),
+                          4096: ("B", 1), 16384: ("C", 1), 65536: ("C", 4)},
+    ("fwd", "float32"): {64: ("W", 1), 256: ("W", 1), 1024: ("W", 1),
+                         4096: ("B", 1), 16384: ("C", 1), 65536: ("C", 4)},
+    ("bwd", "float32"): {64: ("W", 1), 256: ("W", 1), 1024: ("W", 1),
+                         4096: ("B", 1), 16384: ("C", 2), 65536: ("C", 8)},
 }
 
 
@@ -68,7 +70,7 @@ def _vec(dtype):
 
 def test_path_shapes_cover_every_row_length():
     assert {h * w for _, _, h, w in PATH_SHAPES} == set(INTENDED["fwd", "bfloat16"])
-    assert len(PATH_SHAPES) == 15
+    assert len(PATH_SHAPES) == 16
 
 
 @pytest.mark.parametrize("shape", PATH_SHAPES, ids=lambda s: "x".join(map(str, s)))

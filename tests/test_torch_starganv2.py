@@ -5,7 +5,8 @@ Every module of the serving path is held against its flax counterpart:
 ``AffineInstanceNorm``, ``ResBlk``, ``StyleAdaIN``, ``SEANv2`` (every
 branch: track_stats, inference_stats with std_weight, mix_alpha),
 ``_StyledResBlk``, ``high_pass``, ``Generator`` (AdaIN and SEAN,
-``layer_split_index``, ``w_hpf > 0`` without masks), ``MappingNetwork``,
+``layer_split_index``, ``w_hpf > 0`` with and without FAN masks),
+``MappingNetwork``,
 ``StyleEncoder`` and ``sean_v2_update_stats``; then the solver's
 ``generate`` with latent, reference and SEAN styles, EMA and not, and the
 update_stats flow (``track_stats_step``, ``finalize_ema_stats``, an
@@ -280,11 +281,28 @@ def test_generator_matches_flax(case):
     close(out, ref)
 
 
-def test_generator_masks_wait_for_the_fan():
-    port = sg.Generator(img_size=64, style_dim=STYLE, max_conv_dim=32)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.7"):
-        port(torch.zeros(1, 64, 64, 3), torch.zeros(1, STYLE),
-             masks=[torch.ones(1, 32, 32, 1), torch.ones(1, 64, 64, 1)])
+@pytest.mark.parametrize("mask_size", [256, 32])
+def test_generator_with_masks_matches_flax(mask_size):
+    """w_hpf 1 with FAN masks (once unported): the encoder's skips at 32 and
+    64 px, the masks resized as jax.image.resize does (256 -> 32/64
+    antialiased; 32 -> 64 grows), the high-pass fusion."""
+    gkw = dict(img_size=64, style_dim=STYLE, max_conv_dim=32, w_hpf=1.0)
+    jmod, port = jsg.Generator(**gkw), sg.Generator(**gkw)
+    x = np.random.default_rng(20).uniform(-1, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    s = normal(21, (2, STYLE))
+    rng = np.random.default_rng(22)
+    masks = [rng.uniform(0, 1, (2, mask_size, mask_size, 1)).astype(np.float32)
+             for _ in range(2)]
+    v = carry(jmod, port, jnp.asarray(x), jnp.asarray(s))
+    ref = jmod.apply(jv(v), jnp.asarray(x), jnp.asarray(s),
+                     masks=[jnp.asarray(m) for m in masks])
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(s),
+                   masks=[torch.from_numpy(m) for m in masks])
+        plain = port(torch.from_numpy(x), torch.from_numpy(s))
+    close(out, ref)
+    assert (out - plain).abs().max() > 1e-3  # the masks changed the output
 
 
 def test_mapping_network_matches_flax():

@@ -356,7 +356,7 @@ def test_lambda_ds_decays_with_the_step():
 
 def test_sean_without_the_frozen_vit_refuses_a_zeroed_style_loss():
     """As the JAX solver: lambda_sty inactive is an error unless the config
-    allows degraded losses (the ViT waits for ROADMAP A.7)."""
+    allows degraded losses (``set_frozen_nets`` attaches the ViT)."""
     kw = config("sean", allow_degraded_losses=False)
     solver = StarGANv2Solver(StarGANv2Config(**kw), device="cpu")
     solver.init_training()

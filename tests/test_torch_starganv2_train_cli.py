@@ -12,9 +12,15 @@
   resume with ``--resume_iter 2`` whose loaded state equals the saved one
   tensor for tensor, then ``--mode sample`` from it: the cycle grid and
   ``latent_grid.png`` at their sizes.
+* The frozen nets through the CLI at the tiny config: SEAN with a random
+  tiny ViT and with ``--vit_path`` (an HF-keyed file the test writes),
+  ``--mode update_stats``, ``--wing_ckpt`` at ``w_hpf 1`` and ``--mode
+  align`` (a FAN checkpoint and mean landmarks the test writes).
 * Every mode and flag not ported yet raises ``NotImplementedError`` naming
   its ROADMAP item.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -146,10 +152,130 @@ def test_cli_train_resume_then_sample(tmp_path, monkeypatch, capsys):
 
 
 UNPORTED = [(["--mode", "eval"], "A.8"),
-            (["--mode", "update_stats"], "A.7"), (["--mode", "align"], "A.7"),
-            (["--norm_type", "sean"], "A.7"),
-            (["--vit_path", "x"], "A.7"), (["--wing_ckpt", "x"], "A.7"),
             (["--make_video"], "A.9"), (["--data_parallel", "on"], "A.9")]
+
+
+# ----------------------------------------------- the frozen nets in the CLI
+SEAN = ["--norm_type", "sean", "--embed_nc", "8", "--num_embeds", "2",
+        "--hidden_nc", "16"]
+
+
+def _iteration_losses(out):
+    """{name: value} of the CLI's last ``Iteration`` line."""
+    line = [ln for ln in out.splitlines() if ln.startswith("Iteration [")][-1]
+    return {k: float(v) for k, v in re.findall(r"(\S+): \[([-\d.e]+)\]", line)}
+
+
+def _tiny_vit_bin(path):
+    """A tiny ViT's state dict under the HF key names (``vit.`` prefix)."""
+    from de_i2i_gan_torch.models import vit
+    net = vit.ViTEncoder("tiny", generator=torch.Generator().manual_seed(4))
+    torch.save({f"vit.{k}": v for k, v in vit.hf_state_dict(net).items()},
+               path)
+    return path
+
+
+@pytest.fixture
+def tiny_vit(monkeypatch):
+    monkeypatch.setattr(cli, "VIT_MODEL_SIZE", "tiny")
+
+
+def test_cli_sean_train_with_a_random_vit(tmp_path, tiny_vit, capsys):
+    """--norm_type sean (once unported): the SEAN fetcher embeds the stacks
+    with a random tiny ViT cut to --embed_nc; lambda_sty is inactive, so it
+    needs --allow_degraded_losses."""
+    _image_tree(tmp_path / "tree", 3, per_domain=2)
+    argv = _argv(tmp_path, *SEAN, "--total_iters", "1", "--save_every",
+                 "100", "--sample_every", "1")
+    with pytest.raises(ValueError, match="allow_degraded_losses"):
+        cli.main(argv)
+    solver = cli.main(argv + ["--allow_degraded_losses"])
+    assert solver.step == 1 and solver.vit is None
+    losses = _iteration_losses(capsys.readouterr().out)
+    assert losses["G/ref_sty"] == 0.0 and "G/latent_adv" not in losses
+    assert (tmp_path / "samples" / "000001_cycle.png").exists()
+
+
+def test_cli_sean_train_with_vit_path(tmp_path, tiny_vit, capsys):
+    """--vit_path (once unported): the HF-keyed weights feed the fetcher and
+    the G loss, whose style term is live; --embed_nc must match its width."""
+    _image_tree(tmp_path / "tree", 3, per_domain=2)
+    vit_bin = _tiny_vit_bin(tmp_path / "vit.bin")
+    argv = _argv(tmp_path, *SEAN, "--vit_path", str(vit_bin),
+                 "--total_iters", "1", "--save_every", "100",
+                 "--sample_every", "100")
+    with pytest.raises(SystemExit, match="must match"):
+        cli.main(argv)
+    solver = cli.main(argv + ["--embed_nc", "16"])
+    assert solver.vit is not None and solver.vit.dtype == torch.float32
+    assert _iteration_losses(capsys.readouterr().out)["G/ref_sty"] > 0
+
+
+def test_cli_update_stats(tmp_path, tiny_vit):
+    """--mode update_stats (once unported): the EMA generator tracks SEAN
+    styles until each domain has --num_stats_samples, then the finalized
+    statistics go to the ``stats_updated`` checkpoint."""
+    _image_tree(tmp_path / "tree", 3, per_domain=2)
+    solver = cli.main(_argv(tmp_path, *SEAN, "--mode", "update_stats",
+                            "--num_stats_samples", "2"))
+    saved = checkpoint.read_checkpoint(tmp_path / "ckpt", "starganv2",
+                                       "stats_updated")
+    stats = {k: v for k, v in saved["ema_G"].items()
+             if k.endswith((".mean", ".std"))}
+    # finalized: the accumulators folded into each domain's mean and std
+    assert stats and all(torch.isfinite(v).all() and (v != 0).all(dim=-1).all()
+                         for v in stats.values())
+    assert solver.step == 0
+
+
+def _wing_ckpt(path):
+    from de_i2i_gan_torch.models import wing
+    torch.save({"state_dict": wing.wing_state_dict(wing.make_fan("cpu", 2))},
+               path)
+    return path
+
+
+def test_cli_train_with_wing_ckpt(tmp_path, monkeypatch):
+    """--wing_ckpt (once unported): at w_hpf 1 every training iteration takes
+    the FAN's masks of x_src and of each pass's x_fake."""
+    from de_i2i_gan_torch.models import wing
+    _image_tree(tmp_path / "tree", 3, per_domain=2)
+    seen, real = [], wing.fan_masks
+
+    def counted(fan, x):
+        seen.append(tuple(x.shape))
+        return real(fan, x)
+
+    monkeypatch.setattr(wing, "fan_masks", counted)
+    argv = _argv(tmp_path, "--total_iters", "1", "--save_every", "100",
+                 "--sample_every", "100", "--wing_ckpt",
+                 str(_wing_ckpt(tmp_path / "wing.ckpt")))
+    argv[argv.index("--w_hpf") + 1] = "1"
+    solver = cli.main(argv)
+    assert solver.fan is not None and solver.step == 1
+    assert seen == [(BATCH, IMG, IMG, 3)] * 3
+
+
+def test_cli_align(tmp_path):
+    """--mode align (once unported): FAN landmarks (a checkpoint written by
+    the test), the warp to mean landmarks from --lm_path, PNGs out."""
+    from PIL import Image
+    rng = np.random.default_rng(5)
+    (tmp_path / "faces").mkdir()
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 256, (80, 96, 3), dtype=np.uint8)
+                        ).save(tmp_path / "faces" / f"f{i}.jpg")
+    np.savez(tmp_path / "lm.npz",
+             mean=rng.uniform(60, 200, (98, 2)).astype(np.float32))
+    written = cli.main(["--mode", "align", "--device", "cpu", "--img_size",
+                        "256", "--inp_dir", str(tmp_path / "faces"),
+                        "--out_dir", str(tmp_path / "out"), "--lm_path",
+                        str(tmp_path / "lm.npz"), "--wing_ckpt",
+                        str(_wing_ckpt(tmp_path / "wing.ckpt"))])
+    assert [p.name for p in written] == ["f0.png", "f1.png"]
+    for p in written:
+        img = np.asarray(Image.open(p))
+        assert img.shape == (256, 256, 3) and img.std() > 0
 
 
 @pytest.mark.parametrize("flags,item", UNPORTED,

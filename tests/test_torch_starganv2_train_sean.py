@@ -5,9 +5,9 @@ DiffAugment fed the JAX package's draws, from one continued JAX
 SEAN runs the reference pass alone: one D update and one G update. The G
 pass tracks the style codes of x_fake and x_fake2 into G's statistics; the
 step then moves ``ema_G``'s statistics, all five buffers (the accumulators
-too), toward G's by 1 - beta. There is no frozen ViT (ROADMAP A.7), so the
-style term is inactive, as the JAX suite runs it
-(``allow_degraded_losses``).
+too), toward G's by 1 - beta. No frozen ViT is attached here, so the style
+term is inactive, as the JAX suite runs it (``allow_degraded_losses``);
+``tests/test_torch_starganv2_frozen.py`` holds the term with the ViT.
 
 Compared as in the AdaIN file: the metrics (rtol 2e-4), each net's update
 and Adam moments per tensor (``STEP_REL``), the counts, the EMA generator

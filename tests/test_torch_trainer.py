@@ -348,8 +348,50 @@ UNPORTED = {
               ["--data_parallel", "on"], ["--num_devices", "2"],
               ["--gpu_ids", "0,1"]],
     "test": [["--metrics", "fid"], ["--cal_mfid"], ["--save_stats"],
-             ["--vis_style_embeds", "hidden"], ["--gpu_ids", "0,1"]],
+             ["--gpu_ids", "0,1"]],
 }
+
+
+@pytest.mark.parametrize("etype", ["hidden", "mean", "std"])
+def test_vis_style_embeds_through_the_cli(etype, tmp_path):
+    """--vis_style_embeds (once unported): SEAN with an embedding bank, from
+    a checkpoint; the captured activations by layer and label, one PCA
+    scatter a layer when matplotlib is there."""
+    from de_i2i_gan_torch.config.options import (
+        Options, to_defectgan_config, to_train_config)
+    from de_i2i_gan_torch.data.embeddings import EmbeddingBank
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+
+    argv = ["--name", "vis"] + _tiny_argv(tmp_path)[:-1] + [
+        "sean", "--embed_nc", "12", "--num_embeds", "2"]
+    opt = Options("defectgan_test").parse(argv, save=False)
+    steps = DefectGanSteps(to_defectgan_config(opt), to_train_config(opt),
+                           device="cpu")
+    save_checkpoint(tmp_path / "ckpt", "vis", "latest", steps)
+    rng = np.random.default_rng(0)
+    bank = EmbeddingBank.from_dict(
+        {(1, 0, 0, 0): list(rng.normal(size=(3, 12))),
+         (0, 1, 1, 0): list(rng.normal(size=(2, 12)))}, 4)
+    bank.save(tmp_path / "bank.npz")
+    out = test_defectgan.main(argv + [
+        "--results_dir", str(tmp_path / "res"), "--vis_style_embeds", etype,
+        "--embed_path", str(tmp_path / "bank.npz")])
+    layers = out["style_embeds"]
+    want = {"hidden": ("mlp_shared", "mlp_latent"), "mean": ("mlp_beta",),
+            "std": ("mlp_gamma",)}[etype]
+    assert layers and all(k.rsplit(".", 1)[-1] in want for k in layers)
+    for by_label in layers.values():
+        assert sum(len(v) for v in by_label.values()) == 64  # the test set
+        assert all(np.isfinite(e).all() for v in by_label.values() for e in v)
+        if etype == "hidden":
+            assert all((e >= 0).all() for v in by_label.values() for e in v)
+    try:
+        import matplotlib  # noqa: F401
+        plotted = len(layers)
+    except ImportError:
+        plotted = 0
+    assert len(list((tmp_path / "res" / "vis" / "pca").glob("*.png"))) == plotted
 
 
 @pytest.mark.parametrize("cli,flags", [(c, f) for c in UNPORTED
