@@ -244,6 +244,43 @@ Phases, each of which raises on failure:
               device time and the FAN's share of it
   15c. align  ``--mode align`` on 3 synthetic faces with ``--lm_path`` mean
               landmarks written from a seed: the aligned PNGs
+  16a. ops    ``torch.library.opcheck`` of both kernels' custom ops on the
+              card at a DefectGAN training shape and a StarGAN v2 one, f32
+              and bf16; the host microseconds of one eager call of the
+              forward op at 16^2, beside the ctypes wrapper's alone and the
+              device time of the call back to back
+  16b. export ``serving.py`` at full width in bf16: DefectGAN-256 AdaIN and
+              SEAN, StarGAN v2-256 AdaIN (generator, style encoder, mapping)
+              and SEANv2 (generator); each graph holds exactly 8 / 12 / 0
+              forward-op nodes; saved, loaded and served at batch 8 or 32
+              and at batch 1 from the same artifact with exactly that many
+              launches a call; max and mean |d| against eager, request
+              latency and kernel time beside eager's, the artifact's size;
+              ``cli.export_model --validate`` on 8a's and 10d's checkpoints
+  16c. folder ``cli.translate_folder`` at 1024^2 (BASELINE.json config #5),
+              full width, SEAN, batch 4, over 9 PNGs (the last batch
+              padded): 8 forward launches a G forward at the shapes and
+              tiers of FOLDER_SHAPES (the last norm's rows stream, tier S),
+              a batch of 4 timed (ms, images/s, peak memory), the kernel
+              path against the plain version within phase 4's band, each
+              shape timed as in 5 beside its bound and F.instance_norm
+  16d. video  ``cli.starganv2_main --mode sample --make_video`` on 10d's
+              checkpoint (31 G forwards a same-domain transition, 10 held
+              frames), then ``translate_with_alpha_control`` and
+              ``translate_with_layer_split`` through a SEANv2 solver, with
+              exact launches
+  17a. nets   InceptionV3 and LPIPS drawn from a seed, card vs CPU (f32,
+              TF32 off, relative L2 within 1e-4); a batch-32 Inception
+              feature request at 299^2 (device time, peak memory); the host
+              time of one 2048-wide Frechet distance
+  17b. cli    every metric flag through its CLI at ``--dims 768``:
+              ``cli.test_defectgan --metrics fid is lpips --save_stats``,
+              ``--cal_mfid``, ``cli.train_defectgan --val_metrics`` for an
+              epoch, ``cli.test_pix2pix --metrics fid``, ``cli.fid`` on two
+              folders, ``cli.starganv2_main --mode eval``: exact launches a
+              G forward, finite numbers, the time of each and Inception's
+              share of its kernel time. The metric nets are drawn from a
+              seed: their numbers mean nothing
 
 Then each timed shape's planned tier against tier S and the fastest tier,
 and each path's share of the bound. The line before the last two holds the
@@ -442,6 +479,34 @@ CELEBA_TRAIN_SHAPES = {(SGV2_TRAIN_BATCH, 512, 8, 8): 5,
                        (SGV2_TRAIN_BATCH, 64, 256, 256): 1}
 CELEBA_FWD_PER_FORWARD = sum(CELEBA_TRAIN_SHAPES.values())
 ALIGN_FACES = 3
+
+# phase 16: deployment. 16a: opcheck at a DefectGAN training shape and a
+# StarGAN v2 one; 16b: the artifacts under build/chip_smoke/export
+OPCHECK_SHAPES = ((16, 256, 64, 64), (32, 512, 16, 16))
+EXPORT_DIR = CLI_DIR / "export"
+EXPORT_TIMED = 5
+SGV2_EXPORT_NET = ["--num_domains", "3", "--compute_dtype", "bfloat16"]
+# 16c: BASELINE.json config #5, folder inference at 1024^2 with the
+# defectgan_test defaults (batch 4, full width) and SEAN. The decoder's norm
+# calls of one G forward (as SLICE_SHAPES at 256^2): three NormResBlocks of
+# two norms at H/4, then a NormConvBlock at H/2 and one at H, each
+# normalizing its input (256 and 128 channels) before it upsamples
+FOLDER_IMAGE = 1024
+FOLDER_BATCH = 4
+FOLDER_FILES = 9  # 3 batches, the last padded
+FOLDER_SHAPES = {(FOLDER_BATCH, 256, 256, 256): 6,
+                 (FOLDER_BATCH, 256, 512, 512): 1,
+                 (FOLDER_BATCH, 128, 1024, 1024): 1}
+FOLDER_BASE = ["--image_size", str(FOLDER_IMAGE), "--style_norm_block_type",
+               "sean"]
+GRID_SOURCES = 4  # 16d: the SEAN grids' sources
+# phase 17: the metric nets card vs CPU (f32, TF32 off): relative L2; a
+# feature request's batch; the metric CLIs' --dims (a 2048-wide FID spends
+# seconds in scipy's sqrtm on the host, timed in 17a) and --num_imgs
+METRIC_BAND = 1e-4
+INCEPTION_BATCH = 32
+METRIC_DIMS = 768
+METRIC_IMGS = 16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4307,6 +4372,724 @@ def phase_align_cli(nk, smi, wing_ckpt):
     return dict(launches=launches)
 
 
+# ------------------------------------- 16-17. deployment and the metrics
+
+
+def leaves(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+@contextlib.contextmanager
+def counted_forwards(cls):
+    """Counts the calls of ``cls.forward`` while the block runs (a G
+    forward of any batch launches the forward kernel once a styled norm)."""
+    real, n = cls.forward, [0]
+
+    def forward(self, *args, **kw):
+        n[0] += 1
+        return real(self, *args, **kw)
+
+    cls.forward = forward
+    try:
+        yield n
+    finally:
+        cls.forward = real
+
+
+def host_us(fn, iters):
+    """Host microseconds a call of ``fn``, queued back to back (the device
+    runs behind; a synchronize before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def phase_ops(nk, fused, smi, iters=2000):
+    """16a. ``torch.library.opcheck`` of both custom ops on the card, at a
+    DefectGAN training shape and a StarGAN v2 one, in bf16 and f32; the
+    host cost of one eager call of the forward op at 16^2 beside the
+    wrapper's alone and beside the device time of the same call back to
+    back (the launch floor)."""
+    fwd_op = torch.ops.de_i2i_gan_torch.modulated_instance_norm_fwd
+    bwd_op = torch.ops.de_i2i_gan_torch.modulated_instance_norm_bwd
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    checked = 0
+    for shape in OPCHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g, b = make_norm_inputs(shape, dtype, SEED)
+            torch.library.opcheck(fwd_op.default, (x, g, b, None, 1e-5))
+            grads = [t.clone().requires_grad_() for t in (x, g, b)]
+            torch.library.opcheck(fwd_op.default, (*grads, "leaky_relu", 1e-5))
+            _, mean, inv = fwd_op(x, g, b, None, 1e-5)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            torch.library.opcheck(bwd_op.default, (x, g, b, mean, inv, dy, None))
+            checked += 3
+            del x, g, b, grads, mean, inv, dy
+    free_memory()
+    x, g, b = make_norm_inputs((1, 8, 16, 16), torch.bfloat16, SEED)
+    op_us = host_us(lambda: fwd_op(x, g, b, None, 1e-5), iters)
+    wrapper_us = host_us(lambda: nk.modulated_instance_norm_fwd(x, g, b), iters)
+    xg = x.clone().requires_grad_()
+    autograd_us = host_us(lambda: nk.cuda_modulated_instance_norm(xg, g, b),
+                          iters)
+    op_dev_ms = device_ms(lambda i: fwd_op(x, g, b, None, 1e-5), 200)
+    print(f"ops: opcheck passed {checked} times (both ops at "
+          f"{list(OPCHECK_SHAPES)}, f32 and bf16, the forward with and "
+          f"without gradients); an eager call at 16^2 (1, 8, 16, 16) bf16 "
+          f"takes {op_us:.2f} us of host time through the custom op, "
+          f"{autograd_us:.2f} us with autograd recording, {wrapper_us:.2f} us "
+          f"through the ctypes wrapper alone; the device time of the same "
+          f"call back to back {op_dev_ms * 1e3:.2f} us [{smi}]")
+    return dict(op_us=op_us, wrapper_us=wrapper_us, autograd_us=autograd_us,
+                op_device_us=op_dev_ms * 1e3)
+
+
+def export_one(nk, name, export, live, args_of, batches, per_forward, smi):
+    """Export one program, check its graph, save, load and serve it at each
+    of ``batches``: exactly ``per_forward`` forward launches a call, max and
+    mean |d| against the eager forward, host latency (mean of 5 ending in a
+    synchronize) and kernel time beside eager's. Returns the artifact's
+    numbers with its launches (its own runs, counted from 0)."""
+    from de_i2i_gan_torch import serving
+
+    t0 = time.perf_counter()
+    program = export()
+    export_s = time.perf_counter() - t0
+    nodes = serving.kernel_nodes(program)
+    check(nodes == per_forward, f"{name}: {nodes} forward-op nodes in the "
+          f"graph, expected {per_forward}")
+    path = serving.save_exported(program, EXPORT_DIR / f"{name}.pt2")
+    served = serving.load_exported(path).module()
+    size_mb = path.stat().st_size / 2**20
+    args = {b: args_of(b) for b in batches}
+    with torch.no_grad():
+        want = {b: [t.clone() for t in leaves(live(*args[b]))] for b in batches}
+
+        def timed(fn):
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(EXPORT_TIMED):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            return sum(ms) / len(ms)
+
+        first = args[batches[0]]
+        eager_ms = timed(lambda: live(*first))
+        eager_dev = kernel_ms(profiled(lambda: live(*first), 2), 2)
+        torch.cuda.synchronize()
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the artifact's runs start here
+
+        def serve(*a):
+            before = nk.LAUNCHES
+            out = served(*a)
+            check(nk.LAUNCHES - before == per_forward,
+                  f"{name}: a call launched {nk.LAUNCHES - before} forward "
+                  f"kernels, expected {per_forward}")
+            return out
+
+        worst = [0.0, 0.0]
+        for b in batches:
+            got = leaves(serve(*args[b]))
+            torch.cuda.synchronize()
+            check(len(got) == len(want[b]), f"{name}: {len(got)} outputs")
+            for g, w in zip(got, want[b]):
+                check(g.shape == w.shape and g.shape[0] == b
+                      and bool(torch.isfinite(g).all()),
+                      f"{name} batch {b}: {tuple(g.shape)} against "
+                      f"{tuple(w.shape)}, finite {bool(torch.isfinite(g).all())}")
+                d = (g.float() - w.float()).abs()
+                worst = [max(worst[0], d.max().item()),
+                         max(worst[1], d.mean().item())]
+        served_ms = timed(lambda: serve(*first))
+        served_dev = kernel_ms(profiled(lambda: serve(*first), 2), 2)
+        torch.cuda.synchronize()
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+    check(launches["bwd"] == 0, f"{name}: backward launches {launches}")
+    check(worst[0] <= OUT_BAND and worst[1] <= MEAN_BAND,
+          f"{name}: artifact vs eager max {worst[0]:.3e} mean {worst[1]:.3e}")
+    print(f"export {name}: {nodes} forward-op nodes, exported in "
+          f"{export_s:.1f} s, {size_mb:.1f} MiB; batches {list(batches)} from "
+          f"one artifact, {per_forward} launches a call; artifact vs eager "
+          f"max |d| {worst[0]:.3e} mean {worst[1]:.3e}; batch {batches[0]} "
+          f"request {served_ms:.3f} ms (eager {eager_ms:.3f} ms), kernels "
+          f"{served_dev:.3f} ms (eager {eager_dev:.3f} ms) [{smi}]")
+    return dict(launches=launches, nodes=nodes, max_abs=worst[0],
+                mean_abs=worst[1], ms=served_ms, eager_ms=eager_ms,
+                dev_ms=served_dev, eager_dev_ms=eager_dev, size_mb=size_mb,
+                export_s=export_s)
+
+
+def summed_launches(runs):
+    return {k: sum(r["launches"][k] for r in runs) for k in ("fwd", "bwd")}
+
+
+def phase_export(nk, smi):
+    """16b. ``serving.py`` at full width in bf16 on the card: DefectGAN-256
+    AdaIN and SEAN (8 forward-op nodes, batches 8 and 1), StarGAN v2-256
+    AdaIN (generator with 12 nodes, style encoder and mapping with none,
+    batches 32 and 1) and SEANv2 (generator); then ``cli.export_model
+    --validate`` on 8a's DefectGAN checkpoint and 10d's StarGAN v2 one."""
+    from de_i2i_gan_torch import serving
+    from de_i2i_gan_torch.cli import export_model
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    dg, sg = {}, {}
+    for label, cfg in (("adain", full_config()), ("sean", sean_config())):
+        steps = DefectGanSteps(cfg, device="cuda")
+        init_weights(steps, SEED)
+        gen = torch.Generator().manual_seed(SEED + 71)
+
+        def args_of(batch, steps=steps, cfg=cfg, gen=gen):
+            args = serving.defectgan_example_args(steps, batch, SEED, gen)
+            if cfg.style_norm_block_type == "sean":
+                args[2] = torch.randn(args[2].shape, generator=gen).cuda()
+            return args
+
+        dg[label] = export_one(
+            nk, f"defectgan_{label}",
+            lambda steps=steps: serving.export_defectgan_generator(steps),
+            serving.defectgan_serving_module(steps), args_of, (BATCH, 1),
+            FWD_PER_FORWARD, smi)
+        del steps
+        free_memory()
+    for label in ("adain", "sean"):
+        solver = sgv2_solver(sgv2_config(norm_type=label))
+        req = sgv2_requests(solver.cfg, 1, SEED + 73)[0]
+        # the program takes float32 styles, as the JAX export's specs
+        style = (req["s_ref"] if label == "sean" else solver.style(
+            req, req["y"], latent=True, use_ema=True)).float()
+
+        def g_args(batch, req=req, style=style):
+            return [req["x_src"][:batch], style[:batch], req["y"][:batch]]
+
+        sg[f"{label}_generator"] = export_one(
+            nk, f"sgv2_{label}_generator",
+            lambda solver=solver: serving.export_sgv2_generator(solver),
+            solver.generate, g_args, (SGV2_BATCH, 1), SGV2_FWD_PER_FORWARD,
+            smi)
+        if label == "adain":
+            sg["style_encoder"] = export_one(
+                nk, "sgv2_style_encoder",
+                lambda: serving.export_sgv2_style_encoder(solver),
+                solver.ema_S, lambda b: [req["x_ref"][:b], req["y"][:b]],
+                (SGV2_BATCH, 1), 0, smi)
+            sg["mapping"] = export_one(
+                nk, "sgv2_mapping", lambda: serving.export_sgv2_mapping(solver),
+                solver.ema_M, lambda b: [req["z_ref"][:b], req["y"][:b]],
+                (SGV2_BATCH, 1), 0, smi)
+        del solver, req, style
+        free_memory()
+
+    # the CLI on the runs' checkpoints: an export and a validation each
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's runs start here
+    t0 = time.perf_counter()
+    dg_cli, _ = run_cli(export_model.main, [
+        "--model", "defectgan", "--validate", "--out",
+        str(EXPORT_DIR / "cli_defectgan.pt2")] + cli_args(
+            "adain", "--style_norm_block_type", "adain"))
+    sg_cli, _ = run_cli(export_model.main, [
+        "--model", "starganv2", "--checkpoint_dir",
+        str(CLI_DIR / "sgv2" / "ckpt"), "--resume_iter", str(SGV2_CLI_ITERS),
+        "--out_dir", str(EXPORT_DIR / "cli_sgv2"), "--validate",
+        "--platforms", CARD, *SGV2_EXPORT_NET])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+    # each validation: the artifact and the live forward at batch 3
+    want = 2 * FWD_PER_FORWARD + 2 * SGV2_FWD_PER_FORWARD
+    check(cli_launches == {"fwd": want, "bwd": 0},
+          f"export CLI launches {cli_launches}, expected {want}/0")
+    check(sorted(sg_cli[CARD]["paths"]) ==
+          ["generator", "mapping", "style_encoder"],
+          f"sgv2 export CLI wrote {sorted(sg_cli[CARD]['paths'])}")
+    vals = {"defectgan": dg_cli[CARD]["validate"],
+            "starganv2": sg_cli[CARD]["validate"]}
+    print(f"export CLI --validate in {cli_s:.1f} s: " + "; ".join(
+        f"{k} round trip max |d| {v['max_abs']:.3e}, mean {v['mean_abs']:.3e}"
+        f" (bound {export_model.ATOL})" for k, v in vals.items()) +
+        f"; launches {cli_launches} [{smi}]")
+    return dict(dg=dg, sg=sg, cli=vals,
+                paths={"export_dg": {"launches": summed_launches(dg.values())},
+                       "export_sgv2": {"launches": summed_launches(sg.values())},
+                       "export_cli": {"launches": cli_launches}})
+
+
+def folder_images(root, seed, count, size):
+    """``count`` smooth random PNGs of ``size``^2 from a seed."""
+    from de_i2i_gan_torch.utils.png import write_png
+    gen = torch.Generator().manual_seed(seed)
+    root.mkdir(parents=True)
+    for i in range(count):
+        low = torch.rand((1, 3, 16, 16), generator=gen)
+        img = F.interpolate(low, size=(size, size), mode="bilinear",
+                            align_corners=False)[0]
+        img = img + 0.05 * torch.randn(img.shape, generator=gen)
+        write_png(root / f"{i:02d}.png",
+                  (img.clamp(0, 1) * 255).byte().permute(1, 2, 0).numpy())
+
+
+def phase_folder(nk, fused, smi):
+    """16c. ``cli.translate_folder`` at 1024^2, full width, SEAN, batch 4,
+    over 9 PNGs (3 batches, the last padded): 8 forward launches a G
+    forward, by shape as FOLDER_SHAPES and by tier as the planner says;
+    the PNGs; a batch of 4 timed (ms, images/s, peak memory, the norm
+    kernels' device time against their bound); the kernel path against the
+    plain version at 1024^2 within phase 4's band; each shape timed as in 5."""
+    from de_i2i_gan_torch.cli import translate_folder
+    from de_i2i_gan_torch.config.options import Options, to_defectgan_config
+    from de_i2i_gan_torch.models.generator import DefectGanGenerator
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+
+    root = CLI_DIR / "folder"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    folder_images(root / "in", SEED + 81, FOLDER_FILES, FOLDER_IMAGE)
+    argv = ["--name", "folder", "--ckpt_dir", str(root / "ckpt"), *FOLDER_BASE]
+    opt = Options("defectgan_test").parse(argv, save=False)
+    cfg = to_defectgan_config(opt)
+    steps = DefectGanSteps(cfg, device="cuda")
+    init_weights(steps, SEED)
+    save_checkpoint(root / "ckpt", "folder", "latest", steps)
+    setup_s = time.perf_counter() - t0
+    tiers = {}
+    for (n, c, h, w) in FOLDER_SHAPES:
+        p = nk.plan("fwd", h * w, torch.bfloat16, True)
+        tiers[(n, c, h, w)] = tier_label(p)
+    # the last decoder norm's rows (1024^2 elements) are longer than a
+    # cluster of 8 holds: the streaming tier
+    check(tiers[max(FOLDER_SHAPES, key=lambda s: s[2])] == "S",
+          f"folder tiers {tiers}")
+    batches = -(-FOLDER_FILES // FOLDER_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+    t1 = time.perf_counter()
+    with tally_calls(nk) as calls, counted_forwards(DefectGanGenerator) as g:
+        out, _ = run_cli(translate_folder.main,
+                         ["--input_dir", str(root / "in"), "--output_dir",
+                          str(root / "out")] + argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+    cli_peak = torch.cuda.max_memory_allocated() / 2**20
+    want = Counter({s: batches * k for s, k in FOLDER_SHAPES.items()})
+    per_forward = sum(FOLDER_SHAPES.values())
+    check(g[0] == batches and launches == {"fwd": per_forward * batches,
+                                           "bwd": 0}
+          and calls["fwd"] == want and not calls["bwd"],
+          f"folder: {g[0]} G forwards, launches {launches}, calls "
+          f"{dict(calls['fwd'])}")
+    pngs = sorted((root / "out").glob("*.png"))
+    check([p.name for p in pngs] == [f"{i:02d}.png" for i in range(FOLDER_FILES)]
+          and all(png_shape(p) == (FOLDER_IMAGE, FOLDER_IMAGE) for p in pngs),
+          f"folder PNGs {[p.name for p in pngs]}")
+
+    # a batch of 4 at 1024^2, the kernel path against the plain version
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 83)
+    imgs = torch.rand((FOLDER_BATCH, FOLDER_IMAGE, FOLDER_IMAGE, 3),
+                      generator=gen, device="cuda") * 2 - 1
+    labels = torch.zeros((FOLDER_BATCH, cfg.label_nc), device="cuda")
+    labels[:, 1] = 1.0
+    noise = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        def forward():
+            return steps.G(imgs, labels, None, generator=noise)[0]
+
+        for _ in range(2):
+            forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            out_k = forward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        prof = profiled(forward, 2)
+        dev_ms = kernel_ms(prof, 2)
+        norm_ms = sum(e.self_device_time_total for e in device_kernels(prof)
+                      if "modulated_instance_norm" in e.key) / 2e3
+        check(bool(torch.isfinite(out_k).all()), "folder: non-finite output")
+        kernel_out = out_k.float()
+        for m in steps.G.modules():
+            if hasattr(m, "use_pallas"):
+                m.use_pallas = False
+        before = nk.LAUNCHES
+        plain_out = forward().float()
+        torch.cuda.synchronize()
+        check(nk.LAUNCHES == before, "the plain path launched the kernel")
+        d = (kernel_out - plain_out).abs()
+        agree = (d.max().item(), d.mean().item())
+        check(agree[0] <= OUT_BAND and agree[1] <= MEAN_BAND,
+              f"folder 1024^2: kernel vs plain max {agree[0]:.3e} mean "
+              f"{agree[1]:.3e}")
+    mean_ms = sum(ms) / len(ms)
+    del steps, imgs, out_k, kernel_out, plain_out, d, prof
+    free_memory()
+    rows = phase_fwd_timing(nk, fused, FOLDER_SHAPES, smi)
+    rows = with_calls(rows, calls["fwd"], batches)
+    bound_ms = summed(rows, "bound_ms")
+    print(f"folder 1024^2 (DefectGAN SEAN, full width, bf16): tiers {tiers}; "
+          f"CLI over {FOLDER_FILES} PNGs in {cli_s:.1f} s ({batches} batches "
+          f"of {FOLDER_BATCH}, setup {setup_s:.1f} s), peak {cli_peak:.1f} MiB, "
+          f"launches {launches}; a batch of {FOLDER_BATCH}: {mean_ms:.3f} ms "
+          f"({[round(v, 3) for v in ms]}), {FOLDER_BATCH * 1e3 / mean_ms:.2f} "
+          f"images/s, peak {peak_mb:.1f} MiB, kernels {dev_ms:.3f} ms of which "
+          f"norm kernels {norm_ms:.4f} ms (timed alone "
+          f"{summed(rows, 'ms'):.4f} ms, bound {bound_ms:.4f} ms, "
+          f"F.instance_norm {summed(rows, 'library_ms'):.4f} ms, plain "
+          f"{summed(rows, 'plain_ms'):.4f} ms); kernel vs plain max "
+          f"{agree[0]:.3e} mean {agree[1]:.3e} (band {OUT_BAND}, {MEAN_BAND}) "
+          f"[{smi}]")
+    return dict(launches=launches, rows=rows, forwards=batches, ms=mean_ms,
+                peak_mb=peak_mb, cli_peak_mb=cli_peak, dev_ms=dev_ms,
+                norm_ms=norm_ms, tiers=tiers, agree=agree)
+
+
+def sgv2_cli_base(root):
+    """10d's command line: the AFHQ flags on its image tree and runs."""
+    tree = root / "afhq"
+    return [*SGV2_AFHQ, "--img_size", str(SGV2_IMAGE), "--batch_size",
+            str(SGV2_TRAIN_BATCH), "--train_img_dir", str(tree),
+            "--val_img_dir", str(tree), "--checkpoint_dir", str(root / "ckpt"),
+            "--sample_dir", str(root / "samples"), "--device", CARD]
+
+
+def phase_sgv2_video(nk, smi):
+    """16d. ``cli.starganv2_main --mode sample --make_video`` on 10d's
+    checkpoint: the references of the val batch sorted by domain, the first
+    4, a transition of 31 G forwards of the first 2 sources for each
+    same-domain neighbour pair, then 10 held frames; 12 forward launches a
+    G forward. Then ``translate_with_alpha_control`` (5 alphas) and
+    ``translate_with_layer_split`` through a SEANv2 solver."""
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.models.starganv2 import Generator
+    from de_i2i_gan_torch.utils import translate
+
+    root = CLI_DIR / "sgv2"
+    out = root / "video"
+    shutil.rmtree(out, ignore_errors=True)
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the sample run starts here
+    t0 = time.perf_counter()
+    with counted_forwards(Generator) as g, grids_checked() as finite:
+        _, printed = run_cli(sgv2_cli.main, sgv2_cli_base(root) + [
+            "--mode", "sample", "--resume_iter", str(SGV2_CLI_ITERS),
+            "--result_dir", str(out), "--make_video"])
+    torch.cuda.synchronize()
+    video_s = time.perf_counter() - t0
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+    video_forwards = g[0] - 2 - 9  # the cycle grid, the latent grid
+    transitions = video_forwards // 31
+    frames_dir = out / "video_ref_frames"
+    frames = len(list(frames_dir.glob("*.png")))
+    encoded = (out / "video_ref.mp4").exists()
+    check(launches == {"fwd": SGV2_FWD_PER_FORWARD * g[0], "bwd": 0}
+          and transitions >= 1 and video_forwards == 31 * transitions
+          and all(finite) and "video_ref ->" in printed
+          and (encoded or frames == 31 * transitions + 10),
+          f"sgv2 video: {g[0]} G forwards, launches {launches}, {frames} "
+          f"frames, encoded {encoded}, grids finite {finite}")
+    print(f"sgv2 sample --make_video in {video_s:.1f} s: {transitions} "
+          f"same-domain transitions, {frames} frames "
+          f"({'an mp4' if encoded else 'no ffmpeg: the frame directory'}), "
+          f"{g[0]} G forwards, launches {launches} [{smi}]")
+
+    # the SEAN grids: two references mixed by alpha, and a layer split
+    solver = sgv2_solver(sgv2_config(norm_type="sean"))
+    req = sgv2_requests(solver.cfg, 1, SEED + 91)[0]
+    x = req["x_src"][:GRID_SOURCES]
+    y = req["y"][:GRID_SOURCES]
+    pair = torch.randn((GRID_SOURCES, 2, *EMBEDS), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           SEED + 93))
+    torch.cuda.synchronize()
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the grids' runs start here
+    with tally_calls(nk) as calls:
+        alpha = translate.translate_with_alpha_control(solver, x, y, pair,
+                                                       steps=5)
+        split = translate.translate_with_layer_split(solver, x, y, pair,
+                                                     [0, 2, 4])
+    torch.cuda.synchronize()
+    grid_launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end
+    want = Counter({(GRID_SOURCES, *s[1:]): 6 * c
+                    for s, c in SGV2_SHAPES.items()})
+    check(grid_launches == {"fwd": 6 * SGV2_FWD_PER_FORWARD, "bwd": 0}
+          and calls["fwd"] == want and np_finite(alpha) and np_finite(split)
+          and alpha.shape == (6 * (SGV2_IMAGE + 2) + 2,
+                              GRID_SOURCES * (SGV2_IMAGE + 2) + 2, 3),
+          f"sgv2 grids: launches {grid_launches}, calls {dict(calls['fwd'])}, "
+          f"shapes {alpha.shape} {split.shape}")
+    print(f"sgv2 SEAN grids: alpha control (5 alphas) {alpha.shape}, layer "
+          f"split {split.shape}, finite, launches {grid_launches} [{smi}]")
+    del solver, req
+    free_memory()
+    return dict(video={"launches": launches, "frames": frames,
+                       "transitions": transitions},
+                grids={"launches": grid_launches})
+
+
+def np_finite(a):
+    import numpy as np
+    return bool(np.isfinite(a).all())
+
+
+def phase_metric_nets(nk, smi):
+    """17a. InceptionV3 (2048 pool) and LPIPS drawn from a seed: the card
+    against the CPU in f32 with TF32 off, relative L2 within METRIC_BAND;
+    a batch-32 feature request at 299^2 (device time, peak memory); the
+    host time of one 2048-wide Frechet distance (scipy's sqrtm)."""
+    from de_i2i_gan_torch.metrics.evaluator import Evaluator
+    from de_i2i_gan_torch.metrics.fid import ActivationStats, frechet_distance
+    from de_i2i_gan_torch.metrics.inception import seeded_inception
+    from de_i2i_gan_torch.metrics.lpips import seeded_lpips
+
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the metric nets' runs start here
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 101)
+    x = torch.rand((2, 256, 256, 3), generator=gen) * 2 - 1
+    y = torch.rand((2, 256, 256, 3), generator=gen) * 2 - 1
+    try:
+        with torch.no_grad():
+            inc = rel_l2(seeded_inception((3,), SEED, "cuda")(x.cuda())[3],
+                         seeded_inception((3,), SEED, "cpu")(x)[3])
+            lp = rel_l2(seeded_lpips(SEED, "cuda")(x.cuda(), y.cuda()),
+                        seeded_lpips(SEED, "cpu")(x, y))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(inc <= METRIC_BAND and lp <= METRIC_BAND,
+          f"metric nets card vs CPU: Inception {inc:.3e}, LPIPS {lp:.3e}")
+
+    # a feature request with TF32 convolutions (PyTorch's default, what a
+    # user's Evaluator runs), then with them off (earlier phases turn TF32
+    # off and leave it so)
+    ev = Evaluator(device="cuda")
+    imgs = torch.rand((INCEPTION_BATCH, 299, 299, 3), device="cuda") * 2 - 1
+    dev, peak_mb = {}, {}
+    for label, on in (("tf32", True), ("fp32", False)):
+        torch.backends.cudnn.allow_tf32 = on
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dev[label] = device_ms(lambda i: ev.features(imgs), 10)
+        peak_mb[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    torch.backends.cudnn.allow_tf32 = tf32[0]
+    feats = [ev.features(torch.rand((64, 256, 256, 3), device="cuda") * 2 - 1
+                         ).cpu().numpy() for _ in range(2)]
+    stats = []
+    for f in feats:
+        st = ActivationStats(2048)
+        st.update(f)
+        stats.append(st.finalize())
+    t0 = time.perf_counter()
+    fid = frechet_distance(*stats[0], *stats[1])
+    fid_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+    check(launches == {"fwd": 0, "bwd": 0} and math.isfinite(fid),
+          f"metric nets: launches {launches}, FID {fid}")
+    print(f"metric nets (weights from a seed: the numbers mean nothing): "
+          f"card vs CPU relative L2 Inception {inc:.3e}, LPIPS {lp:.3e}; a "
+          f"batch-{INCEPTION_BATCH} Inception feature request at 299^2 in f32 "
+          f"with TF32 convolutions {dev['tf32']:.3f} ms of device time "
+          f"({INCEPTION_BATCH * 1e3 / dev['tf32']:.1f} img/s), "
+          f"{peak_mb['tf32']:.1f} MiB above its inputs; TF32 off "
+          f"{dev['fp32']:.3f} ms, {peak_mb['fp32']:.1f} MiB; one 2048-wide Frechet "
+          f"distance {fid_s:.2f} s on the host (FID {fid:.2f} between two "
+          f"random batches of 64) [{smi}]")
+    del ev, imgs
+    free_memory()
+    return dict(launches=launches, inception_err=inc, lpips_err=lp,
+                request_ms=dev["tf32"], request_fp32_ms=dev["fp32"],
+                peak_mb=peak_mb["tf32"], fid_host_s=fid_s)
+
+
+@contextlib.contextmanager
+def inception_profiled(runs):
+    """Profiles the block: ``runs`` gets ``profile_split``'s numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    runs.append(profile_split(prof))
+
+
+def profile_split(prof):
+    """Kernel ms of a profiled run, of them the ones inside the
+    ``evaluator.inception`` ranges (their device time, read off the ranges'
+    summed events), and the norm kernels'."""
+    from torch.autograd import DeviceType
+
+    kernels = device_kernels(prof)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the CPU side of the range: its device time is its kernels'
+    inception = sum(e.device_time_total for e in prof.key_averages()
+                    if e.key == "evaluator.inception"
+                    and e.device_type == DeviceType.CPU) / 1e3
+    norm = sum(e.self_device_time_total for e in kernels
+               if "modulated_instance_norm" in e.key) / 1e3
+    return dict(kernel_ms=total, inception_ms=inception, norm_ms=norm)
+
+
+def phase_metric_clis(nk, smi):
+    """17b. Every metric flag through its CLI on the card, at
+    ``--dims 768`` (17a times the 2048-wide FID) and small image counts:
+    ``cli.test_defectgan --metrics fid is lpips --save_stats`` then
+    ``--cal_mfid`` on 8a's run, ``cli.train_defectgan --val_metrics`` for
+    an epoch, ``cli.test_pix2pix --metrics fid`` on 12e's run, ``cli.fid``
+    on two of 10d's domain folders, ``cli.starganv2_main --mode eval`` on
+    10d's checkpoint. Each: exact launches a G forward, finite numbers, the
+    wall time, and Inception's share of the profiled kernel time."""
+    # the CLIs as a user runs them: PyTorch's TF32 defaults (convolutions
+    # on, matmuls off), whatever earlier phases left
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+        True, False)
+    try:
+        return metric_clis(nk, smi)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def metric_clis(nk, smi):
+    """The body of ``phase_metric_clis``."""
+    from de_i2i_gan_torch.cli import fid as fid_cli
+    from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.cli import test_defectgan, test_pix2pix, train_defectgan
+    from de_i2i_gan_torch.metrics import eval_starganv2
+    from de_i2i_gan_torch.models.generator import DefectGanGenerator
+    from de_i2i_gan_torch.models.starganv2 import Generator
+
+    dims = ["--dims", str(METRIC_DIMS)]
+    res = CLI_DIR / "metrics"
+    shutil.rmtree(res, ignore_errors=True)
+    out = {}
+
+    def run(label, fn, g_cls, per_forward, bwd=0, profile=True):
+        torch.cuda.synchronize()
+        prof_runs = []
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+        t0 = time.perf_counter()
+        with counted_forwards(g_cls) as g:
+            if profile:
+                with inception_profiled(prof_runs):
+                    result = fn()
+            else:
+                result = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... end here
+        check(launches == {"fwd": per_forward * g[0], "bwd": bwd},
+              f"{label}: launches {launches}, {g[0]} G forwards of "
+              f"{per_forward}, backward {bwd}")
+        out[label] = dict(launches=launches, wall_s=wall_s, forwards=g[0],
+                          result=result, **(prof_runs[0] if prof_runs else {}))
+        return result
+
+    # DefectGAN: the test CLI's metrics and the class statistics, then mFID
+    base = cli_args("adain", "--style_norm_block_type", "adain",
+                    "--results_dir", str(res), *dims, "--num_imgs",
+                    str(METRIC_IMGS))
+    got = run("metrics_dg", lambda: test_defectgan.main(base + [
+        "--metrics", "fid", "is", "lpips", "--num_lpips_images", "2",
+        "--save_stats", "--metrics_out", str(res / "metrics.json")]),
+        DefectGanGenerator, FWD_PER_FORWARD)
+    m = got["metrics"]
+    check(set(m) == {"fid", "is", "is_std", "lpips"} and all(
+        math.isfinite(v) for v in m.values()) and got["stats"],
+        f"test CLI metrics {m}, stats {got['stats']}")
+    got = run("metrics_mfid", lambda: test_defectgan.main(base + [
+        "--cal_mfid", "--npy_path", str(res / "adain")]),
+        DefectGanGenerator, FWD_PER_FORWARD)
+    mfid = got["mfid"]
+    check("mean" in mfid and all(math.isfinite(v) for v in mfid.values()),
+          f"mFID {mfid}")
+
+    # the in-training validation: one epoch, then the validation, profiled
+    val_profiles, real_make = [], train_defectgan.make_val_fn
+
+    def make_val_fn(*args, **kw):
+        fn = real_make(*args, **kw)
+
+        def val(steps, epoch):
+            with inception_profiled(val_profiles):
+                return fn(steps, epoch)
+        return val
+
+    train_defectgan.make_val_fn = make_val_fn
+    try:
+        trainer = run("metrics_val", lambda: train_defectgan.main(cli_args(
+            "adain_val", "--style_norm_block_type", "adain", "--num_epochs",
+            "1", "--save_ckpt_freq", "1", "--val_metrics", "fid", "is",
+            "lpips", "--num_lpips_images", "2", "--num_imgs",
+            str(METRIC_IMGS), *dims)), DefectGanGenerator, FWD_PER_FORWARD,
+            bwd=FWD_PER_FORWARD * G_BACKWARDS_PER_SUPER_STEP * 12,
+            profile=False)
+    finally:
+        train_defectgan.make_val_fn = real_make
+    out["metrics_val"].update(val_profiles[0])
+    val = json.loads((CLI_DIR / "ckpt" / "adain_val" / "val_metrics_1.json"
+                      ).read_text())
+    check(set(val) == {"fid", "is", "is_std", "lpips"} and all(
+        math.isfinite(v) for v in val.values()) and trainer.iters == 12 * CRITICS,
+        f"val metrics {val}")
+    del trainer
+
+    # pix2pix (SPADE: no kernel), cli.fid (no generator)
+    got = run("metrics_p2p", lambda: test_pix2pix.main(p2p_cli_args(
+        "p2p", "--results_dir", str(res / "p2p"), "--metrics", "fid", *dims)),
+        DefectGanGenerator, 0)
+    check(math.isfinite(got["fid"]), f"pix2pix FID {got}")
+    tree = CLI_DIR / "sgv2" / "afhq"
+    got = run("metrics_fid", lambda: fid_cli.main(
+        [str(tree / "cat"), str(tree / "dog"), "--device", CARD, *dims]),
+        DefectGanGenerator, 0)
+    check(math.isfinite(got["fid"]), f"cli.fid {got}")
+
+    # StarGAN v2's evaluation: every ordered domain pair
+    real_ev = eval_starganv2.Evaluator
+    eval_starganv2.Evaluator = lambda **kw: real_ev(dims=METRIC_DIMS, **kw)
+    try:
+        got = run("metrics_sgv2", lambda: sgv2_cli.main(sgv2_cli_base(
+            CLI_DIR / "sgv2") + ["--mode", "eval", "--resume_iter",
+                                 str(SGV2_CLI_ITERS), "--num_outs_per_domain",
+                                 "2", "--eval_dir", str(res / "sgv2")]),
+            Generator, SGV2_FWD_PER_FORWARD)
+    finally:
+        eval_starganv2.Evaluator = real_ev
+    check(len(got) == 2 * 6 + 2 and all(math.isfinite(v) for v in got.values()),
+          f"sgv2 eval {got}")
+    for label, r in out.items():
+        share = (f"Inception {r['inception_ms'] / r['kernel_ms']:.1%} of "
+                 f"{r['kernel_ms']:.3f} ms of kernels, norm kernels "
+                 f"{r['norm_ms']:.4f} ms" if r.get("kernel_ms") else
+                 "not profiled")
+        print(f"{label}: {r['wall_s']:.1f} s, {r['forwards']} G forwards, "
+              f"launches {r['launches']}, {share} [{smi}]")
+    print(f"metric CLIs (nets drawn from a seed: the numbers mean nothing): "
+          f"test CLI {m}, mFID {mfid.get('mean'):.3f}, val {val}, pix2pix FID "
+          f"{out['metrics_p2p']['result']['fid']:.3f}, cli.fid "
+          f"{out['metrics_fid']['result']['fid']:.3f}, StarGAN v2 FID mean "
+          f"{got['FID_latent/mean']:.3f}, LPIPS mean "
+          f"{got['LPIPS_latent/mean']:.4f} [{smi}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4575,6 +5358,29 @@ def main() -> int:
     align = phase_align_cli(nk, smi, celeba["wing_ckpt"])
     fan_s = time.perf_counter() - fan_started
 
+    # 16. deployment: the custom ops (16a), serving export and its CLI
+    # (16b), folder inference at 1024^2 (16c), the video and the SEAN grids
+    # (16d)
+    deploy_started = time.perf_counter()
+    ops = phase_ops(nk, fused, smi)
+    deploy_split = {"16a": time.perf_counter() - deploy_started}
+    export = phase_export(nk, smi)
+    deploy_split["16b"] = time.perf_counter() - deploy_started - sum(
+        deploy_split.values())
+    folder = phase_folder(nk, fused, smi)
+    deploy_split["16c"] = time.perf_counter() - deploy_started - sum(
+        deploy_split.values())
+    video = phase_sgv2_video(nk, smi)
+    deploy_s = time.perf_counter() - deploy_started
+    deploy_split["16d"] = deploy_s - sum(deploy_split.values())
+
+    # 17. the metrics: the nets card vs CPU and a feature request (17a),
+    # every metric flag through its CLI (17b)
+    metrics_started = time.perf_counter()
+    metric_nets = phase_metric_nets(nk, smi)
+    metric_clis = phase_metric_clis(nk, smi)
+    metrics_s = time.perf_counter() - metrics_started
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
@@ -4600,7 +5406,10 @@ def main() -> int:
              "vit_request": vit, "vit_cli": vit_cli,
              "vit_bank_sean": vit_bank, "sgv2_sean_vit": sgv2_vit,
              "sgv2_sean_vit_cli": sgv2_vit_cli, "fan": fan,
-             "sgv2_celeba_cli": celeba, "align_cli": align}
+             "sgv2_celeba_cli": celeba, "align_cli": align,
+             **export["paths"], "folder_1024": folder,
+             "sgv2_video": video["video"], "sgv2_grids": video["grids"],
+             "metric_nets": metric_nets, **metric_clis}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
@@ -4611,7 +5420,9 @@ def main() -> int:
             "one DefectGAN MAE super-step at batch 32; "
             "per_sgv2_pretrain_iteration: over one StarGAN v2 AdaIN "
             "pretraining iteration at batch 8; per_sgv2_celeba_iteration: "
-            "over one iteration of the CelebA-HQ command (w_hpf 1) at batch 8")
+            "over one iteration of the CelebA-HQ command (w_hpf 1) at batch 8; "
+            "per_folder_1024_forward: over one DefectGAN SEAN G forward of "
+            "cli.translate_folder at 1024^2, batch 4")
     fwd_sgv2_rows = with_calls(fwd_sgv2_rows, sgv2_adain["calls"],
                                sgv2_adain["forwards"])
     sgv2t_rows = {kind: with_calls(rows, sgv2_train["calls"][kind],
@@ -4665,6 +5476,8 @@ def main() -> int:
         rec.update(per_path("per_sgv2_celeba_iteration", with_calls(
             [r for r in rows if tuple(r["shape"]) in CELEBA_TRAIN_SHAPES],
             celeba["calls"][kind], celeba["iterations"])))
+    fwd.update(per_path("per_folder_1024_forward", folder["rows"]))
+    fwd["op_host_us"] = ops
     fwd["max_abs_err"] = max(fwd["max_abs_err"], celeba_fwd_worst)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], celeba_bwd_worst)
     record = {"kernels": [fwd, bwd]}
@@ -4789,12 +5602,33 @@ def main() -> int:
           f"spread on vs off {p2p['remat_spread']['on_vs_off']:.3f}, off vs "
           f"off {p2p['remat_spread']['off_vs_off']:.3f}, on vs off again "
           f"{p2p['remat_spread']['on_vs_off_again']:.3f} of the band [{smi}]")
+    ff = fwd["per_folder_1024_forward"]
+    dg_x, sg_x = export["dg"], export["sg"]
+    print(f"deployment: export DefectGAN AdaIN request {dg_x['adain']['ms']:.3f}"
+          f" ms (eager {dg_x['adain']['eager_ms']:.3f}), SEAN "
+          f"{dg_x['sean']['ms']:.3f} ms (eager {dg_x['sean']['eager_ms']:.3f}),"
+          f" StarGAN v2 AdaIN G {sg_x['adain_generator']['ms']:.3f} ms (eager "
+          f"{sg_x['adain_generator']['eager_ms']:.3f}), SEANv2 G "
+          f"{sg_x['sean_generator']['ms']:.3f} ms (eager "
+          f"{sg_x['sean_generator']['eager_ms']:.3f}); folder 1024^2 batch "
+          f"{FOLDER_BATCH} {folder['ms']:.3f} ms, "
+          f"{FOLDER_BATCH * 1e3 / folder['ms']:.2f} images/s, peak "
+          f"{folder['peak_mb']:.1f} MiB, norm kernels {ff['ms']:.4f} ms a G "
+          f"forward (bound {ff['bound_ms']:.4f}, F.instance_norm "
+          f"{ff['library_ms']:.4f}); op host cost {ops['op_us']:.2f} us a call "
+          f"(wrapper {ops['wrapper_us']:.2f}, device {ops['op_device_us']:.2f}); "
+          f"metric nets card vs CPU {metric_nets['inception_err']:.3e} / "
+          f"{metric_nets['lpips_err']:.3e}, Inception batch {INCEPTION_BATCH} "
+          f"{metric_nets['request_ms']:.3f} ms (TF32 off "
+          f"{metric_nets['request_fp32_ms']:.3f}) [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
           f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s, 10a-10d {train_s:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())}), 11 "
           f"{mae_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in mae_split.items())}), "
           f"12 {p2p_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in p2p_split.items())}), "
-          f"13 {wgan_s:.1f} s, 14 {vit_s:.1f} s, 15 {fan_s:.1f} s")
+          f"13 {wgan_s:.1f} s, 14 {vit_s:.1f} s, 15 {fan_s:.1f} s, 16 "
+          f"{deploy_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in deploy_split.items())}), "
+          f"17 {metrics_s:.1f} s")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

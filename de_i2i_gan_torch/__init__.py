@@ -24,9 +24,12 @@ module paths and class names so each counterpart is easy to find:
     train/trainer.py     DefectGanTrainer: the epoch loop
     data/                datasets, loaders, device_prefetch, EmbeddingBank
     config/options.py    the DefectGAN train/test flags
-    metrics/evaluator.py defectgan_generator_fn
-    utils/               guards (NaNGuard), seed, png, diffaug, labels
-    cli/                 train_defectgan, test_defectgan
+    serving.py           torch.export artifacts of the generators
+    metrics/             InceptionV3, LPIPS, FID/IS/mFID, the evaluators
+    utils/               guards (NaNGuard), seed, png, diffaug, labels,
+                         translate (grids, videos)
+    cli/                 train/test of each model, export_model,
+                         translate_folder, fid
 
 Public entry points keep the JAX layout (NHWC images, (N, label_nc)
 labels); inside, modules work in NCHW. Entry points run on ``cuda`` unless

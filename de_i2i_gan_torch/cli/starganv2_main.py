@@ -24,11 +24,16 @@
         --inp_dir assets/representative/custom/female --out_dir out \
         --lm_path expr/checkpoints/celeba_lm_mean.npz --wing_ckpt ...
 
-Modes ``train`` (AdaIN or SEAN), ``pretrain`` (MAE repair pretraining,
-main.py:76-112), ``sample``, ``update_stats`` (SEAN's running styles swept
-over ``--val_img_dir``, solver.py:379-406) and ``align`` (offline face
-alignment with the FAN, main.py:143-145). The nets run on CUDA device 0;
-``--device cpu`` runs them on the CPU.
+Modes ``train`` (AdaIN or SEAN; ``--eval_every`` runs the metrics),
+``pretrain`` (MAE repair pretraining, main.py:76-112), ``sample``
+(``--make_video`` adds ``video_ref``), ``eval`` (FID and LPIPS over every
+ordered domain pair, ``metrics/eval_starganv2.py``), ``update_stats``
+(SEAN's running styles swept over ``--val_img_dir``, solver.py:379-406) and
+``align`` (offline face alignment with the FAN, main.py:143-145). The nets
+run on CUDA device 0; ``--device cpu`` runs them on the CPU. The metric
+nets (InceptionV3, LPIPS) run from weights drawn from a seed, as no
+pretrained file is in the repository: their numbers exercise the flow and
+mean nothing.
 
 SEAN's fetcher embeds the reference stacks with a frozen ViT-B/16 (f32): the
 HF checkpoint of ``--vit_path``, which also joins the G loss (lambda_sty on
@@ -134,7 +139,7 @@ def build_parser():
                         "degrade. Off = hard error")
     p.add_argument("--make_video", action="store_true",
                    help="sample mode: also render the reference-guided "
-                        "interpolation video (ROADMAP A.9)")
+                        "interpolation video")
     p.add_argument("--vit_path", type=str, default=None,
                    help="local HF ViT directory or weight file for the "
                         "frozen sean-mode feature extractor (random init if "
@@ -166,7 +171,6 @@ def build_parser():
     return p
 
 
-WAITS = {"eval": "A.8"}
 PRETRAIN_NAME = "starganv2_pretrain"  # the pretrain mode's checkpoints
 VIT_MODEL_SIZE = "base"  # the frozen ViT of SEAN (ViT-B/16, as the JAX CLI)
 
@@ -174,16 +178,10 @@ VIT_MODEL_SIZE = "base"  # the frozen ViT of SEAN (ViT-B/16, as the JAX CLI)
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for a mode or flag whose feature the
     port does not have yet, naming the ROADMAP item it waits for."""
-    waits = [
-        (args.mode in WAITS, f"--mode {args.mode}", WAITS.get(args.mode)),
-        (args.make_video, "--make_video", "A.9"),
-        (args.data_parallel == "on", "--data_parallel on", "A.9"),
-    ]
-    for asked, flag, item in waits:
-        if asked:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch package yet "
-                f"(ROADMAP {item})")
+    if args.data_parallel == "on":
+        raise NotImplementedError(
+            "--data_parallel on is not ported to the PyTorch package yet "
+            "(ROADMAP A.9)")
 
 
 def to_config(args):
@@ -339,9 +337,9 @@ def run_iteration(args, solver, i, batch, generator, running, inputs_val):
         save_checkpoint(args.checkpoint_dir, "starganv2", f"{i + 1:06d}",
                         solver)
     if (i + 1) % args.eval_every == 0:
-        raise NotImplementedError(
-            "--eval_every (the in-training metrics) is not ported to the "
-            "PyTorch package yet (ROADMAP A.8)")
+        # in-training metrics (core/solver.py:346-349)
+        from de_i2i_gan_torch.metrics.eval_starganv2 import evaluate_all_tasks
+        evaluate_all_tasks(solver, args, step=i + 1)
 
 
 def pretrain(args, solver) -> None:
@@ -393,6 +391,8 @@ def sample(args, solver) -> None:
                                args.val_batch_size,
                                ref_root=args.ref_dir or args.val_img_dir))
     debug_image(solver, inputs, args.resume_iter, args.sample_dir)
+    if args.make_video:
+        make_video(args, solver, inputs)
     z_list = [np.random.default_rng(i).standard_normal(
         args.latent_dim).astype(np.float32) for i in range(3)]
     grid = translate_using_latent(solver, inputs["x_src"][:4],
@@ -400,6 +400,33 @@ def sample(args, solver) -> None:
     write_png(Path(args.sample_dir) / "latent_grid.png",
               (np.clip(grid, 0, 1) * 255).astype(np.uint8))
     print(f"samples written to {args.sample_dir}")
+
+
+def make_video(args, solver, inputs):
+    """--make_video (main.py sample mode): ``video_ref`` of the first two
+    sources over the references sorted by domain (the first four), so that
+    same-domain consecutive pairs exist (video_ref only transitions within
+    a domain, utils.py:402-407). SEAN needs ``s_ref`` stacks, which the
+    sample fetcher does not embed: it skips, as the JAX CLI does. Returns
+    the video (or its frame directory), or None."""
+    import torch
+
+    from de_i2i_gan_torch.utils.translate import video_ref
+
+    if args.norm_type == "sean" and "s_ref" not in inputs:
+        print("[sample] --make_video skipped: sean mode needs s_ref embed "
+              "stacks (run with a sean fetcher)")
+        return None
+    y_ref = np.asarray(inputs["y_ref"])
+    order = np.argsort(y_ref, kind="stable")[:4]
+    idx = torch.as_tensor(order)
+    out = video_ref(
+        solver, inputs["x_src"][:2], torch.as_tensor(inputs["x_ref"])[idx],
+        y_ref[order], Path(args.sample_dir) / "video_ref.mp4",
+        s_ref=(torch.as_tensor(inputs["s_ref"])[idx] if "s_ref" in inputs
+               else None))
+    print(f"video_ref -> {out}")
+    return out
 
 
 def update_stats(args, solver) -> None:
@@ -495,6 +522,9 @@ def main(argv=None):
         pretrain(args, solver)
     elif args.mode == "update_stats":
         update_stats(args, solver)
+    elif args.mode == "eval":
+        from de_i2i_gan_torch.metrics.eval_starganv2 import evaluate_all_tasks
+        return evaluate_all_tasks(solver, args)
     else:
         sample(args, solver)
     return solver

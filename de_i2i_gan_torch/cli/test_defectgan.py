@@ -14,12 +14,22 @@ JAX CLI does) and runs the reference's test modes:
                            (mlp_shared / mlp_latent, after the ReLU), mean
                            (mlp_beta) or std (mlp_gamma), one PNG a layer
                            under ``pca/``; no ViT is needed
-PNGs go to ``<results_dir>/<name>/``. ``--metrics``, ``--cal_mfid`` and
-``--save_stats`` wait for ROADMAP A.8: they raise ``NotImplementedError``.
-``--gpu_ids -1`` runs on the CPU.
+  --metrics fid is lpips   FID (against ``--npz_path``, or the defect
+                           images' own statistics), IS and LPIPS diversity
+                           (``metrics/evaluator.py``), JSON to
+                           ``--metrics_out``
+  --save_stats             each class's Inception activations of the
+                           defect set -> ``stats_<classes>.npy``
+  --cal_mfid               per-class FID and their mean against
+                           ``--npy_path`` (a directory of ``stats_*.npy``
+                           or the reference's pickled dict)
+PNGs and ``.npy`` files go to ``<results_dir>/<name>/``. ``--gpu_ids -1``
+runs on the CPU. The metric nets are drawn from a seed (no pretrained
+weights are in the repository): their numbers mean nothing.
 """
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
 
@@ -85,6 +95,22 @@ def main(argv=None):
     gen = torch.Generator(device).manual_seed(opt.seed)
     generate = defectgan_generator_fn(steps, cfg, gen)
     result = {"pngs": []}
+    evaluator = None
+    if opt.metrics or opt.cal_mfid or opt.save_stats:
+        from de_i2i_gan_torch.metrics.evaluator import Evaluator
+        evaluator = Evaluator(dims=opt.dims, device=device)
+
+    if opt.metrics:
+        out = evaluator.evaluate_generator(
+            generate, bg_loader, df_loader, num_imgs=opt.num_imgs,
+            npz_path=Path(opt.npz_path) if opt.npz_path else None,
+            metrics=tuple(opt.metrics),
+            num_lpips_images=opt.num_lpips_images)
+        print({k: round(v, 4) for k, v in out.items()})
+        result["metrics"] = out
+        if opt.metrics_out:
+            Path(opt.metrics_out).parent.mkdir(parents=True, exist_ok=True)
+            Path(opt.metrics_out).write_text(json.dumps(out))
 
     if opt.save_img_grid or opt.save_img:
         labels = torch.eye(cfg.label_nc, device=device)[1:]
@@ -127,6 +153,9 @@ def main(argv=None):
         result["classifier_accuracy"] = float(correct / max(total, 1))
         print(f"classifier accuracy: {result['classifier_accuracy']:.4f}")
 
+    if opt.cal_mfid:
+        result["mfid"] = cal_mfid(opt, cfg, evaluator, generate, bg_loader)
+
     if opt.save_diverse_images:
         # Multiple_<combo>/Single_<class> grids over one background batch
         # (test_defectgan.py:269-297): every multi-label combo seen in the
@@ -161,7 +190,86 @@ def main(argv=None):
     if opt.vis_style_embeds:
         result["style_embeds"] = style_embeds(opt, cfg, steps, df_loader,
                                               results_dir)
+
+    if opt.save_stats:
+        result["stats"] = save_stats(evaluator, df_loader, results_dir)
     return result
+
+
+def _to_stats(v):
+    """Raw (N, D) activations -> (mu, sigma), None for a single row (no
+    covariance); a (mu, sigma) pair as is."""
+    from de_i2i_gan_torch.metrics.fid import ActivationStats
+    if isinstance(v, np.ndarray) and v.ndim == 2 and v.dtype != object:
+        if v.shape[0] < 2:
+            return None
+        st = ActivationStats(v.shape[1])
+        st.update(v.astype(np.float32))
+        return st.finalize()
+    return tuple(np.asarray(a, np.float64) for a in v)
+
+
+def cal_mfid(opt, cfg, evaluator, generate, bg_loader) -> dict:
+    """--cal_mfid (defectgan_metrics.py:104-123): for each single defect
+    class with real statistics in ``--npy_path``, ``--num_imgs`` fakes of
+    that class from the background stream, their FID, and the mean over
+    classes (``mean``); JSON to ``--metrics_out``."""
+    from de_i2i_gan_torch.metrics.fid import mfid_from_class_stats
+    if not opt.npy_path:
+        raise SystemExit("--cal_mfid requires --npy_path")
+    p = Path(opt.npy_path)
+    if p.is_dir():
+        items = {f.stem[len("stats_"):]: np.load(f)
+                 for f in sorted(p.glob("stats_*.npy"))}
+    else:
+        items = {("-".join(str(i) for i, x in enumerate(k) if x == 1)
+                  if isinstance(k, tuple) else str(k)): v
+                 for k, v in np.load(p, allow_pickle=True).item().items()}
+    real_stats = {k: st for k, st in ((k, _to_stats(v))
+                                      for k, v in items.items())
+                  if st is not None}
+    device = evaluator.device
+    fake_acts, bg_it = {}, iter(bg_loader)
+    for class_idx in range(1, cfg.label_nc):
+        key = str(class_idx)
+        if key not in real_stats:
+            continue
+        acts, seen = [], 0
+        while seen < opt.num_imgs:
+            bg_imgs, _, _ = next(bg_it)
+            lbl = torch.zeros((bg_imgs.shape[0], cfg.label_nc), device=device)
+            lbl[:, class_idx] = 1.0
+            fake = generate(torch.as_tensor(bg_imgs, device=device), lbl)
+            acts.append(evaluator.features(fake).cpu().numpy())
+            seen += fake.shape[0]
+        fake_acts[key] = np.concatenate(acts)
+    res = mfid_from_class_stats(real_stats, fake_acts)
+    per_class = {k: round(v, 4) for k, v in res.items() if k != "mean"}
+    print(f"FID for each class: {per_class}")
+    print(f"mFID: {res.get('mean', float('nan')):.4f}")
+    if opt.metrics_out:
+        Path(opt.metrics_out).parent.mkdir(parents=True, exist_ok=True)
+        Path(opt.metrics_out).write_text(json.dumps(
+            {"mfid": res.get("mean"), **per_class}))
+    return res
+
+
+def save_stats(evaluator, df_loader, results_dir: Path) -> list:
+    """--save_stats: the defect set's Inception activations grouped by
+    label combination, ``stats_<classes>.npy`` each (the mFID's real
+    side). Returns the written paths."""
+    acts: dict = {}
+    for imgs, labels, _ in df_loader:
+        feats = evaluator.features(imgs).cpu().numpy()
+        for f, lbl in zip(feats, np.asarray(labels)):
+            key = "-".join(str(i) for i, v in enumerate(lbl) if v == 1)
+            acts.setdefault(key, []).append(f)
+    paths = []
+    for key, feats in acts.items():
+        paths.append(results_dir / f"stats_{key}.npy")
+        np.save(paths[-1], np.stack(feats))
+    print(f"wrote per-class stats for {len(acts)} classes")
+    return paths
 
 
 STYLE_LAYERS = {"hidden": ("mlp_shared", "mlp_latent"), "mean": ("mlp_beta",),

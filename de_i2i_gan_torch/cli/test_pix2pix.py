@@ -7,9 +7,10 @@
 Loads a ``Pix2PixTrainer`` checkpoint, translates the test split with the
 EMA generator, writes input | fake | target PNG panels under
 ``--results_dir/<name>/`` (``--save_img`` or ``--save_img_grid``) and
-``results.json`` with the mean ``l1`` and ``num_images``. Runs on CUDA
-device 0; ``--gpu_ids -1`` runs on the CPU. ``--metrics fid`` waits for
-ROADMAP A.8.
+``results.json`` with the mean ``l1`` and ``num_images``; ``--metrics fid``
+adds the FID of the fakes against the targets (InceptionV3 drawn from a
+seed: no pretrained weights are in the repository, so the number means
+nothing). Runs on CUDA device 0; ``--gpu_ids -1`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -48,12 +49,23 @@ def main(argv=None):
                           shuffle=False, drop_last=False, seed=opt.seed)
     out_dir = Path(opt.results_dir) / name
     out_dir.mkdir(parents=True, exist_ok=True)
+    evaluator = None
+    if opt.metrics and "fid" in opt.metrics:
+        from de_i2i_gan_torch.metrics.evaluator import Evaluator
+        from de_i2i_gan_torch.metrics.fid import ActivationStats
+        evaluator = Evaluator(dims=opt.dims, device=steps.device)
+        fake_stats, real_stats = (ActivationStats(opt.dims),
+                                  ActivationStats(opt.dims))
     l1_sum, n_imgs, pngs = 0.0, 0, []
     for batch in loader:
         y = batch["target"]
-        fake = steps.generate(batch["input"]).float().cpu().numpy()
+        fake_t = steps.generate(batch["input"])
+        fake = fake_t.float().cpu().numpy()
         l1_sum += float(np.abs(fake - y).mean()) * fake.shape[0]
         n_imgs += fake.shape[0]
+        if evaluator is not None:
+            fake_stats.update(evaluator.features(fake_t).cpu().numpy())
+            real_stats.update(evaluator.features(y).cpu().numpy())
         if opt.save_img or opt.save_img_grid:
             for i in range(fake.shape[0]):
                 panel = np.concatenate([batch["input"][i], fake[i], y[i]],
@@ -63,6 +75,10 @@ def main(argv=None):
                                         ).astype(np.uint8))
                 pngs.append(path)
     results = {"l1": l1_sum / max(n_imgs, 1), "num_images": n_imgs}
+    if evaluator is not None and fake_stats.n > 1:
+        from de_i2i_gan_torch.metrics.fid import frechet_distance
+        results["fid"] = frechet_distance(*fake_stats.finalize(),
+                                          *real_stats.finalize())
     (out_dir / "results.json").write_text(json.dumps(results, indent=1))
     print(json.dumps(results))
     return dict(results, pngs=pngs)

@@ -18,7 +18,10 @@ iters_per_epoch from the defect loader, the trainer. Runs on CUDA device 0;
 ``--native_loader`` feeds u8 super-batches from the C++ runtime
 (``runtime/native_loader.py``, built with g++ at first use) over a cache of
 the untransformed images under ``--native_cache_dir``, by default
-``<ckpt_dir>/native_cache/<name>``.
+``<ckpt_dir>/native_cache/<name>``. ``--val_metrics fid is lpips`` evaluates
+the generator on the validation split every ``--save_ckpt_freq`` epochs
+(``metrics/evaluator.py``, nets drawn from a seed, so the numbers mean
+nothing) into ``<ckpt_dir>/<name>/val_metrics_<epoch>.json``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,41 @@ def build_datasets(opt, phase: str, transform):
         for dt in ("defects", "background")
     }
     return datasets, cls.clf_loss_type
+
+
+def make_val_fn(opt, cfg, device):
+    """The in-training validation (the reference's defectgan_trainer.py:
+    124-136, ``_val_epoch``): FID / IS / LPIPS of the generator over the
+    validation split, written to ``val_metrics_<epoch>.json``."""
+    import json
+
+    import torch
+
+    from de_i2i_gan_torch.data.pipeline import DataLoader, InfiniteLoader
+    from de_i2i_gan_torch.data.transforms import EvalTransform
+    from de_i2i_gan_torch.metrics.evaluator import (
+        Evaluator, defectgan_generator_fn)
+
+    val_sets, _ = build_datasets(opt, "val", EvalTransform(opt.image_size))
+    val_df = DataLoader(val_sets["defects"], opt.batch_size, seed=opt.seed)
+    val_bg = InfiniteLoader(DataLoader(val_sets["background"], opt.batch_size,
+                                       seed=opt.seed + 1))
+    ev = Evaluator(dims=opt.dims, device=device)
+    gen = torch.Generator(device).manual_seed(opt.seed)
+
+    def val_fn(steps, epoch):
+        out = ev.evaluate_generator(
+            defectgan_generator_fn(steps, cfg, gen), val_bg, val_df,
+            num_imgs=opt.num_imgs,
+            npz_path=Path(opt.npz_path) if opt.npz_path else None,
+            metrics=tuple(opt.val_metrics),
+            num_lpips_images=opt.num_lpips_images)
+        path = Path(opt.ckpt_dir) / opt.name / f"val_metrics_{epoch}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(out))
+        print({k: round(v, 4) for k, v in out.items()}, f"at epoch {epoch}")
+        return out
+    return val_fn
 
 
 def main(argv=None):
@@ -101,7 +139,9 @@ def main(argv=None):
         save_latest_freq=opt.save_latest_freq,
         save_ckpt_freq=opt.save_ckpt_freq, seed=opt.seed,
         embed_bank=embed_bank, device=device_of(opt))
-    trainer.train(loader)
+    val_fn = (make_val_fn(opt, cfg, trainer.steps.device)
+              if opt.val_metrics else None)
+    trainer.train(loader, val_fn=val_fn)
     if opt.native_loader:
         loader.close()  # every epoch has drained it: no thread is inside
     return trainer

@@ -89,7 +89,8 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--num_display_images", type=int, default=8)
     p.add_argument("--ema_decay", type=float, default=0.0)
     p.add_argument("--val_metrics", type=str, nargs="+", default=None,
-                   help="in-training validation metrics (ROADMAP A.8)")
+                   help="in-training validation metrics [fid|is|lpips], "
+                        "every save_ckpt_freq epochs")
     p.add_argument("--native_loader", action="store_true",
                    help="the C++ input pipeline (runtime/dataloader.cc): u8 "
                         "super-batches, cached under --native_cache_dir")
@@ -104,7 +105,7 @@ def add_test_args(p: argparse.ArgumentParser):
     p.add_argument("--results_dir", type=Path, default=Path("./results"))
     p.set_defaults(phase="test")
     p.add_argument("--metrics", type=str, nargs="+", default=None,
-                   help="[fid|is|lpips] (ROADMAP A.8)")
+                   help="[fid|is|lpips]")
     p.add_argument("--cal_mfid", action="store_true")
     p.add_argument("--save_img_grid", action="store_true")
     p.add_argument("--save_img", action="store_true")
@@ -332,10 +333,6 @@ def check_ported(opt) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature the port does
     not have yet, naming the ROADMAP item it waits for."""
     waits = [
-        (getattr(opt, "val_metrics", None), "--val_metrics", "A.8"),
-        (getattr(opt, "metrics", None), "--metrics", "A.8"),
-        (getattr(opt, "cal_mfid", False), "--cal_mfid", "A.8"),
-        (getattr(opt, "save_stats", False), "--save_stats", "A.8"),
         (getattr(opt, "data_parallel", "auto") == "on", "--data_parallel on",
          "A.9"),
         ((opt.num_devices or 1) > 1, "--num_devices > 1", "A.9"),

@@ -1,1 +1,2 @@
-"""Evaluation helpers (FID, IS, LPIPS wait for ROADMAP A.8)."""
+"""Evaluation: InceptionV3 and LPIPS nets, FID / IS / mFID math, the
+DefectGAN and StarGAN v2 evaluation loops."""

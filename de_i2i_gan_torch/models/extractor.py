@@ -14,7 +14,7 @@ from torch import nn
 
 from de_i2i_gan_torch.config import DefectGanConfig
 from de_i2i_gan_torch.nn.blocks import ConvBlock, ResBlock
-from de_i2i_gan_torch.nn.layers import Dense
+from de_i2i_gan_torch.nn.layers import Dense, randn
 
 MAX_DIM = 256
 
@@ -56,9 +56,8 @@ class StyleExtractor(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         if cfg.sean_alpha == 0:
-            noise = torch.randn((labels.shape[0], cfg.latent_dim - cfg.label_nc),
-                                generator=generator, dtype=dt,
-                                device=labels.device)
+            noise = randn((labels.shape[0], cfg.latent_dim - cfg.label_nc),
+                          generator, dt, labels.device)
             h = torch.cat([labels.to(dt), noise], dim=1)
             h = F.relu(self.fc_in(h))
             for i in range(3):

@@ -11,7 +11,8 @@ JAX package passes ``train=``. In train mode BatchNorm normalizes each of
 (``bn_groups`` is a forward argument of the blocks that hold BatchNorm).
 ``NoiseInjection`` draws its noise from the ``torch.Generator`` handed down
 as ``generator`` (None: torch's default generator of the device), where the
-JAX package draws from its 'noise' stream.
+JAX package draws from its 'noise' stream; a served graph hands down a
+``serving.SeededNoise`` instead (``nn/layers.py::randn``).
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from de_i2i_gan_torch.nn.layers import Conv2d, Dense, avg_pool, upsample_nearest
+from de_i2i_gan_torch.nn.layers import (
+    Conv2d, Dense, avg_pool, randn, upsample_nearest)
 from de_i2i_gan_torch.nn.normalization import (
     SEAN,
     SPADE,
@@ -60,8 +62,7 @@ class NoiseInjection(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         n, _, h, w = x.shape
-        noise = torch.randn((n, 1, h, w), generator=generator, dtype=x.dtype,
-                            device=x.device)
+        noise = randn((n, 1, h, w), generator, x.dtype, x.device)
         return x + self.weight.to(x.dtype) * noise
 
 
@@ -394,8 +395,7 @@ class LatentDecoder(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         labels = labels.reshape(labels.shape[0], -1)
         if noise is None:
-            noise = torch.randn((labels.shape[0], self.latent_dim - self.label_nc),
-                                generator=generator, dtype=self.dtype,
-                                device=labels.device)
+            noise = randn((labels.shape[0], self.latent_dim - self.label_nc),
+                          generator, self.dtype, labels.device)
         latent = torch.cat([labels.to(self.dtype), noise.to(self.dtype)], dim=1)
         return F.relu(self.fc_1(F.relu(self.fc_0(latent))))

@@ -174,6 +174,19 @@ class Dense(_SpectralWeight):
         return y.to(self.dtype)
 
 
+def randn(shape, generator=None, dtype: torch.dtype = torch.float32,
+          device=None) -> torch.Tensor:
+    """Standard-normal draws of ``shape`` from ``generator``: a
+    ``torch.Generator`` (None: torch's default one of the device), or a
+    source with a ``normal(shape, dtype, device)`` method, such as
+    ``serving.SeededNoise``, which keys its draws on a seed tensor inside an
+    exported graph."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+    return generator.normal(shape, dtype, device)
+
+
 def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsample of NCHW (torch nn.Upsample(scale_factor=2))."""
     return F.interpolate(x, scale_factor=scale, mode="nearest")

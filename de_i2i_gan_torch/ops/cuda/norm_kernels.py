@@ -19,7 +19,13 @@ The C side checks the plan again and refuses one its kernels do not take.
 The wrappers take CUDA tensors only: they launch the planned tier (or the
 one a caller forces with ``tier=``) or raise. The plain versions for CPU
 tensors are ``ops/fused.py::modulated_instance_norm_ref`` and
-``::modulated_instance_norm_bwd_ref``. ``LAUNCHES`` and ``BWD_LAUNCHES``
+``::modulated_instance_norm_bwd_ref``. The model code reaches the kernels
+through two ``torch.library`` custom ops,
+``torch.ops.de_i2i_gan_torch.modulated_instance_norm_fwd`` and ``..._bwd``:
+on a CUDA tensor each launches its kernel, on a CPU tensor each runs the
+plain version, and under FakeTensor tracing (``torch.export``) each gives
+its outputs' shapes, so an exported graph holds the op and its artifact
+launches the kernel. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count the forward and backward kernels' launches, so a run can show its path
 went through them; ``TIER_LAUNCHES`` counts them by tier.
 """
@@ -344,30 +350,83 @@ def modulated_instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor,
     return dx, dg, db
 
 
-class _ModulatedInstanceNorm(torch.autograd.Function):
-    """The forward kernel's y; its backward is the backward kernel, fed the
-    forward kernel's own mean and inv. Once differentiable: a double
-    backward through it (a gradient penalty through a styled norm) raises
-    rather than return a dx without a graph."""
+# ------------------------------------------------- the torch.library ops
+# Both kernels are custom ops, so that torch.export and FakeTensor tracing
+# see through them: a CUDA implementation (the launch above), a CPU one (the
+# plain version, for opcheck and export on the CPU), a fake one (shapes,
+# dtypes and strides as the kernels write them) and, for the forward, an
+# autograd formula that runs the backward op.
+OPS = "de_i2i_gan_torch"
+Tensor = torch.Tensor
 
-    @staticmethod
-    def forward(ctx, x, gamma, beta, act, eps):
-        y, mean, inv = modulated_instance_norm_fwd(x, gamma, beta, act, eps)
-        ctx.act = act
-        ctx.save_for_backward(x, gamma, beta, mean, inv)
-        return y
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dy):
-        x, gamma, beta, mean, inv = ctx.saved_tensors
-        dx, dg, db = modulated_instance_norm_bwd(
-            x, gamma, beta, mean, inv, dy.contiguous(), ctx.act)
-        return dx, dg.to(gamma.dtype), db.to(beta.dtype), None, None
+@torch.library.custom_op(f"{OPS}::modulated_instance_norm_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(x: Tensor, gamma: Tensor, beta: Tensor, act: Optional[str],
+            eps: float) -> Tuple[Tensor, Tensor, Tensor]:
+    return modulated_instance_norm_fwd(x, gamma, beta, act, eps)
+
+
+@_fwd_op.register_kernel("cpu")
+def _fwd_op_cpu(x, gamma, beta, act, eps):
+    from de_i2i_gan_torch.ops.fused import modulated_instance_norm_ref
+    y, mean, inv = modulated_instance_norm_ref(x, gamma, beta, act, eps)
+    return y.contiguous(), mean.contiguous(), inv.contiguous()
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(x, gamma, beta, act, eps):
+    n, c = x.shape[:2]
+    stats = x.new_empty((n, c), dtype=torch.float32)
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            stats, torch.empty_like(stats))
+
+
+@torch.library.custom_op(f"{OPS}::modulated_instance_norm_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(x: Tensor, gamma: Tensor, beta: Tensor, mean: Tensor, inv: Tensor,
+            dy: Tensor, act: Optional[str]) -> Tuple[Tensor, Tensor, Tensor]:
+    return modulated_instance_norm_bwd(x, gamma, beta, mean, inv,
+                                       dy.contiguous(), act)
+
+
+@_bwd_op.register_kernel("cpu")
+def _bwd_op_cpu(x, gamma, beta, mean, inv, dy, act):
+    from de_i2i_gan_torch.ops.fused import modulated_instance_norm_bwd_ref
+    return modulated_instance_norm_bwd_ref(x, gamma, beta, mean, inv, dy, act)
+
+
+@_bwd_op.register_fake
+def _bwd_op_fake(x, gamma, beta, mean, inv, dy, act):
+    n, c = x.shape[:2]
+    grads = x.new_empty((n, c), dtype=torch.float32)
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            grads, torch.empty_like(grads))
+
+
+def _fwd_setup(ctx, inputs, output):
+    x, gamma, beta, act, _ = inputs
+    _, mean, inv = output
+    ctx.act = act
+    ctx.save_for_backward(x, gamma, beta, mean, inv)
+
+
+@once_differentiable
+def _fwd_backward(ctx, dy, _dmean, _dinv):
+    """The backward op, fed the forward's own mean and inv. Once
+    differentiable: a double backward through it (a gradient penalty
+    through a styled norm) raises rather than return a dx without a
+    graph."""
+    x, gamma, beta, mean, inv = ctx.saved_tensors
+    dx, dg, db = _bwd_op(x, gamma, beta, mean, inv, dy, ctx.act)
+    return dx, dg.to(gamma.dtype), db.to(beta.dtype), None, None
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def cuda_modulated_instance_norm(x: torch.Tensor, gamma: torch.Tensor,
                                  beta: torch.Tensor, act: Optional[str] = None,
                                  eps: float = 1e-5) -> torch.Tensor:
-    """The forward kernel's y, differentiable through the backward kernel."""
-    return _ModulatedInstanceNorm.apply(x, gamma, beta, act, eps)
+    """The forward op's y, differentiable through the backward op."""
+    return _fwd_op(x, gamma, beta, act, eps)[0]

@@ -27,7 +27,8 @@ A network's state arrives as the dict of its flax collections besides
 RMSprop ``nu``; the schedule's ``count`` -> ``Optimizer.count``). Loading
 is strict: a key missing on either side, or a shape that differs, raises.
 Whole train states load per trainer: DefectGAN's (``load_jax_train_state``),
-MAE's, pix2pix's and WGAN's, StarGAN v2's solver.
+MAE's, pix2pix's and WGAN's, StarGAN v2's solver; the frozen and metric
+nets on their own (ViT, FAN, InceptionV3, LPIPS), for the tests.
 
 ``init_weights`` draws weights from a seed with the JAX init's
 distribution, and ``reinit_module`` redraws them per ``--init_type``, as
@@ -514,6 +515,28 @@ def _unstack_blocks(params: Tree) -> Dict[str, Any]:
     return params
 
 
+def _fill(net: nn.Module, maps: Dict[str, Tuple[str, Callable]],
+          flat: Dict[str, np.ndarray], what: str, skip=()) -> None:
+    """Copy ``flat[path]`` (through ``to_port``) into each state-dict entry
+    ``maps`` names; strict: every leaf fills one tensor and every tensor
+    but BatchNorm's ``num_batches_tracked`` and the ``skip`` constants is
+    filled."""
+    own = {k: v for k, v in net.state_dict().items()
+           if not k.endswith("num_batches_tracked") and k not in skip}
+    used = {path for path, _ in maps.values()}
+    if set(maps) != set(own) or set(flat) != used:
+        raise KeyError(f"{what}: missing {sorted(used - set(flat))[:5]}, "
+                       f"unexpected {sorted(set(flat) - used)[:5]}, unmapped "
+                       f"{sorted(set(own) ^ set(maps))[:5]}")
+    with torch.no_grad():
+        for key, (path, to_port) in maps.items():
+            arr = np.array(to_port(flat[path]), np.float32)
+            if arr.shape != tuple(own[key].shape):
+                raise ValueError(f"{path}: shape {arr.shape} does not fit "
+                                 f"{key} {tuple(own[key].shape)}")
+            own[key].copy_(torch.from_numpy(arr))
+
+
 def load_jax_vit(net, params: Tree) -> None:
     """Fill a ``models/vit.py::ViTEncoder`` from the JAX ViTEncoder's
     ``params`` tree, or ViTEncoderScanned's (``blocks_scan/block`` stacked on
@@ -545,20 +568,7 @@ def load_jax_vit(net, params: Tree) -> None:
             maps[dst + name + ".weight"] = (f"{src}{name}/kernel",
                                             lambda a: a.T)
             maps[dst + name + ".bias"] = (f"{src}{name}/bias", _same)
-    own = net.state_dict()
-    used = {path for path, _ in maps.values()}
-    missing = sorted(used - set(flat))
-    if set(maps) != set(own) or missing or set(flat) != used:
-        raise KeyError(f"ViT: missing {missing}, unexpected "
-                       f"{sorted(set(flat) - used)}, unmapped "
-                       f"{sorted(set(own) ^ set(maps))}")
-    with torch.no_grad():
-        for key, (path, to_port) in maps.items():
-            arr = np.array(to_port(flat[path]), np.float32)
-            if arr.shape != tuple(own[key].shape):
-                raise ValueError(f"{path}: shape {arr.shape} does not fit "
-                                 f"{key} {tuple(own[key].shape)}")
-            own[key].copy_(torch.from_numpy(arr))
+    _fill(net, maps, flat, "ViT")
 
 
 def load_jax_fan(fan, variables: Mapping[str, Tree]) -> None:
@@ -567,3 +577,45 @@ def load_jax_fan(fan, variables: Mapping[str, Tree]) -> None:
     so ``load_jax_module`` maps them. Strict, as it is."""
     load_jax_module(fan, variables["params"],
                     {"batch_stats": variables["batch_stats"]})
+
+
+def load_jax_inception(net, variables: Mapping[str, Tree]) -> None:
+    """Fill a ``metrics/inception.py::InceptionV3`` from the JAX
+    InceptionV3's variables: ``<block>/<branch>/conv/kernel`` HWIO -> OIHW
+    ``conv.weight``; ``bn/scale``, ``bn/bias`` -> ``bn.weight``,
+    ``bn.bias``; ``batch_stats`` ``bn/mean``, ``bn/var`` ->
+    ``bn.running_mean``, ``bn.running_var``."""
+    flat = {f"params/{k}": v for k, v in _flatten(variables["params"]).items()}
+    flat.update({f"batch_stats/{k}": v
+                 for k, v in _flatten(variables["batch_stats"]).items()})
+    names = {"conv.weight": ("params", "conv/kernel"),
+             "bn.weight": ("params", "bn/scale"),
+             "bn.bias": ("params", "bn/bias"),
+             "bn.running_mean": ("batch_stats", "bn/mean"),
+             "bn.running_var": ("batch_stats", "bn/var")}
+    maps = {}
+    for key in net.state_dict():
+        for tail, (col, leaf) in names.items():
+            if key.endswith(tail):
+                prefix = key[:-len(tail)].replace(".", "/")
+                conv = tail == "conv.weight"
+                maps[key] = (f"{col}/{prefix}{leaf}",
+                             (lambda a: a.transpose(3, 2, 0, 1)) if conv
+                             else _same)
+    _fill(net, maps, flat, "InceptionV3")
+
+
+def load_jax_lpips(net, variables: Mapping[str, Tree]) -> None:
+    """Fill a ``metrics/lpips.py::LPIPS`` from the JAX LPIPS's ``params``:
+    ``alex/conv<i>/kernel`` HWIO -> OIHW ``alex.features.<torchvision
+    index>.weight``, its bias, and ``lin<i>`` as is. The input
+    normalization buffers are constants of both."""
+    from de_i2i_gan_torch.metrics.lpips import CONV_IDS
+    maps = {}
+    for i, cid in enumerate(CONV_IDS):
+        maps[f"alex.features.{cid}.weight"] = (
+            f"alex/conv{i}/kernel", lambda a: a.transpose(3, 2, 0, 1))
+        maps[f"alex.features.{cid}.bias"] = (f"alex/conv{i}/bias", _same)
+        maps[f"lin{i}"] = (f"lin{i}", _same)
+    _fill(net, maps, _flatten(variables["params"]), "LPIPS",
+          skip=("shift", "scale"))

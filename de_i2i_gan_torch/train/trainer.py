@@ -154,7 +154,10 @@ class DefectGanTrainer:
             self._guard.update(self.steps, bad)
 
     # ------------------------------------------------------------------ train
-    def train(self, train_loader: DualStreamLoader, progress: bool = True):
+    def train(self, train_loader: DualStreamLoader, val_fn=None,
+              progress: bool = True):
+        """Run the epochs; ``val_fn(steps, epoch)`` -> {metric: value} runs
+        after each epoch checkpoint, its values logged under ``Metrics``."""
         writer = TBWriter(self.log_dir)
         try:
             from tqdm import tqdm
@@ -198,6 +201,9 @@ class DefectGanTrainer:
             if epoch % self.save_ckpt_freq == 0:
                 save_checkpoint(self.ckpt_dir, self.name, epoch, self.steps,
                                 epoch=epoch, iters=self.iters)
+                if val_fn is not None:
+                    writer.scalars("Metrics", val_fn(self.steps, epoch) or {},
+                                   epoch)
             # SEAN's running statistics; the LR schedules read the counts
             self.steps.update_per_epoch()
         # final 'latest' so short runs (< save_latest_freq iters) still leave

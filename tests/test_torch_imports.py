@@ -12,8 +12,10 @@
   (``train/pix2pix_steps.py``, ``train/wgan_steps.py``,
   ``train/remat.py``, ``data/paired.py``) and StarGAN v2
   (``models/starganv2.py``, ``train/solver.py``,
-  ``data/starganv2_data.py``, ``utils/translate.py``) parses no arguments,
-  starts no thread and writes nothing.
+  ``data/starganv2_data.py``, ``utils/translate.py``), serving
+  (``serving.py``, ``cli/export_model.py``, ``cli/translate_folder.py``)
+  and the metrics (``cli/fid.py``, ``metrics/eval_starganv2.py``) parses no
+  arguments, starts no thread and writes nothing.
 """
 import os
 import subprocess
@@ -52,7 +54,9 @@ for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
              "cli.pretrain_mtvec", "train.mae_steps", "utils.masks",
              "data.paired", "train.pix2pix_steps", "train.wgan_steps",
              "train.remat", "cli.train_pix2pix", "cli.test_pix2pix",
-             "cli.train_wgan"):
+             "cli.train_wgan", "serving", "cli.export_model",
+             "cli.translate_folder", "cli.fid", "metrics.inception",
+             "metrics.lpips", "metrics.fid", "metrics.eval_starganv2"):
     assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
@@ -89,6 +93,10 @@ import de_i2i_gan_torch.cli.test_pix2pix
 import de_i2i_gan_torch.cli.train_wgan
 import de_i2i_gan_torch.train.pix2pix_steps
 import de_i2i_gan_torch.train.wgan_steps
+import de_i2i_gan_torch.serving
+import de_i2i_gan_torch.cli.export_model
+import de_i2i_gan_torch.cli.translate_folder
+import de_i2i_gan_torch.metrics.evaluator
 assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
 assert native_loader._lib is None
 """
@@ -122,6 +130,11 @@ import de_i2i_gan_torch.data.paired
 import de_i2i_gan_torch.train.pix2pix_steps
 import de_i2i_gan_torch.train.wgan_steps
 import de_i2i_gan_torch.train.remat
+import de_i2i_gan_torch.serving
+import de_i2i_gan_torch.cli.export_model
+import de_i2i_gan_torch.cli.translate_folder
+import de_i2i_gan_torch.cli.fid
+import de_i2i_gan_torch.metrics.eval_starganv2
 assert threading.active_count() == 1, threading.enumerate()
 assert os.listdir(".") == [], os.listdir(".")
 """

@@ -16,7 +16,9 @@ dbeta, float32 sums over H*W in another order, within 1e-5 of the sum of
 the absolute terms. Each tier of the planner (W: a warp a row; B: a block a
 row; C: a cluster of 1, 2, 4 or 8 blocks a row; S: streaming) is held to the same tolerances
 at its boundary shapes, and the backward's dgamma and dbeta to bit-identity
-between two runs. End to end in f32, 5e-4 (DESIGN.md §7); a super-step's
+between two runs. End to end in f32, 5e-4 (DESIGN.md §7); an exported
+generator's artifact against its eager forward, 2e-5; the custom ops pass
+``torch.library.opcheck`` on the card. A super-step's
 losses within rtol 2e-4, its gradients, as (after - before) / lr under SGD,
 within 1e-3 of each tensor's L2 norm plus 1e-5 per element in L2 (a ReLU
 gate whose input lies within rounding of 0 can fall either way on two
@@ -711,3 +713,57 @@ def test_starganv2_train_step_on_card_matches_cpu():
             gk, rk = got.detach().cpu() - start, ref.detach() - start
             assert (gk - rk).norm() <= rel * rk.norm() + 1e-9 * rk.numel() ** 0.5, n
     assert card.step == cpu.step == 1 and card.tx_M.count == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_opcheck_of_both_ops_on_card(dtype, act):
+    """The custom ops' schema, fake and autograd registrations against
+    their CUDA implementations (``torch.library.opcheck``), at a DefectGAN
+    decoder row (64²) and a StarGAN v2 one (16²)."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fwd = torch.ops.de_i2i_gan_torch.modulated_instance_norm_fwd.default
+    bwd = torch.ops.de_i2i_gan_torch.modulated_instance_norm_bwd.default
+    for shape in [(2, 16, 64, 64), (4, 32, 16, 16)]:
+        x, g, b, dy = _bwd_inputs(shape, dt, gen)
+        torch.library.opcheck(fwd, (x, g, b, act, 1e-5))
+        torch.library.opcheck(fwd, (x.clone().requires_grad_(),
+                                    g.clone().requires_grad_(),
+                                    b.clone().requires_grad_(), act, 1e-5))
+        _, mean, inv = fused.modulated_instance_norm_ref(x, g, b, act)
+        torch.library.opcheck(bwd, (x, g, b, mean, inv, dy, act))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("style", ["adain", "sean"])
+def test_exported_generator_on_card_launches_the_kernel(style, tmp_path):
+    """A small DefectGAN G exported on the card: its graph holds the forward
+    op once for each styled norm (num_res 2: one residual block of two, and
+    a block for each of the 2 scales), the loaded artifact launches the
+    kernel that often a forward, and computes what eager computes."""
+    _need_card()
+    from de_i2i_gan_torch import serving
+    cfg = DefectGanConfig(image_size=32, label_nc=4, ngf=8, ndf=8, num_res=2,
+                          hidden_nc=16, num_layers=2, embed_nc=12,
+                          num_embeds=2, style_norm_block_type=style,
+                          use_pallas=True)
+    steps = DefectGanSteps(cfg, TrainConfig(), device="cuda")
+    init_weights(steps, 0)
+    program = serving.export_defectgan_generator(steps)
+    per_forward = 2 * (cfg.num_res // 2) + cfg.num_scales
+    assert serving.kernel_nodes(program) == per_forward
+    served = serving.load_exported(serving.save_exported(
+        program, tmp_path / "g.pt2")).module()
+    args = serving.defectgan_example_args(
+        steps, 3, 1, torch.Generator().manual_seed(1))
+    before = norm_kernels.LAUNCHES
+    with torch.no_grad():
+        got = served(*args)
+        torch.cuda.synchronize()
+        assert norm_kernels.LAUNCHES == before + per_forward
+        want = serving.defectgan_serving_module(steps)(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)

@@ -151,8 +151,7 @@ def test_cli_train_resume_then_sample(tmp_path, monkeypatch, capsys):
     assert cycle.std() > 0 and latent.std() > 0
 
 
-UNPORTED = [(["--mode", "eval"], "A.8"),
-            (["--make_video"], "A.9"), (["--data_parallel", "on"], "A.9")]
+UNPORTED = [(["--data_parallel", "on"], "A.9")]
 
 
 # ----------------------------------------------- the frozen nets in the CLI
@@ -285,8 +284,16 @@ def test_unported_modes_and_flags_raise(flags, item, tmp_path):
         cli.main(_argv(tmp_path, *flags))
 
 
-def test_eval_every_raises_when_it_fires(tmp_path):
+def test_eval_every_raises_when_it_fires(tmp_path, monkeypatch):
+    """--eval_every (it raised while the metrics were not ported): it fires
+    after the iteration it divides, with the solver and the step (the
+    evaluation itself: tests/test_torch_metrics_cli.py)."""
+    from de_i2i_gan_torch.metrics import eval_starganv2
+    fired = []
+    monkeypatch.setattr(eval_starganv2, "evaluate_all_tasks",
+                        lambda solver, args, step=None: fired.append(
+                            (solver.step, step)))
     _image_tree(tmp_path / "tree", 3, per_domain=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-        cli.main(_argv(tmp_path, "--total_iters", "1", "--eval_every", "1",
-                       "--save_every", "100", "--sample_every", "100"))
+    cli.main(_argv(tmp_path, "--total_iters", "1", "--eval_every", "1",
+                   "--save_every", "100", "--sample_every", "100"))
+    assert fired == [(1, 1)]

@@ -344,11 +344,9 @@ def test_cli_train_resume_then_test(tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "train": [["--val_metrics", "fid"],
-              ["--data_parallel", "on"], ["--num_devices", "2"],
+    "train": [["--data_parallel", "on"], ["--num_devices", "2"],
               ["--gpu_ids", "0,1"]],
-    "test": [["--metrics", "fid"], ["--cal_mfid"], ["--save_stats"],
-             ["--gpu_ids", "0,1"]],
+    "test": [["--gpu_ids", "0,1"]],
 }
 
 
