@@ -276,11 +276,32 @@ Phases, each of which raises on failure:
   17b. cli    every metric flag through its CLI at ``--dims 768``:
               ``cli.test_defectgan --metrics fid is lpips --save_stats``,
               ``--cal_mfid``, ``cli.train_defectgan --val_metrics`` for an
-              epoch, ``cli.test_pix2pix --metrics fid``, ``cli.fid`` on two
+              epoch, ``cli.test_pix2pix --metrics fid`` (8 pairs), ``cli.fid`` on two
               folders, ``cli.starganv2_main --mode eval``: exact launches a
               G forward, finite numbers, the time of each and Inception's
               share of its kernel time. The metric nets are drawn from a
               seed: their numbers mean nothing
+  18a. dp     data parallel, NCCL as a group of one (the machine has one
+              card): a full-width f32 AdaIN super-step with the group
+              attached against the same step without it (56/16 launches,
+              losses rtol 2e-4, deltas per tensor within 6c's band + 2x a
+              float64-BatchNorm control, G's within 6d's f32 band); the
+              reductions' cost in bf16 super-steps (host clock in turns,
+              device time, the ranges parallel.grad_all_reduce and
+              parallel.batch_norm)
+  18b.        two ranks on cuda:0 over gloo (one launch for 18b-18d):
+              DefectGAN AdaIN at full width, global batch 8, one SGD
+              super-step against one process on the same batch (f32 with
+              TF32 off within 6d's f32 band, bf16 printed), 56/16 launches
+              a rank, the ranks' states equal bit for bit; the host clock
+              of a bf16 super-step and its share inside the collectives
+  18c.        StarGAN v2 AdaIN (AFHQ flags, batch 8, f32) with each
+              update's gradients against one process's within 10c's band,
+              96/48 a rank; MAE at batch 32 (16/8), WGAN clipping at 128
+              and pix2pix at batch 2 (0); states equal
+  18d. cli    ``cli.train_defectgan --gpu_ids 0,0 --data_parallel on`` at
+              batch 32 on two ranks: an epoch, then ``--continue_training``
+              from its checkpoint, exact launches, states equal
 
 Then each timed shape's planned tier against tier S and the fastest tier,
 and each path's share of the bound. The line before the last two holds the
@@ -379,7 +400,7 @@ CLI_BASE = ["--dataset_name", "synthetic", "--image_size", str(CLI_IMAGE),
 CARD = "cuda"  # the device type the entry points run on (--gpu_ids 0)
 CLI_SEED = 123  # the CLI's default --seed
 PROFILE_AT = 6  # the first of the trainer's profiled super-steps
-PROFILED_SUPER_STEPS = 3
+PROFILED_SUPER_STEPS = 2
 # phases 9a-9c: StarGAN v2 serving at the CLI's defaults, 256^2, requests of
 # --val_batch_size 32, w_hpf=0. The modulated instance norm's call sites of
 # one G forward: (N, C, H, W) -> calls (models/starganv2.py, decoder)
@@ -507,6 +528,20 @@ METRIC_BAND = 1e-4
 INCEPTION_BATCH = 32
 METRIC_DIMS = 768
 METRIC_IMGS = 16
+METRIC_P2P_PAIRS = 8
+
+# phase 18: data-parallel training. The card's machine has one H100, so NCCL
+# forms a group of one there (18a); two ranks share cuda:0 over gloo
+# (18b-18d, one launch), which is no scaling figure. 18b: 1 timed
+# super-step after the agreement's; pix2pix's default batch of 1 does not
+# split over 2 ranks; 18d trains at batch 32 (3 super-steps an epoch a
+# rank)
+DP_DIR = CLI_DIR / "dp"
+DP_RANKS = ("cuda:0", "cuda:0")
+DP_TIMED = (0, 1)
+DP_P2P_BATCH = 2
+DP_CLI_BATCH = 32
+DP_RANGES = ("parallel.grad_all_reduce", "parallel.batch_norm")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3325,15 +3360,20 @@ def delta_gap(a, b, before, lr):
     """The largest per-tensor L2 distance between two steps' (after -
     before) / lr, in units of 6c's band (GRAD_REL_L2 of b's norm + GRAD_ATOL
     sqrt(n)); ``lr`` by net."""
-    worst = 0.0
+    return max(delta_gaps(a, b, before, lr).values())
+
+
+def delta_gaps(a, b, before, lr):
+    """Each tensor's distance of ``delta_gap``, by net and name."""
+    gaps = {}
     for n, rate in lr.items():
         got = dict(getattr(a, n).named_parameters())
         for k, ref in getattr(b, n).named_parameters():
             gk = (got[k].detach().float().cpu() - before[n][k]) / rate
             rk = (ref.detach().float().cpu() - before[n][k]) / rate
-            worst = max(worst, ((gk - rk).norm() / (
-                GRAD_REL_L2 * rk.norm() + GRAD_ATOL * rk.numel() ** 0.5)).item())
-    return worst
+            gaps[f"{n}.{k}"] = ((gk - rk).norm() / (
+                GRAD_REL_L2 * rk.norm() + GRAD_ATOL * rk.numel() ** 0.5)).item()
+    return gaps
 
 
 def loss_gap(m, ref):
@@ -4951,7 +4991,7 @@ def phase_metric_clis(nk, smi):
     ``--dims 768`` (17a times the 2048-wide FID) and small image counts:
     ``cli.test_defectgan --metrics fid is lpips --save_stats`` then
     ``--cal_mfid`` on 8a's run, ``cli.train_defectgan --val_metrics`` for
-    an epoch, ``cli.test_pix2pix --metrics fid`` on 12e's run, ``cli.fid``
+    an epoch, ``cli.test_pix2pix --metrics fid`` on 8 of 12e's pairs, ``cli.fid``
     on two of 10d's domain folders, ``cli.starganv2_main --mode eval`` on
     10d's checkpoint. Each: exact launches a G forward, finite numbers, the
     wall time, and Inception's share of the profiled kernel time."""
@@ -5050,10 +5090,11 @@ def metric_clis(nk, smi):
         f"val metrics {val}")
     del trainer
 
-    # pix2pix (SPADE: no kernel), cli.fid (no generator)
+    # pix2pix (SPADE: no kernel) on METRIC_P2P_PAIRS of 12e's pairs (its 48
+    # batches of 1 took 55.8 s, 16 took 29.7), cli.fid (no generator)
     got = run("metrics_p2p", lambda: test_pix2pix.main(p2p_cli_args(
-        "p2p", "--results_dir", str(res / "p2p"), "--metrics", "fid", *dims)),
-        DefectGanGenerator, 0)
+        "p2p", "--results_dir", str(res / "p2p"), "--metrics", "fid", *dims,
+        "--max_dataset_size", str(METRIC_P2P_PAIRS))), DefectGanGenerator, 0)
     check(math.isfinite(got["fid"]), f"pix2pix FID {got}")
     tree = CLI_DIR / "sgv2" / "afhq"
     got = run("metrics_fid", lambda: fid_cli.main(
@@ -5088,6 +5129,666 @@ def metric_clis(nk, smi):
           f"{got['FID_latent/mean']:.3f}, LPIPS mean "
           f"{got['LPIPS_latent/mean']:.4f} [{smi}]")
     return out
+
+
+# ---------------------------------------------------- 18. data parallel
+
+
+def dp_sgd_config():
+    """6d's SGD settings: a delta is -lr * the gradient the update applies."""
+    from de_i2i_gan_torch.config import TrainConfig
+    return TrainConfig(batch_size=BATCH, num_critics=CRITICS, lr=(2e-4, 1e-2),
+                       optimizer="sgd")
+
+
+def g_delta(steps, before, lr):
+    """G's (after - before) / lr, flat, f32 on the host."""
+    return torch.cat([((p.detach().float().cpu() - before[k]) / lr).reshape(-1)
+                      for k, p in steps.G.named_parameters()])
+
+
+def tf32_off():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Host time inside ``torch.distributed.all_reduce`` while the block
+    runs, each call timed from a synchronized device to its end on the
+    device: the collectives' own time, not the wait for the kernels queued
+    before them."""
+    import torch.distributed as dist
+    spent = {"ms": 0.0, "calls": 0}
+    real = dist.all_reduce
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spent["ms"] += (time.perf_counter() - t0) * 1e3
+            spent["calls"] += 1
+
+    dist.all_reduce = timed
+    try:
+        yield spent
+    finally:
+        dist.all_reduce = real
+
+
+@contextlib.contextmanager
+def batch_norm_in_float64():
+    """``BatchNorm`` in train mode computed in float64 (the rounding
+    control of 18a): each group's ``F.batch_norm`` and its running
+    statistics in float64, the output rounded to x's dtype."""
+    from de_i2i_gan_torch.nn import blocks
+    real = blocks.BatchNorm.forward
+
+    def forward(self, x, bn_groups=1):
+        if not self.training:
+            return real(self, x, bn_groups)
+        parts = []
+        for part in x.double().chunk(bn_groups, dim=0):
+            parts.append(F.batch_norm(part, None, None, self.weight.double(),
+                                      self.bias.double(), True, 0.0, self.eps))
+            with torch.no_grad():
+                var, mean = torch.var_mean(part, dim=(0, 2, 3), correction=0)
+                self.running_mean.lerp_(mean.float(), self.momentum)
+                self.running_var.lerp_(var.float(), self.momentum)
+        return torch.cat(parts, dim=0).to(x.dtype)
+
+    blocks.BatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        blocks.BatchNorm.forward = real
+
+
+def range_host_ms(prof, name, runs):
+    """Host ms a run inside the profiler range ``name``."""
+    return sum(e.cpu_time_total for e in prof.key_averages()
+               if e.key == name) / (1e3 * runs)
+
+
+def timed_in_turns(runs, batch, draws, rounds):
+    """Host clock of a super-step of each of ``runs`` ({label: steps}),
+    ending in a synchronize, taken in turns (a, b, b, a, ...): {label: ms}."""
+    times = {k: [] for k in runs}
+    labels = list(runs)
+    for r in range(rounds):
+        for label in (labels if r % 2 == 0 else labels[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[label].super_step(batch, draws)
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.mean(v) for k, v in times.items()}
+
+
+def phase_dp_nccl(nk, smi, rounds=2):
+    """18a. NCCL, a group of one (the card's machine has one H100): one
+    full-width f32 AdaIN super-step (SGD, TF32 off) with the group attached
+    (``make_parallel_step``: the gradient all-reduce in every update, the
+    BatchNorm moments all-reduced) against the same step without it:
+    exactly 56/16 launches, losses within rtol 2e-4, G's and E's deltas per
+    tensor within 6c's band (12c's) + F32_CONTROL_FACTOR x the distance the
+    step without the group moves when only its BatchNorm is computed in
+    float64 (the control: the grouped BatchNorm rounds otherwise than
+    cuDNN's, and the stem's convolution, whose gradient sums a zero-mean
+    dx against the images over 10^6 pixels, moves with that rounding
+    alone); G's deltas as a whole within 6d's f32 band. Then what the
+    reductions cost: bf16
+    super-steps with and without the group in turns (host clock), one of
+    each profiled (device time), the device and host time of the ranges
+    ``parallel.grad_all_reduce`` and ``parallel.batch_norm``."""
+    import torch.distributed as dist
+    from de_i2i_gan_torch.config import TrainConfig
+    from de_i2i_gan_torch.parallel.mesh import make_parallel_step
+
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    store = DP_DIR / "nccl_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        tf32_off()
+        tcfg = dp_sgd_config()
+        cfg = full_config(compute_dtype="float32")
+        batch = make_batches(cfg, torch.Generator(device="cuda").manual_seed(SEED + 61))
+        fwd, bwd = expected_launches(cfg, G_FORWARDS_PER_SUPER_STEP,
+                                     G_BACKWARDS_PER_SUPER_STEP)
+        runs = {}
+        for label in ("alone", "group", "float64"):
+            steps = training_steps(cfg, tcfg)
+            before = param_snapshot(steps)
+            if label == "group":
+                make_parallel_step(steps, dist.group.WORLD)
+            torch.cuda.synchronize()
+            nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+            with (batch_norm_in_float64() if label == "float64"
+                  else contextlib.nullcontext()):
+                m = steps.super_step(batch, torch.Generator(device="cuda")
+                                     .manual_seed(SEED + 62))
+            torch.cuda.synchronize()
+            launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+            check(launches == {"fwd": fwd, "bwd": bwd},
+                  f"18a super-step {label} launched {launches}, expected "
+                  f"{fwd}/{bwd}")
+            runs[label] = dict(steps=steps, launches=launches,
+                               metrics={k: v.item() for k, v in m.items()})
+        on, off = runs["group"], runs["alone"]
+        loss = loss_gap(on["metrics"], off["metrics"])
+        lr = {"G": tcfg.lr_g, "E": tcfg.lr_g}
+        gaps = delta_gaps(on["steps"], off["steps"], before, lr)
+        control = delta_gaps(runs["float64"]["steps"], off["steps"], before, lr)
+        over = {k: gaps[k] / (1.0 + F32_CONTROL_FACTOR * control[k])
+                for k in gaps}
+        worst = sorted(over, key=over.get, reverse=True)[:3]
+        whole = rel_l2(g_delta(on["steps"], before["G"], tcfg.lr_g),
+                       g_delta(off["steps"], before["G"], tcfg.lr_g))
+        print(f"18a NCCL group of one, full-width f32 AdaIN SGD super-step "
+              f"with the group vs without: launches {on['launches']}; max "
+              f"loss diff {loss:.3f} x (rtol {LOSS_RTOL}); G's and E's "
+              f"deltas per tensor in units of 6c's band ({GRAD_REL_L2} |ref|"
+              f" + {GRAD_ATOL} sqrt(n)), against 1 + {F32_CONTROL_FACTOR} x "
+              f"the float64-BatchNorm control, the closest to it: "
+              + ", ".join(f"{k} {gaps[k]:.3f} (control {control[k]:.3f})"
+                          for k in worst)
+              + f"; G's deltas relative L2 {whole:.3e} (band "
+              f"{F32_DELTA_BAND}) [{smi}]")
+        check(loss <= 1.0 and max(over.values()) <= 1.0
+              and whole <= F32_DELTA_BAND,
+              f"18a: the grouped super-step differs: losses {loss:.3f}, "
+              f"deltas {max(over.values()):.3f} of their band, G {whole:.3e}")
+        launches = on["launches"]
+        del runs, on, off
+        free_memory()
+
+        # the cost, at the training path's settings (bf16, Adam)
+        tcfg = TrainConfig(batch_size=BATCH, num_critics=CRITICS,
+                           lr=(2e-4, 1e-4))
+        steps = {"alone": training_steps(full_config(), tcfg),
+                 "group": training_steps(full_config(), tcfg)}
+        make_parallel_step(steps["group"], dist.group.WORLD)
+        batch = make_batches(full_config(), torch.Generator(device="cuda")
+                             .manual_seed(SEED + 63))
+        draws = torch.Generator(device="cuda").manual_seed(SEED + 64)
+        timed_in_turns(steps, batch, draws, 1)  # warm-up
+        ms = timed_in_turns(steps, batch, draws, rounds)
+        dev = {}
+        for label, st in steps.items():
+            prof = profiled(lambda: st.super_step(batch, draws), 1)
+            dev[label] = kernel_ms(prof, 1)
+            if label == "group":
+                ranges = {name: (*range_device_ms(prof, name, 1),
+                                 range_host_ms(prof, name, 1))
+                          for name in DP_RANGES}
+                nccl_ms = sum(e.self_device_time_total for e in device_kernels(prof)
+                              if "nccl" in e.key.lower()) / 1e3
+        with collective_clock() as spent:
+            steps["group"].super_step(batch, draws)
+        print(f"18a cost of the reductions (bf16 AdaIN super-step, batch "
+              f"{BATCH}, {CRITICS} critics, Adam): host clock {ms['alone']:.3f} "
+              f"ms alone, {ms['group']:.3f} ms with the group of one "
+              f"({ms['group'] - ms['alone']:+.3f} ms), means of {rounds} in "
+              f"turns; device kernels {dev['alone']:.3f} ms vs "
+              f"{dev['group']:.3f} ms ({dev['group'] - dev['alone']:+.3f} "
+              f"ms), NCCL kernels {nccl_ms:.3f} ms; "
+              + "; ".join(f"{name}: device {f:.3f} ms forward + {b:.3f} ms "
+                          f"backward, host {h:.3f} ms"
+                          for name, (f, b, h) in ranges.items())
+              + f"; {spent['calls']} all-reduces a super-step, "
+              f"{spent['ms']:.3f} ms of host time from a synchronized device "
+              f"[{smi}]")
+        result = dict(launches=launches, ms=ms, dev_ms=dev, nccl_ms=nccl_ms,
+                      ranges=ranges, all_reduces=spent["calls"])
+        del steps
+        free_memory()
+        return result
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_defectgan_rank(state_paths, batch_path, timed):
+    """A rank of 18b: each dtype's state loaded, the group attached and
+    rank 0's state broadcast, one SGD super-step on this rank's rows of the
+    global batch: the launches, G's deltas, the state's digest, the
+    metrics' means over the ranks; then in bf16 ``timed`` = (warm-up,
+    timed) super-steps on the host clock and one with the collectives
+    timed."""
+    from de_i2i_gan_torch.ops.cuda import norm_kernels as nk
+    from de_i2i_gan_torch.parallel.mesh import (
+        make_parallel_step, reduce_metrics, replicate, shard_batch,
+        state_digest)
+    from de_i2i_gan_torch.train.checkpoint import load_train_state
+
+    tf32_off()
+    tcfg = dp_sgd_config()
+    rows = shard_batch(torch.load(batch_path, weights_only=True), batch_axis=1)
+    out = {}
+    for dtype, path in state_paths.items():
+        steps = training_steps(full_config(compute_dtype=dtype), tcfg)
+        load_train_state(steps, torch.load(path, weights_only=True))
+        make_parallel_step(steps)
+        replicate(steps)
+        before = {k: p.detach().float().cpu().clone()
+                  for k, p in steps.G.named_parameters()}
+        torch.cuda.synchronize()
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+        m = steps.super_step(rows)
+        torch.cuda.synchronize()
+        launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+        keys = list(m)
+        means = reduce_metrics([[m[k] for k in keys]])[0].tolist()
+        out[dtype] = dict(launches=launches, digest=state_digest(steps),
+                          delta=g_delta(steps, before, tcfg.lr_g),
+                          metrics=dict(zip(keys, means)))
+        if dtype == "bfloat16":
+            times = []
+            for i in range(sum(timed)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps.super_step(rows)
+                torch.cuda.synchronize()
+                if i >= timed[0]:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            with collective_clock() as spent:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps.super_step(rows)
+                torch.cuda.synchronize()
+                clocked = (time.perf_counter() - t0) * 1e3
+            out["timing"] = dict(ms=statistics.mean(times), times=times,
+                                 all_reduce_ms=spent["ms"],
+                                 all_reduces=spent["calls"],
+                                 clocked_ms=clocked)
+        del steps
+        free_memory()
+    return out
+
+
+def dp_gloo_rank(defectgan, trainers, cli_argvs):
+    """A rank of 18b-18d (one launch: each spawn costs its ranks' start on
+    the card): 18b's DefectGAN work, 18c's trainers, 18d's CLI runs."""
+    return {"defectgan": dp_defectgan_rank(*defectgan),
+            "trainers": dp_trainers_rank(*trainers),
+            "cli": dp_cli_rank(cli_argvs)}
+
+
+def phase_dp_gloo(nk, smi):
+    """18b-18d. Two ranks on cuda:0 over gloo (``distributed.launch``),
+    one launch for all three: 18b's DefectGAN against one process, 18c's
+    other trainers, 18d's train CLI and its resume. Returns their
+    results."""
+    from de_i2i_gan_torch.parallel import distributed
+
+    dg_args, dg_single = prepare_dp_defectgan()
+    sg_args, sg_single = prepare_dp_trainers()
+    cli_argvs = prepare_dp_cli()
+    t0 = time.perf_counter()
+    ranks = distributed.launch(dp_gloo_rank, DP_RANKS, dg_args, sg_args,
+                               cli_argvs)
+    launch_s = time.perf_counter() - t0
+    return (report_dp_defectgan(smi, [r["defectgan"] for r in ranks],
+                                dg_single, launch_s),
+            report_dp_trainers(smi, [r["trainers"] for r in ranks], sg_single),
+            report_dp_cli(smi, [r["cli"] for r in ranks]))
+
+
+def prepare_dp_defectgan():
+    """18b's side in this process: each dtype's state and the global batch
+    written for the ranks, and one process's SGD super-step on that batch
+    from that state. Returns (the ranks' arguments, one process's G deltas
+    and losses by dtype)."""
+    from de_i2i_gan_torch.train.checkpoint import train_state
+
+    tf32_off()
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    tcfg = dp_sgd_config()
+    batch = make_batches(full_config(), torch.Generator(device="cuda")
+                         .manual_seed(SEED + 65))
+    torch.save({k: v.cpu() for k, v in batch.items()}, DP_DIR / "batch.pt")
+    single, paths = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        steps = training_steps(full_config(compute_dtype=dtype), tcfg)
+        paths[dtype] = str(DP_DIR / f"state_{dtype}.pt")
+        torch.save(train_state(steps), paths[dtype])
+        before = {k: p.detach().float().cpu().clone()
+                  for k, p in steps.G.named_parameters()}
+        m = steps.super_step(batch)
+        single[dtype] = dict(delta=g_delta(steps, before, tcfg.lr_g),
+                             metrics={k: v.item() for k, v in m.items()})
+        del steps
+        free_memory()
+    return (paths, str(DP_DIR / "batch.pt"), DP_TIMED), single
+
+
+def report_dp_defectgan(smi, ranks, single, launch_s):
+    """18b. DefectGAN AdaIN at full width, 256^2, global batch 8 (4 a
+    rank), 5 critics, one SGD super-step on two ranks against one process
+    on the same global batch from the same state: the f32 control (TF32
+    off) within 6d's f32 band (relative L2 of G's deltas), bf16's
+    agreement printed; exactly 56/16 launches on each rank; the ranks'
+    states equal bit for bit. Then the host clock of a bf16 super-step,
+    gloo, two ranks on one card (no scaling figure), and the share of it
+    inside the collectives (gloo stages every CUDA tensor through the
+    host)."""
+    fwd, bwd = expected_launches(full_config(), G_FORWARDS_PER_SUPER_STEP,
+                                 G_BACKWARDS_PER_SUPER_STEP)
+    for r, out in enumerate(ranks):
+        for dtype in single:
+            check(out[dtype]["launches"] == {"fwd": fwd, "bwd": bwd},
+                  f"18b rank {r} {dtype} launched {out[dtype]['launches']}, "
+                  f"expected {fwd}/{bwd} a rank")
+    for dtype in single:
+        differ = [k for k, v in ranks[0][dtype]["digest"].items()
+                  if ranks[1][dtype]["digest"][k] != v]
+        check(not differ, f"18b {dtype}: the ranks' states differ at {differ[:5]}")
+    f32 = rel_l2(ranks[0]["float32"]["delta"], single["float32"]["delta"])
+    b16 = rel_l2(ranks[0]["bfloat16"]["delta"], single["bfloat16"]["delta"])
+    b16_f32 = rel_l2(ranks[0]["bfloat16"]["delta"], single["float32"]["delta"])
+    s16_f32 = rel_l2(single["bfloat16"]["delta"], single["float32"]["delta"])
+    loss = loss_gap(ranks[0]["float32"]["metrics"], single["float32"]["metrics"])
+    timing = ranks[0]["timing"]
+    print(f"18b two ranks on cuda:0 over gloo, DefectGAN-256 AdaIN, global "
+          f"batch {BATCH} ({BATCH // 2} a rank), {CRITICS} critics, one SGD "
+          f"super-step against one process on the global batch: G's deltas "
+          f"relative L2 f32 (TF32 off) {f32:.3e} (band {F32_DELTA_BAND}), "
+          f"bf16 {b16:.3e} (bf16 ranks vs f32 one process {b16_f32:.3e}, "
+          f"bf16 vs f32 one process {s16_f32:.3e}); f32 losses max diff "
+          f"{loss:.3f} x (rtol {LOSS_RTOL}); launches a rank "
+          f"{ranks[0]['float32']['launches']}; the ranks' states equal bit "
+          f"for bit [{smi}]")
+    print(f"18b host clock of a bf16 super-step, gloo, two ranks on one card "
+          f"(no scaling figure): {timing['ms']:.3f} ms (mean of "
+          f"{len(timing['times'])}: {[round(t, 1) for t in timing['times']]}); "
+          f"with the collectives timed from a synchronized device, "
+          f"{timing['all_reduce_ms']:.3f} ms of {timing['clocked_ms']:.3f} ms "
+          f"in {timing['all_reduces']} all-reduces "
+          f"({timing['all_reduce_ms'] / timing['clocked_ms']:.1%}); the "
+          f"launch of 18b-18d took {launch_s:.1f} s [{smi}]")
+    check(f32 <= F32_DELTA_BAND and loss <= 1.0,
+          f"18b: two ranks' f32 super-step differs from one process's: G "
+          f"{f32:.3e}, losses {loss:.3f}")
+    return dict(launches=[out["float32"]["launches"] for out in ranks],
+                f32=f32, bf16=b16, timing=timing, launch_s=launch_s)
+
+
+def continued_adam(steps, seed):
+    """Every Adam state of ``steps`` as after many updates (count 100, the
+    first moment drawn around 0, the second around 1e-2): an update is then
+    lr * m / sqrt(nu), continuous in the gradient, where a fresh state with
+    beta1 = 0 moves a weight by about lr * sign(g)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name in steps.STATE_OPTIMIZERS:
+        tx = getattr(steps, f"tx_{name}")
+        if tx is None:
+            continue
+        for p in tx.params:
+            st = tx.opt.state[p]
+            st["step"].fill_(100.0)
+            st["exp_avg"].normal_(0.0, 1e-3, generator=gen)
+            st["exp_avg_sq"].uniform_(0.5e-2, 2e-2, generator=gen)
+
+
+def dp_trainers_rank(sgv2_state, sgv2_batch):
+    """A rank of 18c: StarGAN v2 AdaIN (f32, TF32 off, the continued
+    state): the per-net gradients of one latent D loss and one latent G
+    loss on this rank's rows, averaged over the ranks as ``Optimizer.step``
+    averages them (``distributed.all_reduce_``), then one iteration; one
+    MAE super-step at batch 32, one WGAN clipping super-step at batch 128,
+    one pix2pix super-step at batch 2 (bf16, each from SEED, rank 0's state
+    broadcast, this rank's rows of a global batch made alike on every
+    rank). Each: its launches and its state's digest."""
+    from de_i2i_gan_torch.config import MAEConfig, TrainConfig
+    from de_i2i_gan_torch.ops.cuda import norm_kernels as nk
+    from de_i2i_gan_torch.parallel import distributed
+    from de_i2i_gan_torch.parallel.mesh import (
+        make_parallel_step, replicate, shard_batch, state_digest)
+    from de_i2i_gan_torch.train.checkpoint import load_train_state
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.mae_steps import MAESteps
+
+    tf32_off()
+    out = {}
+
+    def one_step(label, steps, run):
+        make_parallel_step(steps)
+        replicate(steps)
+        torch.cuda.synchronize()
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+        m = run(steps)
+        torch.cuda.synchronize()
+        launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+        check(all(math.isfinite(v.item()) for v in m.values()),
+              f"18c {label}: non-finite loss")
+        out[label] = dict(launches=launches, digest=state_digest(steps))
+
+    solver = sgv2_trainer(sgv2_train_config("adain", compute_dtype="float32"))
+    load_train_state(solver, torch.load(sgv2_state, weights_only=True))
+    rows = shard_batch(torch.load(sgv2_batch, weights_only=True))
+    grads = sgv2_loss_grads(solver, rows)
+    distributed.all_reduce_(list(grads.values()), average=True)
+    one_step("sgv2", solver, lambda s: s.train_step(rows))
+    out["sgv2"]["grads"] = {k: v.cpu() for k, v in grads.items()}
+    del solver, grads
+    free_memory()
+
+    # the global batches alike on every rank; each rank's own draws
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    draws = torch.Generator(device="cuda").manual_seed(
+        distributed.rank_seed(SEED + 74))
+    cfg = full_config()
+    steps = MAESteps(cfg, MAEConfig(), mae_train_config(), device="cuda",
+                     iters_per_epoch=MAE_SYNTHETIC // MAE_BATCH, num_epochs=200)
+    steps.init_training()
+    init_weights(steps, SEED)
+    shape = (1, MAE_BATCH, cfg.image_size, cfg.image_size, 3)
+    batch = {"imgs": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+             "labels": F.one_hot(torch.randint(0, cfg.label_nc, (1, MAE_BATCH),
+                                               generator=gen, device="cuda"),
+                                 cfg.label_nc).float()}
+    one_step("mae", steps, lambda s: s.super_step(
+        shard_batch(batch, batch_axis=1), draws))
+    del steps
+    free_memory()
+
+    wcfg = wgan_config()
+    steps = wgan_steps(wcfg, TrainConfig(batch_size=WGAN_BATCH, num_critics=5,
+                                         lr=(5e-5,), optimizer="rmsprop",
+                                         num_epochs=120))
+    batch = {"imgs": torch.rand((wcfg.num_critics, WGAN_BATCH, 64, 64, 3),
+                                generator=gen, device="cuda") * 2 - 1}
+    one_step("wgan", steps, lambda s: s.super_step(
+        shard_batch(batch, batch_axis=1), draws))
+    del steps
+    free_memory()
+
+    steps = p2p_steps(p2p_config(), p2p_train_config())
+    batch = p2p_batches(P2P_IMAGE, 1, gen, batch=DP_P2P_BATCH)[0]
+    one_step("p2p", steps, lambda s: s.super_step(
+        shard_batch(batch, batch_axis=1), draws))
+    return out
+
+
+def sgv2_loss_grads(solver, batch):
+    """The per-net gradients, flat f32, of one latent D loss (D) and one
+    latent G loss (G, M, S) of ``solver`` on ``batch``: 10c's quantities."""
+    b = solver._batch(batch)
+    out = {}
+    loss, _ = solver.d_loss_fn(b, latent=True)
+    out["D"] = torch.cat([g.float().reshape(-1) for g in torch.autograd.grad(
+        loss, solver.tx_D.params)])
+    loss, _ = solver.g_loss_fn(b, latent=True)
+    nets = {n: list(getattr(solver, n).parameters()) for n in ("G", "M", "S")}
+    flat = torch.autograd.grad(loss, [p for ps in nets.values() for p in ps],
+                               allow_unused=True, materialize_grads=True)
+    start = 0
+    for n, ps in nets.items():
+        out[n] = torch.cat([g.float().reshape(-1)
+                            for g in flat[start:start + len(ps)]])
+        start += len(ps)
+    return out
+
+
+def prepare_dp_trainers():
+    """18c's side in this process: StarGAN v2's continued state and batch
+    written for the ranks; at that state, one process's per-net gradients
+    (``sgv2_loss_grads``) on the global batch and the mean of its
+    gradients on the ranks' two halves. Returns (the ranks' arguments,
+    {"global": ..., "halves": ...})."""
+    from de_i2i_gan_torch.train.checkpoint import train_state
+
+    tf32_off()
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = sgv2_train_config("adain", compute_dtype="float32")
+    solver = sgv2_trainer(cfg)
+    continued_adam(solver, SEED + 72)
+    state = str(DP_DIR / "sgv2_state.pt")
+    torch.save(train_state(solver), state)
+    raw = sgv2_train_batches(cfg, 1, SEED + 73)[0]
+    torch.save({k: v.cpu() for k, v in raw.items()}, DP_DIR / "sgv2_batch.pt")
+    half = SGV2_TRAIN_BATCH // 2
+    single = {"global": sgv2_loss_grads(solver, raw)}
+    parts = [sgv2_loss_grads(solver, {k: v[i * half:(i + 1) * half]
+                                      for k, v in raw.items()})
+             for i in range(2)]
+    single["halves"] = {n: (parts[0][n] + parts[1][n]) / 2 for n in parts[0]}
+    single = {k: {n: g.cpu() for n, g in v.items()} for k, v in single.items()}
+    del solver, parts
+    free_memory()
+    return (state, str(DP_DIR / "sgv2_batch.pt")), single
+
+
+def report_dp_trainers(smi, ranks, single):
+    """18c. The other trainers over two ranks on cuda:0 (gloo), one step
+    each. StarGAN v2 AdaIN at the AFHQ flags, batch 8 (4 a rank), f32 with
+    TF32 off, from a continued Adam state: the per-net gradients of one
+    latent D loss and one latent G loss (10c's), reduced over the ranks,
+    against one process's on the global batch within 10c's f32 band (SGV2_TRAIN_F32_BAND + F32_CONTROL_FACTOR x the control:
+    how far one process's gradient moves when it is taken as the mean of
+    the two halves, the split's own rounding: every convolution runs at
+    batch 4, and G's L1 terms' near-ties flip with it; the distance from
+    that mean is printed too); one iteration, 96/48 launches a rank. MAE
+    at batch 32
+    (16/8), WGAN clipping at batch 128 (0) and pix2pix at batch 2, a batch
+    reduced from the CLI's default of 1, which does not split (0). Every
+    trainer's ranks end with equal states."""
+    f = SGV2_FWD_PER_FORWARD
+    fwd, bwd = SGV2_G_PASSES["adain"]
+    mae_fwd, mae_bwd = expected_launches(full_config(), *MAE_G_PASSES)
+    want = {"sgv2": {"fwd": fwd * f, "bwd": bwd * f},
+            "mae": {"fwd": mae_fwd, "bwd": mae_bwd},
+            "wgan": {"fwd": 0, "bwd": 0}, "p2p": {"fwd": 0, "bwd": 0}}
+    for label, w in want.items():
+        for r, out in enumerate(ranks):
+            check(out[label]["launches"] == w,
+                  f"18c {label} rank {r} launched {out[label]['launches']}, "
+                  f"expected {w}")
+        a, b = ranks[0][label]["digest"], ranks[1][label]["digest"]
+        differ = [k for k in a if a[k] != b[k]]
+        check(not differ, f"18c {label}: the ranks' states differ at {differ[:5]}")
+    got = ranks[0]["sgv2"]["grads"]
+    worst = {}
+    for net, g in got.items():
+        ref, halves = single["global"][net], single["halves"][net]
+        control = rel_l2(halves, ref)
+        band = SGV2_TRAIN_F32_BAND + F32_CONTROL_FACTOR * control
+        gap, exact = rel_l2(g, ref), rel_l2(g, halves)
+        worst[net] = (gap, control, band, exact)
+    print(f"18c two ranks on cuda:0 over gloo, one step each: StarGAN v2 "
+          f"AdaIN (AFHQ flags, batch {SGV2_TRAIN_BATCH}, f32, TF32 off), "
+          f"the latent D and G losses' gradients reduced over the ranks, "
+          f"relative L2 against one process's mean of the halves / its "
+          f"global batch (the control, the band): " + ", ".join(
+              f"{k} {e:.3e} / {g:.3e} ({c:.3e}, {b:.3e})"
+              for k, (g, c, b, e) in worst.items())
+          + f"; launches a rank: " + ", ".join(
+              f"{k} {ranks[0][k]['launches']}" for k in want)
+          + f" (pix2pix at batch {DP_P2P_BATCH}: its default 1 does not "
+          f"split); the ranks' states equal bit for bit [{smi}]")
+    for net, (gap, control, band, exact) in worst.items():
+        check(gap <= band, f"18c sgv2 {net}'s gradient is {gap:.3e} from one "
+              f"process's on the global batch, outside {band:.3e} (from the "
+              f"mean of its halves: {exact:.3e})")
+    return {label: [out[label]["launches"] for out in ranks] for label in want}
+
+
+def dp_cli_rank(argvs):
+    """A rank of 18d: ``cli.train_defectgan.main`` for each of ``argvs``
+    (the process is a rank already, so the CLI trains on it): each run's
+    launches, state digest and seconds."""
+    from de_i2i_gan_torch.cli.train_defectgan import main
+    from de_i2i_gan_torch.ops.cuda import norm_kernels as nk
+    from de_i2i_gan_torch.parallel.mesh import state_digest
+
+    out = []
+    for argv in argvs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+        trainer = main(argv)
+        torch.cuda.synchronize()
+        out.append(dict(launches={"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES},
+                        digest=state_digest(trainer),
+                        seconds=time.perf_counter() - t0))
+        del trainer
+        free_memory()
+    return out
+
+
+def prepare_dp_cli():
+    """18d's arguments: ``cli.train_defectgan --gpu_ids 0,0 --data_parallel
+    on`` at 8a's flags (AdaIN) but batch DP_CLI_BATCH, for an epoch, then
+    with ``--continue_training``; a fresh checkpoint directory."""
+    shutil.rmtree(CLI_DIR / "ckpt" / "dp", ignore_errors=True)
+    args = cli_args("dp", "--style_norm_block_type", "adain", "--gpu_ids",
+                    "0,0", "--data_parallel", "on", "--batch_size",
+                    str(DP_CLI_BATCH), "--num_epochs", "1")
+    return [args, args + ["--continue_training"]]
+
+
+def report_dp_cli(smi, ranks):
+    """18d. The train CLI run by two ranks on cuda:0 (gloo; each rank calls
+    the CLI's ``main``, which trains on the rank it runs in): an epoch
+    (exactly 56/16 launches a super-step), rank 0 writing the checkpoint;
+    then ``--continue_training`` going on from it (epoch 1 again: the JAX
+    trainer's resume restarts at the recorded epoch); each run's ranks end
+    with equal states."""
+    from de_i2i_gan_torch.train.checkpoint import read_checkpoint, read_iter_record
+
+    super_steps = (512 // 2 // (DP_CLI_BATCH // 2)) // CRITICS
+    fwd, bwd = expected_launches(full_config(), G_FORWARDS_PER_SUPER_STEP,
+                                 G_BACKWARDS_PER_SUPER_STEP)
+    want = {"fwd": super_steps * fwd, "bwd": super_steps * bwd}
+    for r, runs in enumerate(ranks):
+        for i, run in enumerate(runs):
+            check(run["launches"] == want, f"18d rank {r} run {i} launched "
+                  f"{run['launches']}, expected {want}")
+    for i in range(2):
+        a, b = ranks[0][i]["digest"], ranks[1][i]["digest"]
+        differ = [k for k in a if a[k] != b[k]]
+        check(not differ, f"18d run {i}: the ranks' states differ at {differ[:5]}")
+    saved = read_checkpoint(CLI_DIR / "ckpt", "dp", "latest")
+    epoch, iters = read_iter_record(CLI_DIR / "ckpt", "dp")
+    step1, step2 = (ranks[0][i]["digest"]["step"] for i in range(2))
+    check(saved["step"] == step2 == 2 * step1 == 2 * super_steps * CRITICS
+          and (epoch, iters) == (1, 2 * super_steps * CRITICS),
+          f"18d: steps {step1}, {step2}, saved {saved['step']}, iter.txt "
+          f"{epoch},{iters}")
+    print(f"18d cli.train_defectgan --gpu_ids 0,0 --data_parallel on "
+          f"--batch_size {DP_CLI_BATCH} on two ranks: an epoch of "
+          f"{super_steps} super-steps a rank in "
+          f"{ranks[0][0]['seconds']:.1f} s (TensorBoard's import and the "
+          f"nets' build included), the resume (epoch 1 again, as in JAX) in "
+          f"{ranks[0][1]['seconds']:.1f} s; launches a rank a run "
+          f"{ranks[0][0]['launches']}; checkpoint steps {step1} and {step2}; "
+          f"the ranks' states equal bit for bit after each run [{smi}]")
+    return dict(launches=[[run["launches"] for run in runs] for runs in ranks],
+                seconds=[run["seconds"] for run in ranks[0]])
 
 
 def main() -> int:
@@ -5381,6 +6082,16 @@ def main() -> int:
     metric_clis = phase_metric_clis(nk, smi)
     metrics_s = time.perf_counter() - metrics_started
 
+    # 18. data parallel: NCCL, a group of one (18a); two ranks on cuda:0
+    # over gloo, DefectGAN against one process (18b), the other trainers
+    # (18c), the train CLI and its resume (18d)
+    dp_started = time.perf_counter()
+    dp_nccl = phase_dp_nccl(nk, smi)
+    dp_split = {"18a": time.perf_counter() - dp_started}
+    dp_gloo, dp_trainers, dp_cli = phase_dp_gloo(nk, smi)
+    dp_s = time.perf_counter() - dp_started
+    dp_split["18b-d"] = dp_s - sum(dp_split.values())
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
@@ -5409,7 +6120,16 @@ def main() -> int:
              "sgv2_celeba_cli": celeba, "align_cli": align,
              **export["paths"], "folder_1024": folder,
              "sgv2_video": video["video"], "sgv2_grids": video["grids"],
-             "metric_nets": metric_nets, **metric_clis}
+             "metric_nets": metric_nets, **metric_clis,
+             "dp_nccl_group_of_one": dp_nccl,
+             **{f"dp_gloo_defectgan_rank{r}": {"launches": n}
+                for r, n in enumerate(dp_gloo["launches"])},
+             **{f"dp_gloo_{label}_rank{r}": {"launches": n}
+                for label, per_rank in dp_trainers.items()
+                for r, n in enumerate(per_rank)},
+             **{f"dp_cli_rank{r}_run{i}": {"launches": n}
+                for r, runs in enumerate(dp_cli["launches"])
+                for i, n in enumerate(runs)}}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
@@ -5628,7 +6348,8 @@ def main() -> int:
           f"12 {p2p_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in p2p_split.items())}), "
           f"13 {wgan_s:.1f} s, 14 {vit_s:.1f} s, 15 {fan_s:.1f} s, 16 "
           f"{deploy_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in deploy_split.items())}), "
-          f"17 {metrics_s:.1f} s")
+          f"17 {metrics_s:.1f} s, 18 {dp_s:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in dp_split.items())})")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -76,7 +76,7 @@ def _validate(path: Path, direct_fn, args) -> dict:
 
 def _export_defectgan(argv, rest) -> dict:
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_defectgan_config, to_train_config)
+        Options, device_of, to_defectgan_config, to_train_config)
     from de_i2i_gan_torch.serving import (
         defectgan_example_args, defectgan_serving_module,
         export_defectgan_generator, save_exported)
@@ -85,7 +85,6 @@ def _export_defectgan(argv, rest) -> dict:
     from de_i2i_gan_torch.train.steps import DefectGanSteps
 
     opt = Options("defectgan_test").parse(rest, save=False)
-    check_ported(opt)
     cfg = to_defectgan_config(opt)
     name = opt.load_model_name or opt.name
     default = "cpu" if device_of(opt) == "cpu" else "cuda"

@@ -35,6 +35,13 @@ nets (InceptionV3, LPIPS) run from weights drawn from a seed, as no
 pretrained file is in the repository: their numbers exercise the flow and
 mean nothing.
 
+Data parallel (``parallel/``), in train, pretrain and update_stats modes:
+``--num_devices N`` (with ``--device cpu``: N CPU ranks over gloo) spawns
+one process a device, each a rank that takes its rows of every global
+batch of ``--batch_size``; under ``torchrun`` each process is one rank.
+``--data_parallel`` decides as in the DefectGAN CLIs. The frozen ViT and FAN
+stay local on each rank.
+
 SEAN's fetcher embeds the reference stacks with a frozen ViT-B/16 (f32): the
 HF checkpoint of ``--vit_path``, which also joins the G loss (lambda_sty on
 x_fake, in the compute dtype), or one drawn from a seed, with a warning and
@@ -51,9 +58,7 @@ the mode's own, strictly but for update_stats (the JAX CLI reads
 ``<dir>/starganv2_pretrain/<%06d --pretrain_iter | latest>_state.pt`` by the
 filtered restore: G and ``ema_G`` take the pretrained generator, D, M, S
 and their EMA nets, optimizers and step what matches; the mask token is left
-out. It takes every flag of the JAX CLI; a mode or flag whose feature the
-port does not have yet raises ``NotImplementedError`` naming the ROADMAP
-item it waits for.
+out. It takes every flag of the JAX CLI.
 """
 from __future__ import annotations
 
@@ -152,8 +157,12 @@ def build_parser():
                         "alternating schedule")
     p.add_argument("--data_parallel", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="'auto' runs on the one device; 'on' (the batch "
-                        "sharded over several) waits for ROADMAP A.9")
+                   help="shard the batch over the visible devices, one "
+                        "process each ('auto': when more than one is "
+                        "visible and the batch divides them)")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="devices to shard the batch over (default: all; "
+                        "with --device cpu, CPU ranks)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     # MAE pretrain mode (main.py:171-175)
     p.add_argument("--patch_size", type=int, default=32)
@@ -173,15 +182,6 @@ def build_parser():
 
 PRETRAIN_NAME = "starganv2_pretrain"  # the pretrain mode's checkpoints
 VIT_MODEL_SIZE = "base"  # the frozen ViT of SEAN (ViT-B/16, as the JAX CLI)
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a mode or flag whose feature the
-    port does not have yet, naming the ROADMAP item it waits for."""
-    if args.data_parallel == "on":
-        raise NotImplementedError(
-            "--data_parallel on is not ported to the PyTorch package yet "
-            "(ROADMAP A.9)")
 
 
 def to_config(args):
@@ -280,15 +280,47 @@ def make_train_fetcher(args, img_dir, transform, solver=None):
                             args.seed)
 
 
+def _rows(fetcher):
+    """This rank's rows of each global batch of ``fetcher`` (every batch
+    whole without a group)."""
+    from de_i2i_gan_torch.parallel.mesh import shard_batch
+    for batch in fetcher:
+        yield shard_batch(batch)
+
+
+def _save(args, solver, run_name, tag) -> None:
+    """Rank 0 writes the checkpoint ``tag``; every rank calls this."""
+    from de_i2i_gan_torch.parallel import distributed
+    from de_i2i_gan_torch.parallel.mesh import sync_running_styles
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+
+    sync_running_styles(solver)
+    if distributed.is_primary():
+        save_checkpoint(args.checkpoint_dir, run_name, tag, solver)
+    distributed.barrier()
+
+
+def _add_metrics(running, metrics) -> None:
+    """Add the iteration's metrics (their means over the ranks, in one
+    all-reduce) to the running sums."""
+    from de_i2i_gan_torch.parallel.mesh import reduce_metrics
+    keys = list(metrics)
+    for k, v in zip(keys, reduce_metrics([[metrics[k] for k in keys]])[0]
+                    .tolist()):
+        running[k] += v
+
+
 def train(args, solver) -> None:
     """The training loop (main.py / solver.py:258-349): fetcher ->
     device_prefetch -> ``train_step``, SEAN's statistics, running-mean
-    prints, debug grids, checkpoints, ``latest`` at the end."""
+    prints, debug grids, checkpoints, ``latest`` at the end. Each rank of a
+    group takes its rows of every global batch; rank 0 prints, draws and
+    writes."""
     import torch
 
     from de_i2i_gan_torch.data.pipeline import device_prefetch
     from de_i2i_gan_torch.data.transforms import EvalTransform, TrainTransform
-    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.parallel import distributed
 
     tf = TrainTransform(args.img_size, jitter=False, vflip=False,
                         randcrop_prob=args.randcrop_prob)
@@ -302,44 +334,47 @@ def train(args, solver) -> None:
     else:
         inputs_val = next(fetcher)
 
-    # DiffAugment draws; the JAX CLI's PRNGKey(seed) stream
-    generator = torch.Generator(device=solver.device).manual_seed(args.seed)
+    # DiffAugment draws; the JAX CLI's PRNGKey(seed) stream on rank 0
+    generator = torch.Generator(device=solver.device).manual_seed(
+        distributed.rank_seed(args.seed))
     running = defaultdict(float)
-    feed = device_prefetch(fetcher, solver.device)
+    feed = device_prefetch(_rows(fetcher), solver.device)
     try:
         for i, batch in zip(range(args.resume_iter, args.total_iters), feed):
             run_iteration(args, solver, i, batch, generator, running,
                           inputs_val)
     finally:
         feed.close()  # stops the prefetch thread
-    save_checkpoint(args.checkpoint_dir, "starganv2", "latest", solver)
+    _save(args, solver, "starganv2", "latest")
 
 
 def run_iteration(args, solver, i, batch, generator, running, inputs_val):
     """Iteration ``i``: the step, then what the loop does at its cadences."""
-    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.parallel import distributed
     from de_i2i_gan_torch.utils.translate import debug_image
 
     metrics = solver.train_step(batch, generator)
     if solver.cfg.norm_type == "sean" and \
             (i + 1) % max(args.update_sean_every, 1) == 0:
         solver.update_sean_stats()
-    for k, v in metrics.items():
-        running[k] += float(v)
+    _add_metrics(running, metrics)
+    primary = distributed.is_primary()
     if (i + 1) % args.print_every == 0:
         log = " ".join(f"{k}: [{running[k] / args.print_every:.4f}]"
                        for k in sorted(running))
-        print(f"Iteration [{i + 1}/{args.total_iters}] {log}")
+        if primary:
+            print(f"Iteration [{i + 1}/{args.total_iters}] {log}")
         running.clear()
-    if (i + 1) % args.sample_every == 0:
+    if (i + 1) % args.sample_every == 0 and primary:
         debug_image(solver, inputs_val, i + 1, args.sample_dir)
     if (i + 1) % args.save_every == 0:
-        save_checkpoint(args.checkpoint_dir, "starganv2", f"{i + 1:06d}",
-                        solver)
+        _save(args, solver, "starganv2", f"{i + 1:06d}")
     if (i + 1) % args.eval_every == 0:
-        # in-training metrics (core/solver.py:346-349)
+        # in-training metrics (core/solver.py:346-349), on rank 0
         from de_i2i_gan_torch.metrics.eval_starganv2 import evaluate_all_tasks
-        evaluate_all_tasks(solver, args, step=i + 1)
+        if primary:
+            evaluate_all_tasks(solver, args, step=i + 1)
+        distributed.barrier()
 
 
 def pretrain(args, solver) -> None:
@@ -350,30 +385,29 @@ def pretrain(args, solver) -> None:
 
     from de_i2i_gan_torch.data.pipeline import device_prefetch
     from de_i2i_gan_torch.data.transforms import TrainTransform
-    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.parallel import distributed
 
     tf = TrainTransform(args.img_size, jitter=False, vflip=False)
     fetcher = make_train_fetcher(args, args.train_img_dir, tf, solver)
-    # the masks' draws; the JAX CLI's PRNGKey(seed) stream
-    generator = torch.Generator(device=solver.device).manual_seed(args.seed)
+    # the masks' draws; the JAX CLI's PRNGKey(seed) stream on rank 0
+    generator = torch.Generator(device=solver.device).manual_seed(
+        distributed.rank_seed(args.seed))
     running = defaultdict(float)
-    feed = device_prefetch(fetcher, solver.device)
+    feed = device_prefetch(_rows(fetcher), solver.device)
     try:
         for i, batch in zip(range(args.resume_iter, args.total_iters), feed):
-            metrics = solver.pretrain_step(batch, generator)
-            for k, v in metrics.items():
-                running[k] += float(v)
+            _add_metrics(running, solver.pretrain_step(batch, generator))
             if (i + 1) % args.print_every == 0:
                 log = " ".join(f"{k}: [{running[k] / args.print_every:.4f}]"
                                for k in sorted(running))
-                print(f"Pretrain [{i + 1}/{args.total_iters}] {log}")
+                if distributed.is_primary():
+                    print(f"Pretrain [{i + 1}/{args.total_iters}] {log}")
                 running.clear()
             if (i + 1) % args.save_every == 0:
-                save_checkpoint(args.checkpoint_dir, PRETRAIN_NAME,
-                                f"{i + 1:06d}", solver)
+                _save(args, solver, PRETRAIN_NAME, f"{i + 1:06d}")
     finally:
         feed.close()  # stops the prefetch thread
-    save_checkpoint(args.checkpoint_dir, PRETRAIN_NAME, "latest", solver)
+    _save(args, solver, PRETRAIN_NAME, "latest")
 
 
 def sample(args, solver) -> None:
@@ -433,9 +467,12 @@ def update_stats(args, solver) -> None:
     """Sweep the EMA generator with its statistics tracked until every
     domain has ``--num_stats_samples`` styles (solver.py:379-406), over the
     SEAN fetcher of ``--val_img_dir``; finalize and save the checkpoint
-    ``stats_updated``."""
+    ``stats_updated``. Each rank of a group tracks its rows of every
+    global batch and counts the global batch's domains, so every rank
+    stops after the same batch; the finalize sums the ranks' codes."""
     from de_i2i_gan_torch.data.transforms import TrainTransform
-    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.parallel import distributed
+    from de_i2i_gan_torch.parallel.mesh import shard_batch
 
     if args.norm_type != "sean":
         raise SystemExit("--mode update_stats: only SEAN needs to update stats")
@@ -444,13 +481,16 @@ def update_stats(args, solver) -> None:
     counts = np.zeros(args.num_domains, np.int64)
     while counts.min() < args.num_stats_samples:
         batch = next(fetcher)
-        solver.track_stats_step(batch["x_src"], batch["s_ref"], batch["y_ref"])
+        rows = shard_batch(batch)
+        solver.track_stats_step(rows["x_src"], rows["s_ref"], rows["y_ref"])
         np.add.at(counts, np.asarray(batch["y_ref"]), 1)
-        print(dict(enumerate(counts.tolist())))
+        if distributed.is_primary():
+            print(dict(enumerate(counts.tolist())))
     solver.finalize_ema_stats()
-    save_checkpoint(args.checkpoint_dir, "starganv2", "stats_updated", solver)
-    print(f"running styles updated; checkpoint saved under "
-          f"{args.checkpoint_dir}")
+    _save(args, solver, "starganv2", "stats_updated")
+    if distributed.is_primary():
+        print(f"running styles updated; checkpoint saved under "
+              f"{args.checkpoint_dir}")
 
 
 def align_faces(args) -> list:
@@ -484,19 +524,41 @@ def align_faces(args) -> list:
     return written
 
 
+DATA_PARALLEL_MODES = ("train", "pretrain", "update_stats")
+
+
 def main(argv=None):
-    """Run a mode; returns the solver (align mode: the written paths)."""
+    """Run a mode; returns the solver (align mode: the written paths; over
+    spawned ranks: each rank's ``parallel/mesh.py::state_digest``)."""
+    from de_i2i_gan_torch.parallel.mesh import mesh_from_flag, run
+
+    args = build_parser().parse_args(argv)
+    if args.mode == "align":
+        # offline alignment: the frozen FAN and the mean landmarks alone
+        return align_faces(args)
+    mesh = None
+    if args.mode in DATA_PARALLEL_MODES:
+        gpu_ids = "-1" if args.device == "cpu" else "0"
+        mesh = mesh_from_flag(args.data_parallel, args.batch_size, gpu_ids,
+                              args.num_devices)
+    return run(run_mode, mesh, args)
+
+
+def run_mode(args, mesh=None):
+    """The mode of ``args`` on this process's device; with ``mesh``, as one
+    rank of its group (the solver's state broadcast from rank 0 after init,
+    resume and warm start)."""
     from de_i2i_gan_torch.models.wing import make_fan
+    from de_i2i_gan_torch.parallel import distributed
+    from de_i2i_gan_torch.parallel.mesh import make_parallel_step, replicate
     from de_i2i_gan_torch.train.checkpoint import load_checkpoint
     from de_i2i_gan_torch.train.jax_import import init_starganv2_weights
     from de_i2i_gan_torch.train.solver import StarGANv2Solver
 
-    args = build_parser().parse_args(argv)
-    check_ported(args)
-    if args.mode == "align":
-        # offline alignment: the frozen FAN and the mean landmarks alone
-        return align_faces(args)
-    solver = StarGANv2Solver(to_config(args), device=args.device)
+    device = args.device if mesh is None else distributed.device()
+    if mesh is not None and distributed.is_primary():
+        print(f"data-parallel over {distributed.world_size()} devices")
+    solver = StarGANv2Solver(to_config(args), device=device)
     if args.mode == "pretrain":
         # the mask token joins G's optimizer (main.py:76-112)
         solver.init_pretrain(args.mask_ratio, args.patch_size,
@@ -509,13 +571,15 @@ def main(argv=None):
                         f"{args.resume_iter:06d}", solver,
                         strict=args.mode != "update_stats")
     if args.wing_ckpt is not None and args.w_hpf > 0 and args.mode == "train":
-        solver.set_frozen_nets(fan=make_fan(args.device,
-                                            wing_ckpt=args.wing_ckpt))
+        solver.set_frozen_nets(fan=make_fan(device, wing_ckpt=args.wing_ckpt))
     if args.mode == "train" and args.pretrain_dir is not None:
         # MAE warm start (solver.py:57-69, 236-240): the filtered restore
         tag = f"{args.pretrain_iter:06d}" if args.pretrain_iter else "latest"
         load_checkpoint(args.pretrain_dir, PRETRAIN_NAME, tag, solver,
                         strict=False)
+    if mesh is not None:
+        make_parallel_step(solver)
+        replicate(solver)
     if args.mode == "train":
         train(args, solver)
     elif args.mode == "pretrain":

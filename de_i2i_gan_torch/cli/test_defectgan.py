@@ -65,7 +65,7 @@ def main(argv=None):
     --cal_clf, the classifier accuracy."""
     from de_i2i_gan_torch.cli.train_defectgan import build_datasets
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_defectgan_config, to_train_config)
+        Options, device_of, to_defectgan_config, to_train_config)
     from de_i2i_gan_torch.data.pipeline import DataLoader, InfiniteLoader
     from de_i2i_gan_torch.data.transforms import EvalTransform
     from de_i2i_gan_torch.metrics.evaluator import defectgan_generator_fn
@@ -74,7 +74,6 @@ def main(argv=None):
     from de_i2i_gan_torch.train.steps import DefectGanSteps
 
     opt = Options("defectgan_test").parse(argv)
-    check_ported(opt)
     cfg = to_defectgan_config(opt)
     datasets, clf_loss_type = build_datasets(
         opt, "test", EvalTransform(opt.image_size))

@@ -25,7 +25,7 @@ def main(argv=None):
     from de_i2i_gan_torch.cli.test_defectgan import _save_image
     from de_i2i_gan_torch.cli.train_defectgan import build_datasets
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_defectgan_config, to_mae_config,
+        Options, device_of, to_defectgan_config, to_mae_config,
         to_train_config)
     from de_i2i_gan_torch.data.pipeline import DataLoader
     from de_i2i_gan_torch.data.transforms import EvalTransform
@@ -34,7 +34,6 @@ def main(argv=None):
     from de_i2i_gan_torch.train.mae_steps import MAESteps
 
     opt = Options("mae_test").parse(argv)
-    check_ported(opt)
     cfg = to_defectgan_config(opt)
     mcfg = to_mae_config(opt)
     datasets, clf = build_datasets(opt, "test", EvalTransform(opt.image_size))

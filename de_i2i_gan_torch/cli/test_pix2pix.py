@@ -25,7 +25,7 @@ def main(argv=None):
     """Test; returns the results, with ``pngs`` the panels written."""
     from de_i2i_gan_torch.cli.train_pix2pix import build_dataset
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_pix2pix_config, to_train_config)
+        Options, device_of, to_pix2pix_config, to_train_config)
     from de_i2i_gan_torch.data.paired import PairedLoader
     from de_i2i_gan_torch.train.checkpoint import load_checkpoint
     from de_i2i_gan_torch.train.jax_import import init_weights
@@ -33,7 +33,6 @@ def main(argv=None):
     from de_i2i_gan_torch.utils.png import write_png
 
     opt = Options("pix2pix_test").parse(argv, save=False)
-    check_ported(opt)
     cfg = to_pix2pix_config(opt)
     tcfg = to_train_config(opt)
     num_d = opt.num_D if opt.netD == "multiscale" else 1

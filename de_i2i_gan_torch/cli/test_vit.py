@@ -36,7 +36,7 @@ def main(argv=None):
 
     from de_i2i_gan_torch.cli.train_vit import build_backbone
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_train_config)
+        Options, device_of, to_train_config)
     from de_i2i_gan_torch.data.datasets import find_dataset_using_name
     from de_i2i_gan_torch.data.pipeline import DataLoader
     from de_i2i_gan_torch.data.transforms import TrainTransform
@@ -45,7 +45,6 @@ def main(argv=None):
     from de_i2i_gan_torch.train.vit_steps import ViTSteps, dump_embeddings
 
     opt = Options("vit_test").parse(argv)
-    check_ported(opt)
     opt.label_nc = getattr(opt, "label_nc", 6)
     cls = find_dataset_using_name(opt.dataset_name)
     if opt.dataset_name == "synthetic":

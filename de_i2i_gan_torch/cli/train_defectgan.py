@@ -22,6 +22,13 @@ the untransformed images under ``--native_cache_dir``, by default
 the generator on the validation split every ``--save_ckpt_freq`` epochs
 (``metrics/evaluator.py``, nets drawn from a seed, so the numbers mean
 nothing) into ``<ckpt_dir>/<name>/val_metrics_<epoch>.json``.
+
+Data parallel (``parallel/``): ``--num_devices N`` or ``--gpu_ids a,b``
+spawn one process a device (``--gpu_ids -1 --num_devices N``: N CPU ranks
+over gloo), each a rank that trains on its shard of the data with its share
+of ``--batch_size``; ``--data_parallel on`` insists, ``off`` refuses, and
+``auto`` spreads when more than one device is visible and the batch divides
+them. Under ``torchrun`` each process is one rank.
 """
 from __future__ import annotations
 
@@ -86,19 +93,39 @@ def make_val_fn(opt, cfg, device):
 
 
 def main(argv=None):
-    """Train; returns the trainer."""
+    """Train; returns the trainer (over spawned ranks: each rank's
+    ``parallel/mesh.py::state_digest``)."""
+    from de_i2i_gan_torch.config.options import parse_for_ranks
+    from de_i2i_gan_torch.parallel.mesh import mesh_from_flag, run
+
+    opt = parse_for_ranks("defectgan_train", argv)
+    mesh = mesh_from_flag(opt.data_parallel, opt.batch_size, opt.gpu_ids,
+                          opt.num_devices)
+    return run(train, mesh, opt)
+
+
+def train(opt, mesh=None):
+    """The run of ``opt`` on this process's device: every rank of ``mesh``
+    trains on its shard of the data (``shard_for_process``), feeding its
+    share of ``--batch_size``; the native feed caches each rank's shard
+    under ``proc<rank>``."""
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_defectgan_config, to_train_config)
+        device_of, to_defectgan_config, to_train_config)
+    from de_i2i_gan_torch.data.datasets import shard_for_process
     from de_i2i_gan_torch.data.pipeline import DataLoader, DualStreamLoader
     from de_i2i_gan_torch.data.transforms import TrainTransform
+    from de_i2i_gan_torch.parallel import distributed
     from de_i2i_gan_torch.train.trainer import DefectGanTrainer
     from de_i2i_gan_torch.utils.seed import fix_rand_seed
 
-    opt = Options("defectgan_train").parse(argv)
-    check_ported(opt)
     fix_rand_seed(opt.seed)
+    if mesh is not None and distributed.is_primary():
+        print(f"data-parallel over {distributed.world_size()} devices")
+    batch = opt.batch_size // distributed.local_ranks()  # this rank's rows
     transform = TrainTransform(opt.image_size)
     datasets, clf_loss_type = build_datasets(opt, "train", transform)
+    if distributed.world_size() > 1:
+        datasets = {k: shard_for_process(v) for k, v in datasets.items()}
     cfg = to_defectgan_config(opt)
     tcfg = to_train_config(opt, clf_loss_type)
 
@@ -107,15 +134,18 @@ def main(argv=None):
         # cache the untransformed images; the C++ side owns crop, flips and
         # jitter and fills contiguous u8 super-batches in place
         raw, _ = build_datasets(opt, "train", None)
-        root = opt.native_cache_dir or (
-            Path(opt.ckpt_dir) / "native_cache" / opt.name)
+        root = Path(opt.native_cache_dir or (
+            Path(opt.ckpt_dir) / "native_cache" / opt.name))
+        if distributed.world_size() > 1:
+            # each rank caches its own shard, in a directory of its own
+            raw = {k: shard_for_process(v) for k, v in raw.items()}
+            root = root / f"proc{distributed.rank()}"
         loader = make_native_dual_stream(
             raw["defects"], raw["background"], root, opt.image_size,
-            opt.batch_size, tcfg.num_critics, seed=opt.seed)
+            batch, tcfg.num_critics, seed=opt.seed)
     else:
-        df_loader = DataLoader(datasets["defects"], opt.batch_size,
-                               seed=opt.seed)
-        bg_loader = DataLoader(datasets["background"], opt.batch_size,
+        df_loader = DataLoader(datasets["defects"], batch, seed=opt.seed)
+        bg_loader = DataLoader(datasets["background"], batch,
                                seed=opt.seed + 1)
         loader = DualStreamLoader(df_loader, bg_loader, tcfg.num_critics)
     print(f"{len(datasets['defects'])} defect / "
@@ -138,9 +168,11 @@ def main(argv=None):
         load_model_name=opt.load_model_name, which_epoch=opt.which_epoch,
         save_latest_freq=opt.save_latest_freq,
         save_ckpt_freq=opt.save_ckpt_freq, seed=opt.seed,
-        embed_bank=embed_bank, device=device_of(opt))
+        embed_bank=embed_bank,
+        device=device_of(opt) if mesh is None else distributed.device(),
+        mesh=mesh)
     val_fn = (make_val_fn(opt, cfg, trainer.steps.device)
-              if opt.val_metrics else None)
+              if opt.val_metrics and distributed.is_primary() else None)
     trainer.train(loader, val_fn=val_fn)
     if opt.native_loader:
         loader.close()  # every epoch has drained it: no thread is inside

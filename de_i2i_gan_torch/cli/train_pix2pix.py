@@ -52,20 +52,37 @@ def build_dataset(opt, phase: str):
 
 
 def main(argv=None):
-    """Train; returns the trainer."""
+    """Train; returns the trainer (over spawned ranks: each rank's
+    ``parallel/mesh.py::state_digest``)."""
+    from de_i2i_gan_torch.config.options import parse_for_ranks
+    from de_i2i_gan_torch.parallel.mesh import mesh_from_flag, run
+
+    opt = parse_for_ranks("pix2pix_train", argv)
+    mesh = mesh_from_flag(opt.data_parallel, opt.batch_size, opt.gpu_ids,
+                          opt.num_devices)
+    return run(train, mesh, opt)
+
+
+def train(opt, mesh=None):
+    """The run of ``opt`` on this process's device; every rank of ``mesh``
+    on its shard of the pairs with its share of ``--batch_size``."""
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_pix2pix_config, to_train_config)
+        device_of, to_pix2pix_config, to_train_config)
+    from de_i2i_gan_torch.data.datasets import shard_for_process
     from de_i2i_gan_torch.data.paired import PairedLoader
+    from de_i2i_gan_torch.parallel import distributed
     from de_i2i_gan_torch.train.trainer import Pix2PixTrainer
     from de_i2i_gan_torch.utils.seed import fix_rand_seed
 
-    opt = Options("pix2pix_train").parse(argv)
-    check_ported(opt)
     fix_rand_seed(opt.seed)
+    batch = opt.batch_size // distributed.local_ranks()  # this rank's rows
+    sharded = distributed.world_size() > 1
     cfg = to_pix2pix_config(opt)
     tcfg = to_train_config(opt)
     ipl = max(opt.iters_per_launch, 1)
     dataset = build_dataset(opt, "train")
+    if sharded:
+        dataset = shard_for_process(dataset)
     num_d = opt.num_D if opt.netD == "multiscale" else 1
     if opt.native_loader:
         from de_i2i_gan_torch.runtime.native_loader import make_paired_native_loader
@@ -78,13 +95,16 @@ def main(argv=None):
             inner.load_size = opt.load_size
             inner.crop_size = opt.load_size
             inner.flip = False
-        root = opt.native_cache_dir or (
-            Path(opt.ckpt_dir) / "native_cache" / opt.name)
+        root = Path(opt.native_cache_dir or (
+            Path(opt.ckpt_dir) / "native_cache" / opt.name))
+        if sharded:
+            raw = shard_for_process(raw)
+            root = root / f"proc{distributed.rank()}"
         loader = make_paired_native_loader(
-            raw, Path(root) / "pairs", opt.crop_size, opt.batch_size,
+            raw, root / "pairs", opt.crop_size, batch,
             load_size=opt.load_size, seed=opt.seed, iters_per_launch=ipl)
     else:
-        loader = PairedLoader(dataset, opt.batch_size, seed=opt.seed,
+        loader = PairedLoader(dataset, batch, seed=opt.seed,
                               iters_per_launch=ipl)
     print(f"{len(dataset)} paired train images")
 
@@ -96,7 +116,9 @@ def main(argv=None):
         num_epochs=opt.num_epochs, continue_training=opt.continue_training,
         save_latest_freq=opt.save_latest_freq,
         save_ckpt_freq=opt.save_ckpt_freq, save_img_freq=opt.save_img_freq,
-        seed=opt.seed, fused_prop=opt.fused_prop, device=device_of(opt))
+        seed=opt.seed, fused_prop=opt.fused_prop,
+        device=device_of(opt) if mesh is None else distributed.device(),
+        mesh=mesh)
     trainer.train(loader)
     if opt.native_loader:
         loader.close()  # every epoch has drained it: no thread is inside

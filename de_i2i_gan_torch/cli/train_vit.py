@@ -37,7 +37,7 @@ def main(argv=None):
     returns the ``ViTSteps``."""
     from de_i2i_gan_torch.cli.train_defectgan import build_datasets
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_train_config)
+        Options, device_of, to_train_config)
     from de_i2i_gan_torch.data.embeddings import EmbeddingBank
     from de_i2i_gan_torch.data.pipeline import DataLoader
     from de_i2i_gan_torch.data.transforms import TrainTransform
@@ -52,7 +52,6 @@ def main(argv=None):
         argv = argv[:i] + argv[i + 2:]
 
     opt = Options("vit_train").parse(argv)
-    check_ported(opt)
     opt.label_nc = getattr(opt, "label_nc", 6)
     datasets, _ = build_datasets(
         opt, "train", TrainTransform(opt.image_size, jitter=False))

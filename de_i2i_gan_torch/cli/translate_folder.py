@@ -37,7 +37,7 @@ def main(argv=None) -> dict:
 
     from de_i2i_gan_torch.config import TrainConfig
     from de_i2i_gan_torch.config.options import (
-        Options, check_ported, device_of, to_defectgan_config)
+        Options, device_of, to_defectgan_config)
     from de_i2i_gan_torch.data.transforms import EvalTransform
     from de_i2i_gan_torch.train.checkpoint import load_checkpoint
     from de_i2i_gan_torch.train.jax_import import init_weights
@@ -58,7 +58,6 @@ def main(argv=None) -> dict:
             "(ROADMAP A.9)")
 
     opt = Options("defectgan_test").parse(rest, save=False)
-    check_ported(opt)
     cfg = to_defectgan_config(opt)
     if cfg.style_norm_block_type == "adain":
         raise ValueError(

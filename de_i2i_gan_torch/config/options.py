@@ -13,15 +13,16 @@ config dataclasses:
   * printed table of options that differ from defaults
 
 ``--gpu_ids`` picks the device as the reference does: ``-1`` is the CPU,
-one id is that CUDA device. ``to_defectgan_config`` routes the AdaIN and
-SEAN norms through the hand-written kernel (``use_pallas=True``); the
-kernel runs for CUDA tensors only, the plain version on the CPU. Every
-other field is the JAX package's. ``to_pix2pix_config`` builds the
-DefectGAN generator with SPADE, which runs no kernel; the WGAN nets hold
-BatchNorm only. The ViT kinds (``vit_train``, ``vit_test``) take the
-frozen backbone's flags. Flags whose feature is not ported yet raise
-``NotImplementedError`` in ``check_ported``, naming the ROADMAP item they
-wait for.
+one id is that CUDA device, and of a list the first runs whatever does not
+train data-parallel. The training kinds' ``--data_parallel``,
+``--num_devices`` and ``--gpu_ids`` list spread a run over one process a
+device (``parallel/mesh.py::mesh_from_flag``). ``to_defectgan_config``
+routes the AdaIN and SEAN norms through the hand-written kernel
+(``use_pallas=True``); the kernel runs for CUDA tensors only, the plain
+version on the CPU. Every other field is the JAX package's.
+``to_pix2pix_config`` builds the DefectGAN generator with SPADE, which runs
+no kernel; the WGAN nets hold BatchNorm only. The ViT kinds (``vit_train``,
+``vit_test``) take the frozen backbone's flags.
 """
 from __future__ import annotations
 
@@ -64,10 +65,11 @@ def add_base_args(p: argparse.ArgumentParser):
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    help="[bfloat16|float32] on-device compute precision")
     p.add_argument("--gpu_ids", type=str, default="0",
-                   help="CUDA device id, or -1 for the CPU "
-                        "(base_options.py:19)")
+                   help="CUDA device ids (a list: one rank each), or -1 for "
+                        "the CPU (base_options.py:19)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="devices to shard the batch over (one: ROADMAP A.9)")
+                   help="devices to shard the batch over (default: all; "
+                        "with --gpu_ids -1, CPU ranks)")
     return p
 
 
@@ -97,7 +99,9 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--native_cache_dir", type=Path, default=None)
     p.add_argument("--data_parallel", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="one device ('on': ROADMAP A.9)")
+                   help="shard the batch over the visible devices, one "
+                        "process each ('auto': when more than one is "
+                        "visible and the batch divides them)")
     return p
 
 
@@ -328,27 +332,24 @@ class Options:
                 self.parser.set_defaults(**{k: v})
 
 
-# ------------------------------------------------ unported flags, the device
-def check_ported(opt) -> None:
-    """Raise ``NotImplementedError`` for a flag whose feature the port does
-    not have yet, naming the ROADMAP item it waits for."""
-    waits = [
-        (getattr(opt, "data_parallel", "auto") == "on", "--data_parallel on",
-         "A.9"),
-        ((opt.num_devices or 1) > 1, "--num_devices > 1", "A.9"),
-        ("," in opt.gpu_ids.strip(","), "several --gpu_ids", "A.9"),
-    ]
-    for asked, flag, item in waits:
-        if asked:
-            raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch package yet "
-                f"(ROADMAP {item})")
-
-
+# ----------------------------------------------------------------- the device
 def device_of(opt) -> str:
-    """``--gpu_ids -1`` -> the CPU; a device id -> that CUDA device."""
-    gid = int(opt.gpu_ids)
+    """``--gpu_ids -1`` -> the CPU; a device id -> that CUDA device; of a
+    list, the first (JAX accepts a list and ignores it where it takes no
+    mesh: the test CLIs, ``train_vit``)."""
+    gid = int(str(opt.gpu_ids).split(",")[0])
     return "cpu" if gid < 0 else f"cuda:{gid}"
+
+
+def parse_for_ranks(kind: str, argv=None):
+    """``Options(kind).parse(argv)`` for a training CLI that may run as one
+    rank of several: only rank 0 writes ``opt.json``, and
+    ``parallel/mesh.py::run`` hands every rank rank 0's options."""
+    import os
+
+    from de_i2i_gan_torch.parallel import distributed
+    rank = int(os.environ.get("RANK", distributed.rank()))
+    return Options(kind).parse(argv, save=rank == 0)
 
 
 # ------------------------------------------------------- namespace -> configs

@@ -17,8 +17,8 @@ assigns every file in background/ the background label and errors for
 defects without metadata.
 
 Items are (HWC float32 image in [-1,1], one-hot label float32, path).
-The JAX package's ``shard_for_process`` (one slice of the data per host)
-waits for the port's multi-process training (ROADMAP A.9).
+``shard_for_process`` is this rank's contiguous slice of a dataset, for
+data-parallel training with one process a device (``parallel/``).
 """
 from __future__ import annotations
 
@@ -195,3 +195,24 @@ def find_dataset_using_name(name: str):
         return SyntheticDefectDataset
     raise KeyError(f"dataset {name!r} not registered; have "
                    f"{sorted(_REGISTRY) + ['synthetic']}")
+
+
+class _ShardView:
+    """This process's contiguous slice of a map-style dataset (one shard a
+    rank in data-parallel training)."""
+
+    def __init__(self, dataset, sl: slice):
+        self.dataset = dataset
+        self.clf_loss_type = getattr(dataset, "clf_loss_type", "bce")
+        self._indices = range(*sl.indices(len(dataset)))
+
+    def __len__(self):
+        return len(self._indices)
+
+    def __getitem__(self, index: int):
+        return self.dataset[self._indices[index]]
+
+
+def shard_for_process(dataset) -> "_ShardView":
+    from de_i2i_gan_torch.parallel.distributed import process_shard
+    return _ShardView(dataset, process_shard(len(dataset)))

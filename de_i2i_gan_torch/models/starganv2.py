@@ -405,12 +405,17 @@ class StarGANv2Discriminator(nn.Module):
 
 
 @torch.no_grad()
-def sean_v2_update_stats(module: nn.Module, eps: float = 1e-5) -> None:
+def sean_v2_update_stats(module: nn.Module, eps: float = 1e-5,
+                         group=None) -> None:
     """Finalize the running styles of every SEANv2 layer in ``module``, in
     place (model.py:186-201): per domain, the mean and the unbiased std,
     sqrt(var + eps), of the codes tracked since the last call; a domain with
     no tracked code keeps its previous mean and std; the accumulators
-    reset."""
+    reset. With a process ``group`` the ranks' accumulators are summed
+    first (``parallel/mesh.py::reduce_running_styles``)."""
+    if group is not None:
+        from de_i2i_gan_torch.parallel.mesh import reduce_running_styles
+        reduce_running_styles(module, group)
     for m in module.modules():
         if isinstance(m, SEANv2):
             finalize_running_stats(m, eps)

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -66,6 +67,53 @@ class NoiseInjection(nn.Module):
         return x + self.weight.to(x.dtype) * noise
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of ``x`` (f32, (groups, n, C, H, W)) with the
+    moments of the global batch over the ranks of ``group``, as
+    SyncBatchNorm computes them. The forward all-reduces each group's sums
+    and sums of squares of ``x - shift`` and its count (the shift, equal on
+    every rank, keeps E[d^2] - E[d]^2 from cancelling); the backward
+    all-reduces the sums of dy and of dy * xhat, so each rank's dx carries
+    every rank's loss through the moments. The weight's and bias's
+    gradients are this rank's, for the optimizer to average. Returns (y,
+    mean, var), the moments biased and detached."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, shift, eps, group):
+        c = x.shape[2]
+        d = x - shift[None, None, :, None, None]
+        count = x.new_full((x.shape[0], 1), float(x[0, :, 0].numel()))
+        sums = torch.cat([d.sum(dim=(1, 3, 4)), d.square().sum(dim=(1, 3, 4)),
+                          count], dim=1)
+        dist.all_reduce(sums, group=group)
+        total = sums[:, 2 * c:]
+        dmean = sums[:, :c] / total
+        var = (sums[:, c:2 * c] / total - dmean.square()).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (d - dmean[:, None, :, None, None]) * invstd[:, None, :, None, None]
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.total, ctx.group = total, group
+        y = xhat * weight[None, None, :, None, None] + bias[None, None, :, None, None]
+        return y, shift + dmean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, weight = ctx.saved_tensors
+        c = xhat.shape[2]
+        sum_dy = dy.sum(dim=(1, 3, 4))
+        sum_dy_xhat = (dy * xhat).sum(dim=(1, 3, 4))
+        sums = torch.cat([sum_dy, sum_dy_xhat], dim=1)
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy = sums[:, :c] / ctx.total
+        mean_dy_xhat = sums[:, c:] / ctx.total
+        dx = (dy - mean_dy[:, None, :, None, None]
+              - xhat * mean_dy_xhat[:, None, :, None, None]) * (
+            invstd * weight)[:, None, :, None, None]
+        return (dx, sum_dy_xhat.sum(dim=0), sum_dy.sum(dim=0), None, None,
+                None)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm2d (eps 1e-5) as flax's ``nn.BatchNorm(momentum=0.9)``
     computes it, in float32 and rounded once to x's dtype.
@@ -77,9 +125,21 @@ class BatchNorm(nn.Module):
     ``running = 0.9 * running + 0.1 * batch`` with the biased batch
     variance, as flax does. (``F.batch_norm`` would update the running
     variance with the unbiased one, so the update is done here.)
+
+    With a process ``group`` (``parallel/mesh.py::make_parallel_step``) the
+    statistics are the global batch's, as GSPMD computes them: each rank
+    holds its share of every batch group, and ``_GlobalBatchNorm`` sums the
+    f32 sums, sums of squares and counts of its groups over the ranks in
+    one all-reduce, and in the backward pass the sums of the gradient in
+    another. The variance is flax's E[x^2] - E[x]^2, taken about the
+    running mean; the running statistics move from the global moments,
+    equal on every rank. With the parameter gradients averaged by the
+    optimizer, this is SyncBatchNorm's semantics. Its forward runs in the
+    profiler range ``parallel.batch_norm``.
     """
 
     momentum = 0.1  # flax momentum 0.9
+    group = None
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -96,6 +156,9 @@ class BatchNorm(nn.Module):
         if bn_groups < 1 or x.shape[0] % bn_groups:
             raise ValueError(
                 f"batch {x.shape[0]} not divisible into {bn_groups} BN groups")
+        if self.group is not None:
+            with torch.profiler.record_function("parallel.batch_norm"):
+                return self._global(x, bn_groups)
         parts = []
         for part in x.chunk(bn_groups, dim=0):
             parts.append(F.batch_norm(part, None, None, self.weight,
@@ -106,6 +169,18 @@ class BatchNorm(nn.Module):
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
         return parts[0] if bn_groups == 1 else torch.cat(parts, dim=0)
+
+    def _global(self, x: torch.Tensor, bn_groups: int) -> torch.Tensor:
+        """Train mode over the ranks of ``self.group``."""
+        xf = x.float().unflatten(0, (bn_groups, -1))  # (groups, n, C, H, W)
+        y, mean, var = _GlobalBatchNorm.apply(
+            xf, self.weight.float(), self.bias.float(),
+            self.running_mean.detach().clone(), self.eps, self.group)
+        with torch.no_grad():
+            for g in range(bn_groups):
+                self.running_mean.lerp_(mean[g], self.momentum)
+                self.running_var.lerp_(var[g], self.momentum)
+        return y.flatten(0, 1).to(x.dtype)
 
 
 def _norm_layer(norm: Optional[str], features: int):

@@ -221,11 +221,17 @@ class SEAN(nn.Module):
 
 
 @torch.no_grad()
-def sean_update_stats(module: nn.Module, eps: float = 1e-5) -> None:
+def sean_update_stats(module: nn.Module, eps: float = 1e-5,
+                      group=None) -> None:
     """Finalize the running statistics of every SEAN layer in ``module``, in
     place (once an epoch): the mean and the unbiased std, sqrt(var + eps),
     of the codes tracked since the last call; a label combination with no
-    tracked code keeps its previous mean and std; the accumulators reset."""
+    tracked code keeps its previous mean and std; the accumulators reset.
+    With a process ``group`` the ranks' accumulators are summed first
+    (``parallel/mesh.py::reduce_running_styles``)."""
+    if group is not None:
+        from de_i2i_gan_torch.parallel.mesh import reduce_running_styles
+        reduce_running_styles(module, group)
     for m in module.modules():
         if isinstance(m, SEAN):
             finalize_running_stats(m, eps)

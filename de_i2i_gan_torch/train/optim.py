@@ -24,6 +24,7 @@ from typing import Callable, Iterable
 import torch
 
 from de_i2i_gan_torch.config import TrainConfig
+from de_i2i_gan_torch.parallel import distributed
 
 
 def lr_schedule(tcfg: TrainConfig, base_lr: float, iters_per_epoch: int,
@@ -104,7 +105,13 @@ class Optimizer:
     """A torch optimizer whose learning rate follows ``schedule`` of its own
     update count. Its moments exist from the start, zeros at count 0, as
     optax's ``init`` makes them, so a checkpoint or a JAX state can fill
-    them before the first update."""
+    them before the first update. With a process ``group``
+    (``parallel/mesh.py::make_parallel_step``) an update applies the mean
+    of the ranks' gradients: one flattened all-reduce of the network's
+    gradients, the per-network all-reduce GSPMD inserts in the JAX step, in
+    the profiler range ``parallel.grad_all_reduce``."""
+
+    group = None
 
     def __init__(self, opt: torch.optim.Optimizer,
                  schedule: Callable[[int], float]):
@@ -118,6 +125,10 @@ class Optimizer:
     def step(self, grads) -> None:
         """One update from ``grads`` (one per parameter, in order)."""
         lr = self.schedule(self.count)
+        if self.group is not None:
+            with torch.profiler.record_function("parallel.grad_all_reduce"):
+                grads = [g.clone() for g in grads]
+                distributed.all_reduce_(grads, self.group, average=True)
         for p, g in zip(self.params, grads, strict=True):
             p.grad = g
         for group in self.opt.param_groups:

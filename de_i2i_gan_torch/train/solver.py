@@ -124,6 +124,7 @@ class StarGANv2Solver:
     # what a checkpoint holds (train/checkpoint.py::train_state)
     STATE_NETS = ("G", "D", "M", "S", "ema_G", "ema_M", "ema_S")
     STATE_OPTIMIZERS = ("G", "D", "M", "S")
+    dp_group = None  # the ranks' group (parallel/mesh.py::make_parallel_step)
 
     def __init__(self, cfg: StarGANv2Config, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -230,8 +231,9 @@ class StarGANv2Solver:
 
     @torch.inference_mode()
     def finalize_ema_stats(self) -> None:
-        """Finalize the EMA running styles after an update_stats sweep."""
-        sean_v2_update_stats(self.ema_G)
+        """Finalize the EMA running styles after an update_stats sweep (over
+        the ranks' sweeps, with a process group)."""
+        sean_v2_update_stats(self.ema_G, group=self.dp_group)
 
     # ------------------------------------------------------------ training
     def init_training(self) -> None:
@@ -495,8 +497,9 @@ class StarGANv2Solver:
     @torch.no_grad()
     def update_sean_stats(self) -> None:
         """Finalize G's SEAN running styles (solver.py:552), after the
-        iteration's EMA of the statistics."""
-        sean_v2_update_stats(self.G)
+        iteration's EMA of the statistics (over the ranks' codes, with a
+        process group)."""
+        sean_v2_update_stats(self.G, group=self.dp_group)
 
     # ------------------------------------------------------------- pretrain
     def init_pretrain(self, mask_ratio: float = 0.75, patch_size: int = 8,

@@ -73,6 +73,7 @@ class DefectGanSteps:
     and the optimizers ``tx_D``, ``tx_G``, ``tx_E``."""
 
     REINIT_NETS = ("G", "D")  # redrawn for a non-default --init_type
+    dp_group = None  # the ranks' group (parallel/mesh.py::make_parallel_step)
 
     def __init__(self, cfg: DefectGanConfig,
                  tcfg: Optional[TrainConfig] = None,
@@ -310,6 +311,6 @@ class DefectGanSteps:
         finalize SEAN's running statistics when they are tracked."""
         cfg = self.cfg
         if cfg.style_norm_block_type == "sean" and cfg.use_running_stats:
-            sean_update_stats(self.G)
+            sean_update_stats(self.G, group=self.dp_group)
             if self.ema_G is not None:
                 self._sync_ema_state()

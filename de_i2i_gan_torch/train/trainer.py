@@ -29,7 +29,19 @@ writes a 4x4 grid of G's samples of a fixed noise every epoch. Images go to
 TensorBoard when it is installed, and as PNGs (``utils/png.py``) into the
 run's log directory.
 
-The JAX trainers' data-parallel mesh waits for ROADMAP A.9.
+Every trainer takes a ``mesh`` (``parallel/mesh.py``), as the JAX trainers
+do: each process is then one rank of a group, feeds its own rows of the
+per-host batch, and holds a replica of the state, broadcast from rank 0
+after init or resume. Gradients, BatchNorm statistics and SEAN's running
+styles are reduced over the ranks inside the steps
+(``make_parallel_step``); the metrics of a drain are averaged over them in
+one all-reduce before the NaN guard reads them, so every rank accepts or
+rolls back together and the logged values are global-batch means. Each
+rank's generator is seeded so that rank 0 draws what a single process
+draws (``distributed.rank_seed``). Checkpoints, TensorBoard, PNGs, the
+progress bar and validation run on rank 0, the others waiting at a
+barrier; SEAN's running-style accumulators are summed onto rank 0 before
+it writes.
 """
 from __future__ import annotations
 
@@ -46,6 +58,9 @@ from de_i2i_gan_torch.config import (
 from de_i2i_gan_torch.data.embeddings import attach_embeddings
 from de_i2i_gan_torch.data.pipeline import DualStreamLoader, device_prefetch
 from de_i2i_gan_torch.ops.fused import images_to_float
+from de_i2i_gan_torch.parallel import distributed
+from de_i2i_gan_torch.parallel.mesh import (
+    make_parallel_step, reduce_metrics, replicate, sync_running_styles)
 from de_i2i_gan_torch.train.checkpoint import (
     latest_exists, load_checkpoint, read_iter_record, save_checkpoint)
 from de_i2i_gan_torch.train.jax_import import init_weights
@@ -93,6 +108,35 @@ class TBWriter:
             self._w.close()
 
 
+def _parallel(trainer, mesh, batch_size: int, seed: int) -> None:
+    """A trainer's data-parallel wiring, after its steps are built and any
+    checkpoint loaded: the group attached, rank 0's state on every rank,
+    and the rank's generator."""
+    trainer.mesh = mesh
+    if mesh is not None:
+        n_local = distributed.local_ranks()
+        if batch_size % n_local:
+            raise ValueError(f"per-host batch_size {batch_size} not divisible "
+                             f"by {n_local} local mesh devices")
+        make_parallel_step(trainer.steps)
+        replicate(trainer.steps)
+    trainer.generator = torch.Generator(trainer.steps.device).manual_seed(
+        distributed.rank_seed(seed + 1))
+
+
+def _save(trainer, tag, epoch: int, iters: int) -> None:
+    """Rank 0 writes the checkpoint ``tag`` (every rank calls this)."""
+    sync_running_styles(trainer.steps)
+    if distributed.is_primary():
+        save_checkpoint(trainer.ckpt_dir, trainer.name, tag, trainer.steps,
+                        epoch=epoch, iters=iters)
+    distributed.barrier()
+
+
+def _primary_log_dir(log_dir: Optional[Path]) -> Optional[Path]:
+    return log_dir if distributed.is_primary() else None
+
+
 class DefectGanTrainer:
     def __init__(self, cfg: DefectGanConfig, tcfg: TrainConfig, *,
                  name: str = "exp", ckpt_dir: Path = Path("./ckpt"),
@@ -103,7 +147,7 @@ class DefectGanTrainer:
                  which_epoch: str = "latest",
                  save_latest_freq: int = 1000, save_ckpt_freq: int = 4,
                  seed: int = 123, embed_bank=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.cfg, self.tcfg = cfg, tcfg
         # SEAN style-embedding bank (--embed_path, defectgan_model.py:43-45)
         self.embed_bank = embed_bank
@@ -132,7 +176,7 @@ class DefectGanTrainer:
             # cross-variant warm start
             load_checkpoint(self.ckpt_dir, load_model_name, which_epoch,
                             self.steps, strict=False)
-        self.generator = torch.Generator(self.steps.device).manual_seed(seed + 1)
+        _parallel(self, mesh, tcfg.batch_size, seed)
 
     def _drain_metrics(self, sums, counts):
         """One host copy of the pending metrics; the guard reads them. The
@@ -141,7 +185,7 @@ class DefectGanTrainer:
         back to the last good snapshot."""
         if not self._pending:
             return
-        rows = _fetch(self._pending)
+        rows = _fetch(self._pending, self.mesh is not None)
         self._pending = []
         bad = next((m for m in rows if not metrics_finite(m)), None)
         if bad is None:
@@ -158,7 +202,8 @@ class DefectGanTrainer:
               progress: bool = True):
         """Run the epochs; ``val_fn(steps, epoch)`` -> {metric: value} runs
         after each epoch checkpoint, its values logged under ``Metrics``."""
-        writer = TBWriter(self.log_dir)
+        writer = TBWriter(_primary_log_dir(self.log_dir))
+        progress = progress and distributed.is_primary()
         try:
             from tqdm import tqdm
         except ImportError:
@@ -187,8 +232,7 @@ class DefectGanTrainer:
                                      for k in ("gan_D", "gan_G", "rec")
                                      if counts.get(k)})
                 if self.iters % self.save_latest_freq < nc:
-                    save_checkpoint(self.ckpt_dir, self.name, "latest",
-                                    self.steps, epoch=epoch, iters=self.iters)
+                    _save(self, "latest", epoch, self.iters)
             self._drain_metrics(sums, counts)
             # per-epoch bookkeeping
             means = {k: sums[k] / max(counts[k], 1) for k in sums}
@@ -199,17 +243,16 @@ class DefectGanTrainer:
                            {k: v for k, v in means.items() if "gan" not in k},
                            epoch)
             if epoch % self.save_ckpt_freq == 0:
-                save_checkpoint(self.ckpt_dir, self.name, epoch, self.steps,
-                                epoch=epoch, iters=self.iters)
-                if val_fn is not None:
+                _save(self, epoch, epoch, self.iters)
+                if val_fn is not None and distributed.is_primary():
                     writer.scalars("Metrics", val_fn(self.steps, epoch) or {},
                                    epoch)
+                distributed.barrier()
             # SEAN's running statistics; the LR schedules read the counts
             self.steps.update_per_epoch()
         # final 'latest' so short runs (< save_latest_freq iters) still leave
         # a loadable checkpoint for the test CLI
-        save_checkpoint(self.ckpt_dir, self.name, "latest", self.steps,
-                        epoch=self.num_epochs, iters=self.iters)
+        _save(self, "latest", self.num_epochs, self.iters)
         writer.close()
         return self.steps
 
@@ -219,12 +262,15 @@ class DefectGanTrainer:
         return _generate_grid_impl(self, bg_images, labels, img_only)
 
 
-def _fetch(pending: List[Dict[str, torch.Tensor]]) -> List[Dict[str, float]]:
-    """The pending metric dicts on the host, in one copy."""
+def _fetch(pending: List[Dict[str, torch.Tensor]], reduce: bool = False
+           ) -> List[Dict[str, float]]:
+    """The pending metric dicts on the host, in one copy; with ``reduce``,
+    averaged over the ranks first, in one all-reduce."""
     keys = list(pending[0])
-    rows = torch.stack([torch.stack([m[k].float() for k in keys])
-                        for m in pending]).cpu().tolist()
-    return [dict(zip(keys, r)) for r in rows]
+    rows = [[m[k] for k in keys] for m in pending]
+    stacked = reduce_metrics(rows) if reduce else torch.stack(
+        [torch.stack([v.float() for v in r]) for r in rows])
+    return [dict(zip(keys, r)) for r in stacked.cpu().tolist()]
 
 
 class MAETrainer:
@@ -244,7 +290,8 @@ class MAETrainer:
                  iters_per_epoch: int = 1000, num_epochs: int = 200,
                  continue_training: bool = False,
                  save_latest_freq: int = 300, save_ckpt_freq: int = 4,
-                 seed: int = 123, device: str | torch.device = "cuda"):
+                 seed: int = 123, device: str | torch.device = "cuda",
+                 mesh=None):
         self.cfg, self.mcfg, self.tcfg = cfg, mcfg, tcfg
         self.name = name
         self.ckpt_dir = Path(ckpt_dir)
@@ -263,10 +310,11 @@ class MAETrainer:
         if continue_training and latest_exists(self.ckpt_dir, name):
             load_checkpoint(self.ckpt_dir, name, "latest", self.steps)
             self.first_epoch, self.iters = read_iter_record(self.ckpt_dir, name)
-        self.generator = torch.Generator(self.steps.device).manual_seed(seed + 1)
+        _parallel(self, mesh, tcfg.batch_size, seed)
 
     def train(self, fusion_loader, val_loader=None, progress: bool = True):
-        writer = TBWriter(self.log_dir)
+        writer = TBWriter(_primary_log_dir(self.log_dir))
+        progress = progress and distributed.is_primary()
         try:
             from tqdm import tqdm
         except ImportError:
@@ -277,7 +325,8 @@ class MAETrainer:
             pending: List[Dict[str, torch.Tensor]] = []
 
             def drain():
-                for metrics in _fetch(pending) if pending else []:
+                for metrics in (_fetch(pending, self.mesh is not None)
+                                if pending else []):
                     for k, v in metrics.items():
                         sums[k] += v
                         counts[k] += 1
@@ -298,24 +347,22 @@ class MAETrainer:
                                      for k in ("rec", "gan_D", "gan_G")
                                      if counts.get(k)})
                 if self.iters % self.save_latest_freq < nc:
-                    save_checkpoint(self.ckpt_dir, self.name, "latest",
-                                    self.steps, epoch=epoch, iters=self.iters)
+                    _save(self, "latest", epoch, self.iters)
             drain()
             writer.scalars("Losses/mae", {k: sums[k] / max(counts[k], 1)
                                           for k in sums}, epoch)
-            if val_loader is not None:
+            if val_loader is not None and distributed.is_primary():
                 vals = _fetch([self.steps.eval_losses(batch, self.generator)
                                for batch in val_loader])
                 writer.scalars("Losses/mae_val",
                                {k: sum(v[k] for v in vals) / len(vals)
                                 for k in vals[0]}, epoch)
+            distributed.barrier()
             if epoch % self.save_ckpt_freq == 0:
-                save_checkpoint(self.ckpt_dir, self.name, epoch, self.steps,
-                                epoch=epoch, iters=self.iters)
+                _save(self, epoch, epoch, self.iters)
         # final 'latest' so short runs (< save_latest_freq iters) still leave
         # a loadable warm-start checkpoint (--load_model_name)
-        save_checkpoint(self.ckpt_dir, self.name, "latest", self.steps,
-                        epoch=self.num_epochs, iters=self.iters)
+        _save(self, "latest", self.num_epochs, self.iters)
         writer.close()
         return self.steps
 
@@ -364,7 +411,7 @@ class Pix2PixTrainer:
                  save_latest_freq: int = 1000, save_ckpt_freq: int = 4,
                  save_img_freq: int = 4, seed: int = 123,
                  fused_prop: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.cfg, self.tcfg = cfg, tcfg
         self.name = name
         self.ckpt_dir = Path(ckpt_dir)
@@ -388,7 +435,7 @@ class Pix2PixTrainer:
         if continue_training and latest_exists(self.ckpt_dir, name):
             load_checkpoint(self.ckpt_dir, name, "latest", self.steps)
             self.first_epoch, self.iters = read_iter_record(self.ckpt_dir, name)
-        self.generator = torch.Generator(self.steps.device).manual_seed(seed + 1)
+        _parallel(self, mesh, tcfg.batch_size, seed)
 
     _drain_metrics = DefectGanTrainer._drain_metrics
 
@@ -412,8 +459,8 @@ class Pix2PixTrainer:
         return rows.reshape(-1, *rows.shape[2:]).cpu().numpy()
 
     def train(self, loader, val_loader=None, progress: bool = True):
-        writer = TBWriter(self.log_dir)
-        tqdm = _tqdm() if progress else None
+        writer = TBWriter(_primary_log_dir(self.log_dir))
+        tqdm = _tqdm() if progress and distributed.is_primary() else None
         ipl = getattr(loader, "iters_per_launch", 1)
         step_fn = self.steps.super_step if ipl > 1 else self.steps.train_step
         vis = None
@@ -435,25 +482,24 @@ class Pix2PixTrainer:
                                      for k in ("d_loss", "adv", "l1")
                                      if counts.get(k)})
                 if self.iters % self.save_latest_freq < ipl:
-                    save_checkpoint(self.ckpt_dir, self.name, "latest",
-                                    self.steps, epoch=epoch, iters=self.iters)
+                    _save(self, "latest", epoch, self.iters)
             self._drain_metrics(sums, counts)
             writer.scalars("Losses/pix2pix", {k: sums[k] / max(counts[k], 1)
                                               for k in sums}, epoch)
-            if epoch % self.save_img_freq == 0 and vis is not None:
+            if epoch % self.save_img_freq == 0 and vis is not None and \
+                    distributed.is_primary():
                 writer.image("Images/input_fake_target",
                              (self.panel(vis) + 1) / 2, epoch)
-            save_checkpoint(self.ckpt_dir, self.name, "latest", self.steps,
-                            epoch=epoch, iters=self.iters)
+            _save(self, "latest", epoch, self.iters)
             if epoch % self.save_ckpt_freq == 0:
-                save_checkpoint(self.ckpt_dir, self.name, epoch, self.steps,
-                                epoch=epoch, iters=self.iters)
-                if val_loader is not None:
+                _save(self, epoch, epoch, self.iters)
+                if val_loader is not None and distributed.is_primary():
                     l1s = [(self.steps.generate(vb["input"]) - torch.as_tensor(
                         vb["target"], device=self.steps.device)).abs().mean()
                         for vb in val_loader]
                     writer.scalars("Metrics", {"val_l1": torch.stack(
                         l1s).mean().item()}, epoch)
+                distributed.barrier()
         writer.close()
         return self.steps
 
@@ -470,7 +516,8 @@ class WGanTrainer:
                  iters_per_epoch: int = 1000, num_epochs: int = 120,
                  continue_training: bool = False,
                  save_latest_freq: int = 1000, save_ckpt_freq: int = 4,
-                 seed: int = 123, device: str | torch.device = "cuda"):
+                 seed: int = 123, device: str | torch.device = "cuda",
+                 mesh=None):
         self.cfg, self.tcfg = cfg, tcfg
         self.name = name
         self.ckpt_dir = Path(ckpt_dir)
@@ -485,7 +532,7 @@ class WGanTrainer:
         if continue_training and latest_exists(self.ckpt_dir, name):
             load_checkpoint(self.ckpt_dir, name, "latest", self.steps)
             self.first_epoch, self.iters = read_iter_record(self.ckpt_dir, name)
-        self.generator = torch.Generator(self.steps.device).manual_seed(seed + 1)
+        _parallel(self, mesh, tcfg.batch_size, seed)
         self.fixed_noise = torch.randn(
             (16, cfg.noise_dim), generator=torch.Generator().manual_seed(seed + 2))
 
@@ -498,15 +545,16 @@ class WGanTrainer:
             4 * h, 4 * w, 3)
 
     def train(self, loader, progress: bool = True):
-        writer = TBWriter(self.log_dir)
-        tqdm = _tqdm() if progress else None
+        writer = TBWriter(_primary_log_dir(self.log_dir))
+        tqdm = _tqdm() if progress and distributed.is_primary() else None
         nc = self.cfg.num_critics
         for epoch in range(self.first_epoch, self.num_epochs + 1):
             sums, counts = defaultdict(float), defaultdict(int)
             pending: List[Dict[str, torch.Tensor]] = []
 
             def drain():
-                for metrics in _fetch(pending) if pending else []:
+                for metrics in (_fetch(pending, self.mesh is not None)
+                                if pending else []):
                     for k, v in metrics.items():
                         sums[k] += v
                         counts[k] += 1
@@ -523,16 +571,15 @@ class WGanTrainer:
                 if len(pending) >= DRAIN_EVERY:
                     drain()
                 if self.iters % self.save_latest_freq < nc:
-                    save_checkpoint(self.ckpt_dir, self.name, "latest",
-                                    self.steps, epoch=epoch, iters=self.iters)
+                    _save(self, "latest", epoch, self.iters)
             drain()
             writer.scalars("Losses/wgan", {k: sums[k] / max(counts[k], 1)
                                            for k in sums}, epoch)
-            writer.image("Images/fixed_noise", (self.grid() + 1) / 2, epoch)
+            if distributed.is_primary():
+                writer.image("Images/fixed_noise", (self.grid() + 1) / 2,
+                             epoch)
             if epoch % self.save_ckpt_freq == 0:
-                save_checkpoint(self.ckpt_dir, self.name, epoch, self.steps,
-                                epoch=epoch, iters=self.iters)
-        save_checkpoint(self.ckpt_dir, self.name, "latest", self.steps,
-                        epoch=self.num_epochs, iters=self.iters)
+                _save(self, epoch, epoch, self.iters)
+        _save(self, "latest", self.num_epochs, self.iters)
         writer.close()
         return self.steps

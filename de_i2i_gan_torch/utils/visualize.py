@@ -5,8 +5,8 @@ scatter (defectGAN/utils/util.py:122-156).
 ``reduce_embeddings`` reduces an embedding bank to 2-D: PCA by SVD (numpy
 alone), or t-SNE (sklearn). ``visualize_embeddings`` then plots it with
 matplotlib; without matplotlib, or without sklearn for t-SNE, it prints and
-skips the plot, as the JAX module does. The ablation figures wait for
-ROADMAP A.9.
+skips the plot, as the JAX module does. ``draw_ablation`` draws a sweep's
+FIDs against its values (``cli/sweep.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +25,32 @@ def _plt():
     except Exception:
         print("[visualize] matplotlib unavailable; skipping plot")
         return None
+
+
+def draw_ablation(results: Dict, title: str, xlabel: str,
+                  out_path: Path) -> None:
+    """Line figure of an ablation sweep (visualize.py draw_mask_*): FID
+    against each value, the best (lowest) point marked."""
+    plt = _plt()
+    if plt is None:
+        return
+    keys = list(results.keys())
+    vals = [results[k] for k in keys]
+    fig, ax = plt.subplots(figsize=(6, 4))
+    xs = range(len(keys))
+    ax.plot(xs, vals, marker="o")
+    best = int(np.argmin(vals))
+    ax.scatter([best], [vals[best]], color="red", zorder=3)
+    ax.set_xticks(list(xs))
+    ax.set_xticklabels([str(k) for k in keys])
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel("FID")
+    ax.set_title(title)
+    fig.tight_layout()
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(out_path)
+    plt.close(fig)
 
 
 def reduce_embeddings(embeddings: Dict, reduction: str = "pca"

@@ -14,8 +14,10 @@
   (``models/starganv2.py``, ``train/solver.py``,
   ``data/starganv2_data.py``, ``utils/translate.py``), serving
   (``serving.py``, ``cli/export_model.py``, ``cli/translate_folder.py``)
-  and the metrics (``cli/fid.py``, ``metrics/eval_starganv2.py``) parses no
-  arguments, starts no thread and writes nothing.
+  and the metrics (``cli/fid.py``, ``metrics/eval_starganv2.py``), data
+  parallelism (``parallel/``) and the tools (``utils/profiling.py``,
+  ``cli/sweep.py``) parses no arguments, starts no thread, joins no process
+  group and writes nothing.
 """
 import os
 import subprocess
@@ -56,7 +58,9 @@ for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
              "train.remat", "cli.train_pix2pix", "cli.test_pix2pix",
              "cli.train_wgan", "serving", "cli.export_model",
              "cli.translate_folder", "cli.fid", "metrics.inception",
-             "metrics.lpips", "metrics.fid", "metrics.eval_starganv2"):
+             "metrics.lpips", "metrics.fid", "metrics.eval_starganv2",
+             "parallel.distributed", "parallel.mesh", "utils.profiling",
+             "cli.sweep"):
     assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
@@ -135,6 +139,12 @@ import de_i2i_gan_torch.cli.export_model
 import de_i2i_gan_torch.cli.translate_folder
 import de_i2i_gan_torch.cli.fid
 import de_i2i_gan_torch.metrics.eval_starganv2
+import de_i2i_gan_torch.parallel.distributed
+import de_i2i_gan_torch.parallel.mesh
+import de_i2i_gan_torch.utils.profiling
+import de_i2i_gan_torch.cli.sweep
+import torch.distributed
+assert not torch.distributed.is_initialized()
 assert threading.active_count() == 1, threading.enumerate()
 assert os.listdir(".") == [], os.listdir(".")
 """

@@ -102,7 +102,11 @@ def test_load_from_opt_file_sets_defaults(tmp_path):
 
 
 def test_gpu_ids_pick_the_device(tmp_path):
-    for ids, device in (("-1", "cpu"), ("0", "cuda:0"), ("1", "cuda:1")):
-        opt = _parse(options, "defectgan_test", ["--gpu_ids", ids], tmp_path)
-        options.check_ported(opt)
+    """One id, or the first of a list (what does not train data-parallel
+    runs there, as JAX accepts the list and ignores it)."""
+    for ids, device in (("-1", "cpu"), ("0", "cuda:0"), ("1", "cuda:1"),
+                        ("0,1", "cuda:0"), ("3,1", "cuda:3"),
+                        ("-1,0", "cpu")):
+        opt = _parse(options, "defectgan_test", [f"--gpu_ids={ids}"],
+                     tmp_path)
         assert options.device_of(opt) == device

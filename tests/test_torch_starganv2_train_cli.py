@@ -151,9 +151,6 @@ def test_cli_train_resume_then_sample(tmp_path, monkeypatch, capsys):
     assert cycle.std() > 0 and latent.std() > 0
 
 
-UNPORTED = [(["--data_parallel", "on"], "A.9")]
-
-
 # ----------------------------------------------- the frozen nets in the CLI
 SEAN = ["--norm_type", "sean", "--embed_nc", "8", "--num_embeds", "2",
         "--hidden_nc", "16"]
@@ -277,11 +274,13 @@ def test_cli_align(tmp_path):
         assert img.shape == (256, 256, 3) and img.std() > 0
 
 
-@pytest.mark.parametrize("flags,item", UNPORTED,
-                         ids=[" ".join(f) for f, _ in UNPORTED])
-def test_unported_modes_and_flags_raise(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
-        cli.main(_argv(tmp_path, *flags))
+def test_data_parallel_on_with_one_device_raises(tmp_path):
+    """``--data_parallel on`` (it raised while unported): with one device
+    (``--device cpu``), JAX's ``RuntimeError``; the multi-rank run is
+    ``tests/test_torch_parallel_cli_more.py``'s."""
+    with pytest.raises(RuntimeError,
+                       match="--data_parallel on: only one device visible"):
+        cli.main(_argv(tmp_path, "--data_parallel", "on"))
 
 
 def test_eval_every_raises_when_it_fires(tmp_path, monkeypatch):

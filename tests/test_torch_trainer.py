@@ -343,13 +343,6 @@ def test_cli_train_resume_then_test(tmp_path, monkeypatch):
     assert grid.shape == (32, 32 * 7, 3) and grid.dtype == np.uint8
 
 
-UNPORTED = {
-    "train": [["--data_parallel", "on"], ["--num_devices", "2"],
-              ["--gpu_ids", "0,1"]],
-    "test": [["--gpu_ids", "0,1"]],
-}
-
-
 @pytest.mark.parametrize("etype", ["hidden", "mean", "std"])
 def test_vis_style_embeds_through_the_cli(etype, tmp_path):
     """--vis_style_embeds (once unported): SEAN with an embedding bank, from
@@ -392,13 +385,62 @@ def test_vis_style_embeds_through_the_cli(etype, tmp_path):
     assert len(list((tmp_path / "res" / "vis" / "pca").glob("*.png"))) == plotted
 
 
-@pytest.mark.parametrize("cli,flags", [(c, f) for c in UNPORTED
-                                       for f in UNPORTED[c]],
-                         ids=lambda v: v if isinstance(v, str) else " ".join(v))
-def test_unported_flags_raise(cli, flags, tmp_path):
-    main = train_defectgan.main if cli == "train" else test_defectgan.main
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.\d+"):
-        main(["--name", "x"] + _tiny_argv(tmp_path) + flags)
+def test_data_parallel_on_with_one_device_raises(tmp_path):
+    """``--data_parallel on`` (it raised while unported): with one device,
+    JAX's ``RuntimeError``."""
+    with pytest.raises(RuntimeError,
+                       match="--data_parallel on: only one device visible"):
+        train_defectgan.main(["--name", "x"] + _tiny_argv(tmp_path) +
+                             ["--data_parallel", "on"])
+
+
+def test_num_devices_trains_over_ranks(tmp_path, monkeypatch):
+    """``--num_devices 2`` (it raised while unported): with ``--gpu_ids
+    -1``, two CPU ranks train one epoch; main returns their equal state
+    digests and rank 0 writes the checkpoints."""
+    from de_i2i_gan_torch.parallel import distributed
+    from tests import torch_dp_workers as workers
+    launch = distributed.launch
+    monkeypatch.setattr(distributed, "launch", lambda fn, devices, *args:
+                        launch(workers.no_tensorboard, devices, fn, *args))
+    digests = train_defectgan.main(
+        ["--name", "dp", "--num_epochs", "1", "--num_critics", "8",
+         "--num_devices", "2"] + _tiny_argv(tmp_path))
+    assert len(digests) == 2 and digests[0] == digests[1]
+    assert digests[0]["step"] == 32
+    assert (tmp_path / "ckpt" / "dp" / "iter.txt").read_text() == "1,32\n"
+
+
+def test_gpu_ids_list_spreads_the_training(tmp_path, monkeypatch):
+    """``--gpu_ids 0,1`` (it raised while unported): one rank a listed
+    card, handed to the spawner (no card here to run them)."""
+    from de_i2i_gan_torch.parallel import distributed
+    seen = []
+    monkeypatch.setattr(distributed, "launch",
+                        lambda fn, devices, *args: seen.append(devices))
+    argv = ["--name", "x"] + _tiny_argv(tmp_path)
+    train_defectgan.main(argv[:argv.index("--gpu_ids")] + ["--gpu_ids", "0,1"]
+                         + argv[argv.index("--gpu_ids") + 2:])
+    assert seen == [("cuda:0", "cuda:1")]
+
+
+def test_test_cli_runs_on_the_first_of_several_gpu_ids(tmp_path):
+    """``--gpu_ids`` with several ids (it raised while unported): the test
+    CLI takes no mesh and runs on the first, here the CPU."""
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+    from de_i2i_gan_torch.config import DefectGanConfig
+    argv = ["--name", "t"] + _tiny_argv(tmp_path)
+    i = argv.index("--gpu_ids")
+    argv[i:i + 2] = ["--gpu_ids=-1,0"]
+    steps = DefectGanSteps(DefectGanConfig(
+        image_size=32, label_nc=4, ngf=8, ndf=8, num_res=2, hidden_nc=16,
+        num_layers=2), device="cpu")
+    save_checkpoint(tmp_path / "ckpt", "t", "latest", steps)
+    out = test_defectgan.main(argv + ["--results_dir", str(tmp_path / "res"),
+                                      "--save_img_grid",
+                                      "--num_display_images", "1"])
+    assert [p.name for p in out["pngs"]] == ["grid_0.png"]
 
 
 @pytest.mark.parametrize("flags,std", [

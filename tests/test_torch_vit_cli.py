@@ -75,8 +75,15 @@ def test_pca_by_svd():
     np.testing.assert_allclose((red ** 2).sum(0), w[::-1][:2], rtol=1e-8)
 
 
-@pytest.mark.parametrize("bad", [["--gpu_ids", "0,1"],
-                                 ["--data_parallel", "on"]])
-def test_unported_flags_raise(bad, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        train_vit.main(vit_argv(tmp_path) + bad)
+@pytest.mark.parametrize("flags", [["--gpu_ids=-1,0"],
+                                   ["--data_parallel", "on"]],
+                         ids=lambda v: " ".join(v))
+def test_train_vit_takes_no_mesh(flags, tmp_path):
+    """``--gpu_ids`` with several ids and ``--data_parallel on`` (they raised
+    while unported): as in JAX, which takes no mesh here, the run goes on
+    the first device (the CPU) and ignores ``--data_parallel``."""
+    argv = vit_argv(tmp_path) + ["--dump_embeddings",
+                                 str(tmp_path / "e.npz")] + flags
+    steps = train_vit.main(argv)
+    assert steps.device.type == "cpu"
+    assert int(EmbeddingBank.load(tmp_path / "e.npz").counts.sum()) == 512

@@ -94,12 +94,24 @@ def test_cli_native_loader_trains_one_epoch(tmp_path, monkeypatch):
         assert torch.isfinite(p).all(), k
 
 
-@pytest.mark.parametrize("flags", [["--data_parallel", "on"],
-                                   ["--gpu_ids", "0,1"]],
-                         ids=lambda v: " ".join(v))
-def test_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9"):
-        train_wgan.main(_argv(tmp_path, "x") + flags)
+def test_data_parallel_on_with_one_device_raises(tmp_path):
+    """``--data_parallel on`` (it raised while unported): with one device,
+    JAX's ``RuntimeError``."""
+    with pytest.raises(RuntimeError,
+                       match="--data_parallel on: only one device visible"):
+        train_wgan.main(_argv(tmp_path, "x") + ["--data_parallel", "on"])
+
+
+def test_gpu_ids_list_spreads_the_training(tmp_path, monkeypatch):
+    """``--gpu_ids 0,1`` (it raised while unported): one rank a listed
+    card, handed to the spawner (no card here to run them; two CPU ranks
+    train in tests/test_torch_parallel_cli_more.py)."""
+    from de_i2i_gan_torch.parallel import distributed
+    seen = []
+    monkeypatch.setattr(distributed, "launch",
+                        lambda fn, devices, *args: seen.append(devices))
+    assert train_wgan.main(_argv(tmp_path, "x") + ["--gpu_ids", "0,1"]) is None
+    assert seen == [("cuda:0", "cuda:1")]
 
 
 def test_state_names_the_nets_and_moments(tmp_path):
