@@ -29,6 +29,9 @@ instance norm) and the SPADE path through none:
   * WGAN: ``WGanSteps.super_step`` at the WGAN CLI's defaults (64², batch
     128, 5 critics, RMSprop), with weight clipping and with the gradient
     penalty, through ``cli.train_wgan`` on each feed;
+  * height-sharded folder inference: ``cli.translate_folder --spatial 2``
+    at 1024^2 on two ranks sharing the card, through the split forward's
+    kernels; the reference ``.pth`` import;
   * the frozen nets: ViT-B/16 embedding requests, ``cli.train_vit`` and
     ``cli.test_vit`` and their bank as DefectGAN SEAN's ``--embed_path``,
     StarGAN v2 SEAN with lambda_sty through the solver and through
@@ -302,6 +305,24 @@ Phases, each of which raises on failure:
   18d. cli    ``cli.train_defectgan --gpu_ids 0,0 --data_parallel on`` at
               batch 32 on two ranks: an epoch, then ``--continue_training``
               from its checkpoint, exact launches, states equal
+  19a. split  the split forward's kernels (moments, apply) against their
+              plain versions at the bands of 16c's forward over two ranks
+              (each norm input halved in H), a ragged band and an unaligned
+              one, f32 and bf16, every activation; each band shape timed
+              beside its bound, the plain version, ``torch.var_mean`` and
+              eval-mode ``F.batch_norm``
+  19b.        ``cli.translate_folder --spatial 2 --gpu_ids 0,0`` on two
+              ranks sharing cuda:0 (gloo, one launch): 16c's 9 PNGs in bf16
+              and in an f32 control with TF32 off, SPADE at 256^2 with
+              spectral norm and noise; exactly 8 moments + 8 apply launches
+              a G forward a rank and no fused one (SPADE: none); f32 within
+              1 count of one process's PNGs, bf16's mean |d| from one f32
+              process within 1.5x one bf16 process's; a batch of 4's host
+              clock, images/s, the halo's and the moments' shares, the peak
+  19c. pth    a reference-keyed ``.pth`` pair written from a seeded SEAN G
+              and D, imported onto the card (``train/torch_import.py``):
+              every tensor equal; 8 forward launches a G forward, kernel vs
+              plain within phase 4's band
 
 Then each timed shape's planned tier against tier S and the fastest tier,
 and each path's share of the bound. The line before the last two holds the
@@ -5791,6 +5812,582 @@ def report_dp_cli(smi, ranks):
                 seconds=[run["seconds"] for run in ranks[0]])
 
 
+# --------------------------------------------- 19. height-sharded inference
+# phase 19: cli.translate_folder --spatial 2 (parallel/spatial.py), two ranks
+# on cuda:0 over gloo, one launch for the whole phase (the machine has one
+# card: no scaling figure). 19a: the split kernels at the bands of 16c's
+# 1024^2 forward (each norm's input halved in H), a ragged and an unaligned
+# band; 19b: 16c's CLI run again on two ranks, 9 PNGs in bf16 and in an f32
+# control, and SPADE at 256^2 with noise; 19c: a reference-keyed .pth pair
+# imported onto the card.
+SPATIAL = 2
+SPATIAL_SHAPES = {(n, c, h // SPATIAL, w): k
+                  for (n, c, h, w), k in FOLDER_SHAPES.items()}
+SPATIAL_PER_FORWARD = sum(SPATIAL_SHAPES.values())  # 8 moments + 8 apply
+SPATIAL_TIMED = 5
+SPATIAL_COUNT = 1  # the f32 control: u8 levels (tests/test_translate_folder.py)
+SPATIAL_BF16_FACTOR = 1.5  # bf16: mean |d| within 1.5x single bf16's
+SPATIAL_SPADE_IMAGE = 256
+SPATIAL_SPADE_FILES = 4
+SPATIAL_NOISE_WEIGHT = 0.5
+SPATIAL_DEVICES = ["--gpu_ids", "0,0"]  # DP_RANKS: two ranks on cuda:0
+SPLIT_FLOPS_PER_ELEMENT = 2  # moments: add + fma; apply: fma (+ act)
+# the reference defectGAN's state-dict names of the port's G and D keys
+# (inverting train/torch_import.py's table), for 19c's .pth pair
+REF_G_RULES = (
+    (r"^stem\.conv\.", "stem.conv_block.0."),
+    (r"^stem\.norm\.", "stem.conv_block.1."),
+    (r"^enc_(\d+)\.conv\.", r"enc_blk.\1.conv_block.0."),
+    (r"^enc_(\d+)\.norm\.", r"enc_blk.\1.conv_block.1."),
+    (r"^enc_res_(\d+)\.conv_(\d+)\.conv\.",
+     r"enc_res_blk.\1.res_block.\2.conv_block.0."),
+    (r"^enc_res_(\d+)\.conv_(\d+)\.norm\.",
+     r"enc_res_blk.\1.res_block.\2.conv_block.1."),
+    (r"^dec_res_(\d+)\.norm_(\d+)\.\w+\.mlp_(shared|latent)\.",
+     r"dec_res_blk.\1.norm_\2.mlp_\3.0."),
+    (r"^dec_res_(\d+)\.norm_(\d+)\.\w+\.mlp_", r"dec_res_blk.\1.norm_\2.mlp_"),
+    (r"^dec_res_(\d+)\.", r"dec_res_blk.\1."),
+    (r"^dec_(\d+)\.norm\.\w+\.mlp_(shared|latent)\.",
+     r"dec_blk.\1.norm.mlp_\2.0."),
+    (r"^dec_(\d+)\.norm\.\w+\.mlp_", r"dec_blk.\1.norm.mlp_"),
+    (r"^dec_(\d+)\.", r"dec_blk.\1."),
+    (r"^(foreground|distribution)_head\.conv\.", r"\1_head.de_conv_block.0."),
+)
+REF_D_RULES = (
+    (r"^stem\.conv\.", "enc_blk.0.conv_block.0."),
+    (r"^enc_(\d+)\.conv\.", lambda m: f"enc_blk.{int(m[1]) + 1}.conv_block.0."),
+    (r"^(cls|src)_clf\.conv\.", r"\1_clf.conv_block.0."),
+)
+SPECTRAL_BUFFERS = ("weight_u", "weight_v")
+SEAN_STATS = ("mean", "std", "sum", "sumsq", "count")
+
+
+def split_tolerance(dtype):
+    return (dict(atol=F32_TOL, rtol=F32_TOL) if dtype == torch.float32
+            else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+
+
+def phase_split_vs_plain(nk, fused, smi):
+    """19a. The moments and apply kernels against their plain versions at
+    the bands' shapes, a ragged band (scalar loops) and an unaligned view
+    of the first shape (scalar loops), f32 and bf16, every activation: the
+    sums within SUM_BAND of the sum of their absolute terms, y within phase
+    3's band on the same mean and inv. Returns the worst |d| of the moments
+    (as E[x], E[x^2]) and of y."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"moments": 0.0, "apply": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        cases = [*SPATIAL_SHAPES, RAGGED, "unaligned"]
+        for i, shape in enumerate(cases):
+            if shape == "unaligned":
+                first = next(iter(SPATIAL_SHAPES))
+                x, g, b = make_norm_inputs(first, dt, SEED + 100)
+                buf = torch.empty(x.numel() + 1, dtype=dt, device="cuda")
+                x = buf[1:].view(first).copy_(x)
+                check(x.data_ptr() % 16 != 0, "19a: the view is aligned")
+            else:
+                x, g, b = make_norm_inputs(shape, dt, SEED + 100 + i)
+            count = x.shape[2] * x.shape[3]
+            sums = nk.modulated_instance_norm_moments(x)
+            ref = fused.modulated_instance_norm_moments_ref(x)
+            xf = x.float()
+            terms = torch.stack([xf.abs().sum(dim=(2, 3)),
+                                 xf.square().sum(dim=(2, 3))])
+            torch.cuda.synchronize()
+            d = (sums - ref).abs()
+            check(bool((d <= SUM_BAND * terms).all()),
+                  f"19a moments {tuple(x.shape)} {dt}: |d| "
+                  f"{d.max().item():.3e} beyond {SUM_BAND} of the terms")
+            worst["moments"] = max(worst["moments"], d.max().item() / count)
+            mean, inv = fused.moments_to_stats(ref, count)
+            errs = []
+            for act in (None, "relu", "leaky_relu"):
+                y = nk.modulated_instance_norm_apply(x, mean, inv, g, b, act)
+                ry = fused.modulated_instance_norm_apply_ref(x, mean, inv, g,
+                                                             b, act)
+                torch.cuda.synchronize()
+                check(y.dtype == dt and y.shape == x.shape, "19a apply dtype")
+                torch.testing.assert_close(y.float(), ry.float(),
+                                           **split_tolerance(dt))
+                err = (y.float() - ry.float()).abs().max().item()
+                worst["apply"] = max(worst["apply"], err)
+                errs.append(f"act={act} {err:.3e}")
+                del y, ry
+            print(f"19a split kernels vs plain {tuple(x.shape)} "
+                  f"{str(dt)[6:]}{' unaligned' if shape == 'unaligned' else ''}"
+                  f": moments max|d| {d.max().item():.3e} (E[x] scale "
+                  f"{d.max().item() / count:.3e}), apply max|dy| "
+                  f"{', '.join(errs)} tol={split_tolerance(dt)} [{smi}]")
+            del x, xf, terms, sums, ref
+            free_memory()
+    return worst
+
+
+def phase_split_timing(nk, fused, smi):
+    """19a. Each band shape in bf16, device ms: the moments kernel beside
+    its plain version and ``torch.var_mean`` over (2, 3); the apply kernel
+    (no activation, as the decoder's norms call it) beside its plain
+    version and ``F.batch_norm`` in eval mode on (1, N*C, h, W) with
+    per-(n, c) affine; each in turns (plain, kernel, library, kernel,
+    plain) over rotating copies past the L2, and its bound at 3.35 TB/s:
+    moments reads x once, apply reads x and writes y once. Returns each
+    kernel's rows."""
+    rows = {"moments": [], "apply": []}
+    for shape in SPATIAL_SHAPES:
+        n, c, h, w = shape
+        x, g, b = make_norm_inputs(shape, torch.bfloat16, SEED + 110)
+        x_bytes = x.numel() * x.element_size()
+        copies = max(2, math.ceil(256e6 / (2 * x_bytes)))
+        xs = [x.clone() for _ in range(copies)]
+        iters = 4 * copies
+        sums = fused.modulated_instance_norm_moments_ref(x)
+        mean, inv = fused.moments_to_stats(sums, h * w)
+        # the library calls compute the same functions: the moments, and
+        # eval-mode batch norm with the row's mean and the variance whose
+        # rsqrt(var + eps) is inv, f32 statistics and affine
+        m_rm = mean.reshape(-1).contiguous()
+        m_rv = (inv.reshape(-1).double() ** -2 - 1e-5).float()
+        var_l, mean_l = torch.var_mean(x.float(), dim=(2, 3), correction=0)
+        torch.testing.assert_close(mean_l, mean, atol=F32_TOL, rtol=F32_TOL)
+        torch.testing.assert_close(var_l.reshape(-1), m_rv, atol=1e-4,
+                                   rtol=1e-4)
+        w1, b1 = (1.0 + g).reshape(-1).contiguous(), b.reshape(-1).contiguous()
+        lib = F.batch_norm(x.view(1, n * c, h, w), m_rm, m_rv, w1, b1, False,
+                           0.0, 1e-5)
+        torch.testing.assert_close(
+            lib.view(shape).float(),
+            fused.modulated_instance_norm_apply_ref(x, mean, inv, g, b).float(),
+            atol=BF16_ATOL, rtol=BF16_RTOL)
+        del var_l, mean_l, lib
+
+        def pick(i):
+            return xs[i % copies]
+
+        timed = {
+            "moments": (lambda i: nk.modulated_instance_norm_moments(pick(i)),
+                        lambda i: fused.modulated_instance_norm_moments_ref(pick(i)),
+                        lambda i: torch.var_mean(pick(i), dim=(2, 3)),
+                        x_bytes + 2 * n * c * 4),
+            "apply": (lambda i: nk.modulated_instance_norm_apply(
+                          pick(i), mean, inv, g, b),
+                      lambda i: fused.modulated_instance_norm_apply_ref(
+                          pick(i), mean, inv, g, b),
+                      lambda i: F.batch_norm(pick(i).view(1, n * c, h, w),
+                                             m_rm, m_rv, w1, b1, False, 0.0,
+                                             1e-5),
+                      2 * x_bytes + 4 * n * c * 4)}
+        for name, (kernel, plain, library, nbytes) in timed.items():
+            p1 = device_ms(plain, iters)
+            k1 = device_ms(kernel, iters)
+            l1 = device_ms(library, iters)
+            k2 = device_ms(kernel, iters)
+            p2 = device_ms(plain, iters)
+            bound_ms, bound_by = bound(nbytes,
+                                       SPLIT_FLOPS_PER_ELEMENT * x.numel())
+            row = dict(shape=list(shape), ms=(k1 + k2) / 2,
+                       plain_ms=(p1 + p2) / 2, library_ms=l1,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows[name].append(row)
+            print(f"19a {name} timing {shape} bf16: kernel {k1:.4f}/{k2:.4f} "
+                  f"ms, plain {p1:.4f}/{p2:.4f} ms, "
+                  f"{'torch.var_mean' if name == 'moments' else 'F.batch_norm'}"
+                  f" {l1:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({nbytes / 1e6:.1f} MB at {PEAK_BYTES_PER_S / 1e12:.2f} "
+                  f"TB/s), roofline share {bound_ms / row['ms']:.1%}, "
+                  f"{copies} rotating copies [{smi}]")
+        del xs, x
+        free_memory()
+    return rows
+
+
+def count_diff(a_dir, b_dir, names):
+    """(max, mean) |d| in u8 counts between the PNGs of two folders."""
+    import numpy as np
+    from PIL import Image
+    worst, total, n = 0, 0.0, 0
+    for name in names:
+        a = torch.from_numpy(np.array(Image.open(a_dir / name))).int()
+        b = torch.from_numpy(np.array(Image.open(b_dir / name))).int()
+        d = (a - b).abs()
+        worst = max(worst, int(d.max()))
+        total += float(d.float().sum())
+        n += d.numel()
+    return worst, total / n
+
+
+def spatial_rank(runs, timed):
+    """A rank of 19b: each CLI run of ``runs`` (label, argv, f32), its
+    launches counted from 0 (the moments and apply kernels, the fused
+    forward and backward), its G forwards and seconds; then ``timed``'s
+    batch (the 16c checkpoint's G on a global batch of 4 at 1024^2, bf16):
+    warm-up, SPATIAL_TIMED batches on the host clock, the peak, then the
+    host ms inside the ranges ``spatial.halo`` and ``spatial.moments``."""
+    import torch.distributed as dist
+
+    from de_i2i_gan_torch.cli import translate_folder
+    from de_i2i_gan_torch.models.generator import DefectGanGenerator
+    from de_i2i_gan_torch.ops.cuda import norm_kernels as nk
+
+    out = {}
+    for label, argv, f32 in runs:
+        torch.backends.cudnn.allow_tf32 = not f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+        nk.SPLIT_LAUNCHES.update(moments=0, apply=0)
+        with counted_forwards(DefectGanGenerator) as g:
+            result, _ = run_cli(translate_folder.main, argv)
+        torch.cuda.synchronize()
+        out[label] = dict(
+            launches={"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES,
+                      **nk.SPLIT_LAUNCHES},  # ... end here
+            forwards=g[0], seconds=time.perf_counter() - t0,
+            written=[p.name for p in result["written"]])
+        free_memory()
+    torch.backends.cudnn.allow_tf32 = True
+    out["timed"] = spatial_timed_batch(*timed)
+    dist.barrier()
+    return out
+
+
+def spatial_timed_batch(argv, batch):
+    """The 16c checkpoint's G (bf16, SEAN) with this rank's height shard on
+    a global batch of ``batch`` at 1024^2: ms a batch (host clock from a
+    barrier to the end of a synchronize), peak memory; then 2 more batches
+    under the host profiler, the device synchronized before every exchange
+    and reduction, so that each range's host time is its own (the
+    staging, the wire, the wait for the other rank) and not the wait for
+    the kernels queued before it."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from de_i2i_gan_torch.parallel import spatial
+
+    from de_i2i_gan_torch.config import TrainConfig
+    from de_i2i_gan_torch.config.options import Options, to_defectgan_config
+    from de_i2i_gan_torch.parallel import distributed
+    from de_i2i_gan_torch.parallel.spatial import (
+        make_height_shard, spatial_sharded_inference)
+    from de_i2i_gan_torch.train.checkpoint import load_checkpoint
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+
+    opt = Options("defectgan_test").parse(argv, save=False)
+    steps = DefectGanSteps(to_defectgan_config(opt), TrainConfig(),
+                           device=distributed.device())
+    load_checkpoint(opt.ckpt_dir, opt.name, "latest", steps, strict=False)
+    infer = spatial_sharded_inference(steps.G, make_height_shard(SPATIAL))
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 83)
+    imgs = torch.rand((batch, opt.image_size, opt.image_size, 3),
+                      generator=gen, device=CARD) * 2 - 1
+    labels = torch.zeros((batch, opt.label_nc), device=CARD)
+    labels[:, 1] = 1.0
+    noise = torch.Generator(device=CARD).manual_seed(0)
+
+    def forward():
+        infer(imgs, labels, None, noise)
+
+    with torch.no_grad():
+        for _ in range(2):
+            forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(SPATIAL_TIMED):
+            dist.barrier()
+            t = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        real = {k: getattr(spatial.HeightShard, k)
+                for k in ("exchange", "all_reduce")}
+
+        def synced(method):
+            def call(self, *args):
+                torch.cuda.synchronize()
+                return method(self, *args)
+            return call
+
+        for k, method in real.items():
+            setattr(spatial.HeightShard, k, synced(method))
+        try:
+            dist.barrier()
+            t = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                for _ in range(2):
+                    forward()
+                torch.cuda.synchronize()
+            synced_ms = (time.perf_counter() - t) * 1e3 / 2
+        finally:
+            for k, method in real.items():
+                setattr(spatial.HeightShard, k, method)
+    return dict(ms=ms, peak_mb=peak_mb, synced_ms=synced_ms,
+                halo_ms=range_host_ms(prof, "spatial.halo", 2),
+                moments_ms=range_host_ms(prof, "spatial.moments", 2))
+
+
+def spatial_spade_checkpoint(root):
+    """19b's SPADE run at 256^2: a full-width checkpoint (spectral norm,
+    noise injection, its weights moved off zero) and SPATIAL_SPADE_FILES
+    PNGs; returns the CLI's flags."""
+    from de_i2i_gan_torch.config.options import Options, to_defectgan_config
+    from de_i2i_gan_torch.nn.blocks import NoiseInjection
+    from de_i2i_gan_torch.train.checkpoint import save_checkpoint
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+
+    argv = ["--name", "spade", "--ckpt_dir", str(root / "ckpt"),
+            "--image_size", str(SPATIAL_SPADE_IMAGE), "--style_norm_block_type",
+            "spade", "--use_spectral", "--add_noise"]
+    cfg = to_defectgan_config(Options("defectgan_test").parse(argv, save=False))
+    steps = DefectGanSteps(cfg, device=CARD)
+    init_weights(steps, SEED + 91)
+    with torch.no_grad():
+        for m in steps.G.modules():
+            if isinstance(m, NoiseInjection):
+                m.weight.fill_(SPATIAL_NOISE_WEIGHT)
+    save_checkpoint(root / "ckpt", "spade", "latest", steps)
+    folder_images(root / "spade_in", SEED + 92, SPATIAL_SPADE_FILES,
+                  SPATIAL_SPADE_IMAGE)
+    return argv
+
+
+def phase_spatial(nk, smi, folder):
+    """19b. ``cli.translate_folder --spatial 2 --gpu_ids 0,0`` on two ranks
+    (one launch): 16c's 9 PNGs at 1024^2 (full width, SEAN, batch 4) in
+    bf16 and in an f32 control with TF32 off, and SPADE at 256^2 (spectral
+    norm, noise; no kernel). Against one process: the f32 control and SPADE
+    (f32) within 1 count of one process's PNGs, bf16's mean |d| from one
+    f32 process within 1.5x one bf16 process's (16c's PNGs). Exactly 8
+    moments + 8 apply launches a G forward a rank, no fused forward; the
+    host clock of a batch of 4, images/s, the halo's and moments' shares,
+    the peak a rank."""
+    from de_i2i_gan_torch.cli import translate_folder
+    from de_i2i_gan_torch.parallel import distributed
+
+    root = CLI_DIR / "folder"
+    sean = ["--name", "folder", "--ckpt_dir", str(root / "ckpt"), *FOLDER_BASE]
+    spade = spatial_spade_checkpoint(root)
+    f32 = ["--compute_dtype", "float32"]
+
+    def io(src, dst):
+        return ["--input_dir", str(root / src), "--output_dir", str(root / dst)]
+
+    # one process's f32 runs, TF32 off (16c wrote the bf16 one to out/)
+    tf32_off()
+    for argv in (io("in", "single_f32") + sean + f32,
+                 io("spade_in", "spade_single_f32") + spade + f32):
+        run_cli(translate_folder.main, argv)
+    torch.backends.cudnn.allow_tf32 = True
+    free_memory()
+    ranks_flag = ["--spatial", str(SPATIAL), *SPATIAL_DEVICES]
+    runs = [("bf16", io("in", "spatial_bf16") + sean + ranks_flag, False),
+            ("f32", io("in", "spatial_f32") + sean + f32 + ranks_flag, True),
+            ("spade", io("spade_in", "spade_spatial_f32") + spade + f32
+             + ranks_flag, True)]
+    t0 = time.perf_counter()
+    ranks = distributed.launch(spatial_rank, DP_RANKS, runs,
+                               (sean, FOLDER_BATCH))
+    launch_s = time.perf_counter() - t0
+
+    names = [f"{i:02d}.png" for i in range(FOLDER_FILES)]
+    spade_names = [f"{i:02d}.png" for i in range(SPATIAL_SPADE_FILES)]
+    batches = -(-FOLDER_FILES // FOLDER_BATCH)
+    for r, rank in enumerate(ranks):
+        for label, _, _ in runs:
+            run = rank[label]
+            kernels = label != "spade"
+            per = SPATIAL_PER_FORWARD if kernels else 0
+            forwards = batches if kernels else -(-SPATIAL_SPADE_FILES
+                                                  // FOLDER_BATCH)
+            want = {"fwd": 0, "bwd": 0, "moments": per * forwards,
+                    "apply": per * forwards}
+            check(run["forwards"] == forwards and run["launches"] == want,
+                  f"19b rank {r} {label}: {run['forwards']} G forwards, "
+                  f"launches {run['launches']}, expected {want}")
+            check(run["written"] == ((spade_names if label == "spade" else
+                                      names) if r == 0 else []),
+                  f"19b rank {r} {label} wrote {run['written']}")
+    f32_diff = count_diff(root / "spatial_f32", root / "single_f32", names)
+    spade_diff = count_diff(root / "spade_spatial_f32",
+                            root / "spade_single_f32", spade_names)
+    bf16_diff = count_diff(root / "spatial_bf16", root / "single_f32", names)
+    single_bf16 = count_diff(root / "out", root / "single_f32", names)
+    check(f32_diff[0] <= SPATIAL_COUNT and spade_diff[0] <= SPATIAL_COUNT,
+          f"19b f32 spatial vs one process: SEAN max {f32_diff[0]}, SPADE max "
+          f"{spade_diff[0]} counts (band {SPATIAL_COUNT})")
+    check(bf16_diff[1] <= SPATIAL_BF16_FACTOR * single_bf16[1],
+          f"19b bf16 spatial vs f32 one process mean {bf16_diff[1]:.4f} "
+          f"counts beyond {SPATIAL_BF16_FACTOR} x one bf16 process's "
+          f"{single_bf16[1]:.4f}")
+    timed = [rank["timed"] for rank in ranks]
+    ms = statistics.median(timed[0]["ms"])
+    # the ranges' shares of the profiled batches (synchronized before each
+    # exchange and reduction), the larger rank's
+    shares = [{k: t[f"{k}_ms"] / t["synced_ms"] for k in ("halo", "moments")}
+              for t in timed]
+    halo = max(s["halo"] for s in shares)
+    moments = max(s["moments"] for s in shares)
+    print(f"19b translate_folder --spatial {SPATIAL} on two ranks sharing "
+          f"cuda:0 (gloo): 9 PNGs at {FOLDER_IMAGE}^2 in bf16 "
+          f"{ranks[0]['bf16']['seconds']:.1f} s, f32 "
+          f"{ranks[0]['f32']['seconds']:.1f} s, SPADE {SPATIAL_SPADE_IMAGE}^2 "
+          f"{ranks[0]['spade']['seconds']:.1f} s (launch of both ranks and "
+          f"every run {launch_s:.1f} s); launches a rank "
+          f"{ranks[0]['bf16']['launches']} over {batches} G forwards "
+          f"(SPADE {ranks[0]['spade']['launches']}); against one process: "
+          f"f32 max {f32_diff[0]} mean {f32_diff[1]:.4f} counts, SPADE f32 "
+          f"max {spade_diff[0]} mean {spade_diff[1]:.4f}, bf16 vs f32 one "
+          f"process max {bf16_diff[0]} mean {bf16_diff[1]:.4f} (one bf16 "
+          f"process: max {single_bf16[0]} mean {single_bf16[1]:.4f}, band "
+          f"{SPATIAL_BF16_FACTOR}x) [{smi}]")
+    print(f"19b a batch of {FOLDER_BATCH} at {FOLDER_IMAGE}^2 on two ranks: "
+          f"{ms:.3f} ms (rank 0 {[round(v, 3) for v in timed[0]['ms']]}), "
+          f"{FOLDER_BATCH * 1e3 / ms:.2f} images/s (16c, one process: "
+          f"{folder['ms']:.3f} ms); in 2 profiled batches of "
+          f"{timed[0]['synced_ms']:.3f} / {timed[1]['synced_ms']:.3f} ms (the "
+          f"device synchronized before each exchange and reduction), "
+          f"spatial.halo {timed[0]['halo_ms']:.3f} / "
+          f"{timed[1]['halo_ms']:.3f} ms, spatial.moments "
+          f"{timed[0]['moments_ms']:.3f} / {timed[1]['moments_ms']:.3f} ms a "
+          f"batch of host time inside the ranges: shares {halo:.1%} and "
+          f"{moments:.1%} (the larger rank's); peak "
+          f"{timed[0]['peak_mb']:.1f} / {timed[1]['peak_mb']:.1f} MiB a rank "
+          f"(16c: {folder['peak_mb']:.1f}) [{smi}]")
+    return dict(ranks=ranks, ms=ms, halo_share=halo, moments_share=moments,
+                peak_mb=[t["peak_mb"] for t in timed],
+                agree={"f32": f32_diff, "spade": spade_diff,
+                       "bf16": bf16_diff, "single_bf16": single_bf16},
+                forwards=batches)
+
+
+def kept_by_import(key):
+    """Whether the importer keeps the target's own tensor at ``key``:
+    spectral u/v and SEAN's running statistics."""
+    prefix, name = key.rsplit(".", 1)
+    return name in SPECTRAL_BUFFERS or (prefix.endswith(".sean")
+                                        and name in SEAN_STATS)
+
+
+def reference_key(key, rules):
+    """The reference's name of a port state-dict key."""
+    for pattern, repl in rules:
+        new, n = re.subn(pattern, repl, key)
+        if n:
+            return new
+    raise KeyError(key)
+
+
+def reference_state_dict(module, rules):
+    """``module``'s parameters and BatchNorm statistics under the
+    reference's names, on the CPU: ``weight_orig`` for a spectrally
+    normalized conv, noise weights (1, 1, 1, 1); its spectral u/v and
+    SEAN's statistics left out (the importer keeps the target's)."""
+    sd = {}
+    for key, value in module.state_dict().items():
+        if kept_by_import(key):
+            continue
+        prefix, name = key.rsplit(".", 1)
+        value = value.detach().cpu().clone()
+        out = reference_key(key, rules)
+        if ".noise" in key:
+            value = value.reshape(1, 1, 1, 1)
+        if name == "weight" and getattr(module.get_submodule(prefix),
+                                        "use_spectral", False):
+            out = out[:-len("weight")] + "weight_orig"
+        sd[out] = value
+    return sd
+
+
+def phase_pth_import(nk, smi):
+    """19c. A reference-keyed ``{epoch}_net_G.pth`` / ``_net_D.pth`` pair
+    written from a seeded full-width SEAN G and D (BatchNorm statistics
+    moved off their init), imported onto the card into steps drawn from
+    another seed (``train/torch_import.py``): every imported tensor equals
+    the source's, the kept ones (SEAN's statistics) the target's; a G
+    forward of a batch of 8 at 256^2 launches the forward kernel 8 times
+    and agrees with the plain path within phase 4's band."""
+    from de_i2i_gan_torch.nn.blocks import BatchNorm
+    from de_i2i_gan_torch.nn.normalization import SEAN
+    from de_i2i_gan_torch.train.jax_import import init_weights
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+    from de_i2i_gan_torch.train.torch_import import import_torch_checkpoint
+
+    cfg = sean_config()
+    src = DefectGanSteps(cfg, device=CARD)
+    init_weights(src, SEED + 95)
+    src.init_training()
+    gen = torch.Generator().manual_seed(SEED + 95)
+    with torch.no_grad():
+        for m in src.G.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                                 generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape,
+                                               generator=gen) + 0.5)
+            elif isinstance(m, SEAN):  # statistics the import must not take
+                m.mean.copy_(torch.randn(m.mean.shape, generator=gen))
+                m.std.copy_(torch.rand(m.std.shape, generator=gen) + 0.5)
+    root = CLI_DIR / "pth"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    g_sd = reference_state_dict(src.G, REF_G_RULES)
+    d_sd = reference_state_dict(src.D, REF_D_RULES)
+    torch.save(g_sd, root / "1_net_G.pth")
+    torch.save(d_sd, root / "1_net_D.pth")
+    dst = DefectGanSteps(cfg, device=CARD)
+    init_weights(dst, SEED + 96)
+    kept = {("G", k): v.clone() for k, v in dst.G.state_dict().items()
+            if kept_by_import(k)}
+    t0 = time.perf_counter()
+    import_torch_checkpoint(root / "1_net_G.pth", root / "1_net_D.pth", cfg,
+                            dst)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_equal = 0
+    for net in ("G", "D"):
+        want, got = getattr(src, net).state_dict(), getattr(dst, net).state_dict()
+        for k, v in got.items():
+            ref = kept.get((net, k), want[k])
+            check(v.device.type == CARD and torch.equal(v, ref),
+                  f"19c {net}.{k} differs after the import")
+            n_equal += 1
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 97)
+    x = torch.rand((BATCH, cfg.image_size, cfg.image_size, 3), generator=gen,
+                   device=CARD) * 2 - 1
+    labels = torch.eye(cfg.label_nc, device=CARD)[
+        torch.randint(0, cfg.label_nc, (BATCH,), generator=gen, device=CARD)]
+    feat = style_input(cfg, gen, BATCH)
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the imported G's forward starts here
+    with torch.no_grad():
+        out_k, prob = dst.G(x, labels, feat)
+        torch.cuda.synchronize()
+        launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends
+        for m in dst.G.modules():
+            if hasattr(m, "use_pallas"):
+                m.use_pallas = False
+        out_p, _ = dst.G(x, labels, feat)
+    check(launches == {"fwd": FWD_PER_FORWARD, "bwd": 0},
+          f"19c: the imported G launched {launches}")
+    check_images(out_k, prob, BATCH, cfg.image_size)
+    d = (out_k.float() - out_p.float()).abs()
+    agree = (d.max().item(), d.mean().item())
+    check(agree[0] <= OUT_BAND and agree[1] <= MEAN_BAND,
+          f"19c imported G: kernel vs plain max {agree[0]:.3e} mean "
+          f"{agree[1]:.3e}")
+    print(f"19c reference .pth import (SEAN, full width): {len(g_sd)} G and "
+          f"{len(d_sd)} D entries read in {import_s:.2f} s, {n_equal} tensors "
+          f"equal on {CARD} (SEAN's statistics the target's); a G forward at "
+          f"batch {BATCH}: launches {launches}, kernel vs plain max "
+          f"{agree[0]:.3e} mean {agree[1]:.3e} (band {OUT_BAND}, {MEAN_BAND}) "
+          f"[{smi}]")
+    del src, dst
+    free_memory()
+    return dict(launches=launches, agree=agree, tensors=n_equal)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6092,6 +6689,24 @@ def main() -> int:
     dp_s = time.perf_counter() - dp_started
     dp_split["18b-d"] = dp_s - sum(dp_split.values())
 
+    # 19. height-sharded inference: the split kernels against their plain
+    # versions and timed at the bands' shapes (19a), translate_folder
+    # --spatial 2 on two ranks sharing cuda:0 (19b), the reference .pth
+    # import onto the card (19c)
+    spatial_started = time.perf_counter()
+    split_worst = phase_split_vs_plain(nk, fused, smi)
+    split_rows = phase_split_timing(nk, fused, smi)
+    spatial_split = {"19a": time.perf_counter() - spatial_started}
+    spatial = phase_spatial(nk, smi, folder)
+    spatial_split["19b"] = time.perf_counter() - spatial_started - sum(
+        spatial_split.values())
+    pth = phase_pth_import(nk, smi)
+    spatial_s = time.perf_counter() - spatial_started
+    spatial_split["19c"] = spatial_s - sum(spatial_split.values())
+    spatial_paths = {f"spatial_{label}_rank{r}": rank[label]["launches"]
+                     for r, rank in enumerate(spatial["ranks"])
+                     for label in ("bf16", "f32", "spade")}
+
     per_step = training["super_steps"]
     paths = {"serving": serving, "training": training,
              "serving_sean": serving_sean, "training_sean": training_sean,
@@ -6129,7 +6744,9 @@ def main() -> int:
                 for r, n in enumerate(per_rank)},
              **{f"dp_cli_rank{r}_run{i}": {"launches": n}
                 for r, runs in enumerate(dp_cli["launches"])
-                for i, n in enumerate(runs)}}
+                for i, n in enumerate(runs)},
+             **{k: {"launches": v} for k, v in spatial_paths.items()},
+             "pth_import_sean": pth}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
             "per_call rows: device ms per call and calls per super-step; "
@@ -6202,6 +6819,29 @@ def main() -> int:
     bwd["max_abs_err"] = max(bwd["max_abs_err"], celeba_bwd_worst)
     record = {"kernels": [fwd, bwd]}
     report_tiers(record, smi)
+    split_unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over "
+                  "one rank's calls in one DefectGAN SEAN G forward of "
+                  "cli.translate_folder --spatial 2 at 1024^2, batch 4 (the "
+                  "rank's band: every norm input halved in H); per_call rows: "
+                  "device ms per call and calls a forward; library: "
+                  "torch.var_mean over (2, 3) for the moments, F.batch_norm "
+                  "in eval mode on (1, N*C, h, W) for apply; max_abs_err: the "
+                  "moments' as E[x] and E[x^2], apply's of y")
+    for kind in ("moments", "apply"):
+        rows = with_calls(split_rows[kind], Counter(SPATIAL_SHAPES), 1)
+        by_path = {k: v[kind] for k, v in spatial_paths.items()}
+        record["kernels"].append({
+            "name": f"modulated_instance_norm_{kind}", "route": "cuda",
+            "source": "de_i2i_gan_torch/csrc/modulated_instance_norm.cu",
+            "replaces": "de_i2i_gan_tpu/ops/pallas/norm_kernels.py:51",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": split_worst[kind], "unit": split_unit,
+            **{k: summed(rows, k) for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations",
+            "library_ms": summed(rows, "library_ms"),
+            "per_spatial_forward": {"calls": sum(r["calls"] for r in rows)},
+            "per_call": rows})
     print(f"per super-step ({sum(train_calls['fwd'].values())} forward, "
           f"{sum(train_calls['bwd'].values())} backward calls): forward "
           f"kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
@@ -6341,6 +6981,13 @@ def main() -> int:
           f"{metric_nets['lpips_err']:.3e}, Inception batch {INCEPTION_BATCH} "
           f"{metric_nets['request_ms']:.3f} ms (TF32 off "
           f"{metric_nets['request_fp32_ms']:.3f}) [{smi}]")
+    for rec in record["kernels"][2:]:
+        print(f"{rec['name']} a rank's G forward of --spatial {SPATIAL} at "
+              f"{FOLDER_IMAGE}^2 ({rec['per_spatial_forward']['calls']} calls): "
+              f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.1%}), plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms; "
+              f"launches {rec['launches']} [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s, of which phases "
           f"8a-8f {cli_s:.1f} s, 9a-9c {sgv2_s:.1f} s, 10a-10d {train_s:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())}), 11 "
@@ -6349,7 +6996,9 @@ def main() -> int:
           f"13 {wgan_s:.1f} s, 14 {vit_s:.1f} s, 15 {fan_s:.1f} s, 16 "
           f"{deploy_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in deploy_split.items())}), "
           f"17 {metrics_s:.1f} s, 18 {dp_s:.1f} s "
-          f"({', '.join(f'{k} {v:.1f} s' for k, v in dp_split.items())})")
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in dp_split.items())}), "
+          f"19 {spatial_s:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in spatial_split.items())})")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,6 +23,12 @@
 //
 // with dx in the IO dtype.
 //
+// Split forward (the same _fwd_kernel, for rows split over ranks by
+// height-sharded inference): a moments kernel writes each row's f32 sum and
+// sum of squares over this rank's part of the row; after their all-reduce,
+// an apply kernel takes the row's mean and inv from outside and writes y as
+// the forward does. Inference only: no backward.
+//
 // What bounds both: memory traffic. The forward does about 5 flops per
 // element against 4 bytes (bf16) or 8 bytes (f32) of one read of x and one
 // write of y; the backward about 12 flops against 6 (bf16) or 12 (f32) bytes
@@ -775,6 +781,92 @@ modulated_instance_norm_bwd_cluster_kernel(const T* __restrict__ x,
   if (shape.cluster > 1) cluster_wait();
 }
 
+// ------------------------------------------- split forward: moments, apply
+//
+// The forward's two passes as two kernels, for rows split over ranks
+// (height-sharded inference, de_i2i_gan_torch/parallel/spatial.py): the
+// moments kernel writes each row's f32 sum and sum of squares over the rows
+// this rank holds, the ranks all-reduce them, and the apply kernel takes the
+// row's mean and inv from outside:
+//
+//   sums[0, r] = sum(x[r]),  sums[1, r] = sum(x[r]^2)            (f32)
+//   y = act(x * scale + shift),  scale = inv * (1 + gamma),
+//                                shift = beta - mean * scale
+//
+// Both are bound by memory traffic: moments reads x once (2 flops an
+// element), apply reads x and writes y once (1 fma and the activation). A
+// block takes one row for the moments (tier S's pass 1: the same loop,
+// the same order, block_sum2, no atomics, so one rank's sums are the fused
+// kernel's tier-S sums bit for bit), and a segment of a row for apply (a
+// grid-stride loop over the row's segments, blockIdx.y, with tier S's
+// pass-2 arithmetic). 16-byte vectors where the row is aligned and whole,
+// a scalar loop otherwise.
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+modulated_instance_norm_moments_kernel(const T* __restrict__ x,
+                                       float* __restrict__ sums, Rows shape) {
+  constexpr int V = Vec<T>::N;
+  const int64_t hw = shape.hw;
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * hw;
+  float s = 0.f, ss = 0.f;
+  if (shape.vec) {
+    for (int64_t i = threadIdx.x; i < hw / V; i += kThreads) {
+      float v[V];
+      load_vec(xr + i * V, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        s += v[k];
+        ss = fmaf(v[k], v[k], ss);
+      }
+    }
+  } else {
+    for (int64_t i = threadIdx.x; i < hw; i += kThreads) {
+      const float v = to_f32(xr[i]);
+      s += v;
+      ss = fmaf(v, v, ss);
+    }
+  }
+  block_sum2(s, ss);
+  if (threadIdx.x == 0) {
+    sums[row] = s;
+    sums[shape.rows + row] = ss;
+  }
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads)
+modulated_instance_norm_apply_kernel(const T* __restrict__ x,
+                                     const float* __restrict__ mean,
+                                     const float* __restrict__ inv,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ beta,
+                                     T* __restrict__ y, Rows shape) {
+  constexpr int V = Vec<T>::N;
+  const int64_t hw = shape.hw;
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * hw;
+  T* yr = y + row * hw;
+  const float scale = inv[row] * (1.f + gamma[row]);
+  const float shift = beta[row] - mean[row] * scale;
+  const int64_t first = static_cast<int64_t>(blockIdx.y) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.y) * kThreads;
+  if (shape.vec) {
+    for (int64_t i = first; i < hw / V; i += stride) {
+      float v[V];
+      load_vec(xr + i * V, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = activate<ACT>(fmaf(v[k], scale, shift));
+      store_vec(yr + i * V, v);
+    }
+  } else {
+    for (int64_t i = first; i < hw; i += stride) {
+      yr[i] = from_f32<T>(activate<ACT>(fmaf(to_f32(xr[i]), scale, shift)));
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -920,6 +1012,48 @@ cudaError_t launch(int op, int dtype, int act, const Plan& p, int64_t rows,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The split forward's launches (see the kernels): a block a row for the
+// moments; for apply a block a segment of kApplyVectors vectors (elements
+// where the row takes the scalar loop) a thread, at most 65535 segments a
+// row, so that a few long rows still fill the card.
+constexpr int64_t kApplyVectors = 8;
+
+template <typename T>
+cudaError_t launch_moments(const void* x, void* sums, const Rows& shape,
+                           cudaStream_t stream) {
+  modulated_instance_norm_moments_kernel<T><<<static_cast<unsigned>(shape.rows),
+                                              kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<float*>(sums), shape);
+  return cudaGetLastError();
+}
+
+template <typename T, int ACT>
+cudaError_t launch_apply(const void* x, const void* mean, const void* inv,
+                         const void* gamma, const void* beta, void* y,
+                         const Rows& shape, cudaStream_t stream) {
+  const int64_t work = shape.vec ? shape.hw / Vec<T>::N : shape.hw;
+  int64_t segments = (work + kThreads * kApplyVectors - 1) / (kThreads * kApplyVectors);
+  segments = segments < 1 ? 1 : (segments > 65535 ? 65535 : segments);
+  const dim3 grid(static_cast<unsigned>(shape.rows), static_cast<unsigned>(segments));
+  modulated_instance_norm_apply_kernel<T, ACT><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(inv), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<T*>(y), shape);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_apply_act(int act, const void* x, const void* mean,
+                             const void* inv, const void* gamma, const void* beta,
+                             void* y, const Rows& shape, cudaStream_t stream) {
+  switch (act) {
+    case 0: return launch_apply<T, 0>(x, mean, inv, gamma, beta, y, shape, stream);
+    case 1: return launch_apply<T, 1>(x, mean, inv, gamma, beta, y, shape, stream);
+    case 2: return launch_apply<T, 2>(x, mean, inv, gamma, beta, y, shape, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x, y: (rows, hw) in float (dtype 0) or bfloat16 (dtype 1); gamma, beta,
@@ -991,4 +1125,42 @@ extern "C" int dig_modulated_instance_norm_occupancy(
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(p, kMaxCluster, &attr, nullptr);
   return cudaOccupancyMaxActiveClusters(max_clusters, fn, &cfg);
+}
+
+// The split forward's moments: x (rows, hw) in float (dtype 0) or bfloat16
+// (dtype 1); sums (2, rows) float, sum then sum of squares of each row.
+// Launches on `stream` and returns the launch's cudaError_t (0 on success);
+// does not synchronise.
+extern "C" int dig_modulated_instance_norm_moments(const void* x, void* sums,
+                                                   int64_t rows, int64_t hw,
+                                                   int dtype, int device,
+                                                   void* stream) {
+  if ((dtype != 0 && dtype != 1) || rows <= 0 || rows > 0x7fffffff || hw <= 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Rows shape{rows, hw, 1, aligned16(x) && hw % vec_elems(dtype) == 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_moments<float>(x, sums, shape, s)
+                    : launch_moments<__nv_bfloat16>(x, sums, shape, s);
+}
+
+// The split forward's apply: x, y (rows, hw) in float (dtype 0) or bfloat16
+// (dtype 1); mean, inv, gamma, beta (rows,) float. Launches on `stream` and
+// returns the launch's cudaError_t (0 on success); does not synchronise.
+extern "C" int dig_modulated_instance_norm_apply(
+    const void* x, const void* mean, const void* inv, const void* gamma,
+    const void* beta, void* y, int64_t rows, int64_t hw, int act, int dtype,
+    int device, void* stream) {
+  if ((dtype != 0 && dtype != 1) || act < 0 || act > 2 || rows <= 0 ||
+      rows > 0x7fffffff || hw <= 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Rows shape{rows, hw, 1,
+                   aligned16(x) && aligned16(y) && hw % vec_elems(dtype) == 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? launch_apply_act<float>(act, x, mean, inv, gamma, beta, y, shape, s)
+             : launch_apply_act<__nv_bfloat16>(act, x, mean, inv, gamma, beta, y, shape, s);
 }

@@ -14,6 +14,11 @@ The decoder's style norm is SPADE (driven by the labels), AdaIN (a
 (N, hidden_nc) style code) or SEAN (labels and (N, num_embeds, embed_nc)
 style embeddings, or (N, hidden_nc) noise with ``inference_stats``).
 
+With a height shard attached (``parallel/spatial.py::attach``) the
+generator runs in eval mode on a band of rows of each image and returns that
+band of (out, prob); the shard's modules exchange the halo rows and reduce
+the norms' moments (``parallel/spatial.py``).
+
 ``WGanGenerator`` is the WGAN's noise -> image DCGAN-style generator.
 """
 from __future__ import annotations
@@ -36,6 +41,8 @@ from de_i2i_gan_torch.nn.normalization import DistillTerms
 
 
 class DefectGanGenerator(nn.Module):
+    shard = None  # a parallel.spatial.HeightShard: x is a band of rows
+
     def __init__(self, cfg: DefectGanConfig):
         super().__init__()
         if cfg.num_res % 2:
@@ -94,6 +101,8 @@ class DefectGanGenerator(nn.Module):
         them, ``distill`` collects the distillation terms. ``generator``
         drives the noise injection. Returns NHWC (out, prob)."""
         cfg = self.cfg
+        if self.shard is not None:
+            self.shard.check_generator(self, x.shape[1], cfg.num_scales)
         scale = 2 ** cfg.num_scales
         if x.shape[1] % scale or x.shape[2] % scale:
             raise ValueError(

@@ -12,7 +12,10 @@ JAX package passes ``train=``. In train mode BatchNorm normalizes each of
 ``NoiseInjection`` draws its noise from the ``torch.Generator`` handed down
 as ``generator`` (None: torch's default generator of the device), where the
 JAX package draws from its 'noise' stream; a served graph hands down a
-``serving.SeededNoise`` instead (``nn/layers.py::randn``).
+``serving.SeededNoise`` instead (``nn/layers.py::randn``). With a height
+shard attached (``parallel/spatial.py``) it draws the noise of the whole
+global batch at full height and keeps its band's rows, so that every rank's
+stream stays one process's.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ class NoiseInjection(nn.Module):
     learned scalar ``weight`` (zero at init) and fresh standard-normal
     (N, 1, H, W) noise in x's dtype at every call, train or eval."""
 
+    shard = None  # a parallel.spatial.HeightShard: x is a band of rows
+
     def __init__(self):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(1))
@@ -63,7 +68,12 @@ class NoiseInjection(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         n, _, h, w = x.shape
-        noise = randn((n, 1, h, w), generator, x.dtype, x.device)
+        shard = self.shard
+        if shard is None:
+            noise = randn((n, 1, h, w), generator, x.dtype, x.device)
+        else:
+            noise = shard.take(randn((n * shard.data_size, 1, h * shard.size,
+                                      w), generator, x.dtype, x.device), n, h)
         return x + self.weight.to(x.dtype) * noise
 
 

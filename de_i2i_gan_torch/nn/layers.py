@@ -12,6 +12,9 @@ Counterpart of ``de_i2i_gan_tpu/nn/layers.py``, in NCHW:
     train-mode forward (``module.training``), the stored vectors in eval
     mode. The matrix is the weight's (out, in*kh*kw) view, so ``weight_v``
     runs over (in, kh, kw) where the flax ``kernel_v`` runs over (kh, kw, in)
+  * a ``Conv2d`` with a height shard attached (``parallel/spatial.py``)
+    runs on a band of rows: H is padded with the neighbouring bands' rows,
+    and as before at the image's top and bottom edges
 """
 from __future__ import annotations
 
@@ -132,6 +135,8 @@ class _SpectralWeight(nn.Module):
 class Conv2d(_SpectralWeight):
     """2-D convolution with torch-compatible padding (flax ``Conv2d``)."""
 
+    shard = None  # a parallel.spatial.HeightShard: x is a band of rows
+
     def __init__(self, in_features: int, features: int,
                  kernel_size: PaddingLike = (3, 3), strides=(1, 1),
                  padding: PaddingLike = 0, padding_mode: str = "zeros",
@@ -148,7 +153,15 @@ class Conv2d(_SpectralWeight):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = pad_image(x, self.pads, self.padding_mode)
+        return self.run(x, self.shard)
+
+    def run(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """The conv of x, a band of rows of ``shard`` (None: whole
+        images)."""
+        if shard is None:
+            x = pad_image(x, self.pads, self.padding_mode)
+        else:
+            x = shard.pad(x, self.pads, self.padding_mode)
         y = F.conv2d(x.to(self.dtype), self._weight().to(self.dtype),
                      stride=self.strides)
         if self.bias is not None:

@@ -6,6 +6,12 @@ AdaIN and SEAN end in the fused modulated instance norm
 (``ops/fused.py``), which runs the CUDA kernel for CUDA tensors when
 ``use_pallas`` is set. SPADE modulates per pixel after the param-free
 instance norm and runs no kernel of its own.
+
+With a height shard attached (``parallel/spatial.py``) each runs on a band
+of rows of its images, with the whole image's moments: SPADE's instance norm
+all-reduces its two passes' sums, SPADE's scale and shift maps are built for
+the band's global rows, and AdaIN and SEAN run the split kernels
+(``ops/fused.py::sharded_modulated_instance_norm``).
 """
 from __future__ import annotations
 
@@ -16,47 +22,75 @@ import torch.nn.functional as F
 from torch import nn
 
 from de_i2i_gan_torch.nn.layers import Conv2d, Dense
-from de_i2i_gan_torch.ops.fused import modulated_instance_norm
+from de_i2i_gan_torch.ops.fused import (
+    modulated_instance_norm, sharded_modulated_instance_norm)
 
 # per SEAN layer of one forward: the (latent, embed) distillation terms
 DistillTerms = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  shard=None) -> torch.Tensor:
     """Param-free instance norm over H, W of NCHW x (nn.InstanceNorm2d(affine=False)).
 
     Two passes with float32 accumulation, as the JAX package: the centered
     tensor stays in x's dtype, only the statistics accumulate in float32.
+    With a height ``shard`` x is a band of rows: each pass's float32 sum is
+    all-reduced over the band's group.
     """
-    mean = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+    if shard is None:
+        mean = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+        xc = x - mean.to(x.dtype)
+        var = xc.float().square().mean(dim=(2, 3), keepdim=True)
+        return xc * torch.rsqrt(var + eps).to(x.dtype)
+    count = x.shape[2] * x.shape[3] * shard.size
+    mean = shard.all_reduce(x.sum(dim=(2, 3), keepdim=True,
+                                  dtype=torch.float32)) / count
     xc = x - mean.to(x.dtype)
-    var = xc.float().square().mean(dim=(2, 3), keepdim=True)
+    var = shard.all_reduce(xc.float().square().sum(dim=(2, 3),
+                                                   keepdim=True)) / count
     return xc * torch.rsqrt(var + eps).to(x.dtype)
 
 
-def _expand_from_tile(tile: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def _tile_rows(n: int, first: int, count: int, device) -> torch.Tensor:
+    """The 7x7 tile's rows (0, 1, 2 | 3 | 4, 5, 6) of positions first ..
+    first + count of an axis of n >= 7: the JAX package's
+    ``_border_index(n)[first:first + count]``."""
+    i = torch.arange(first, first + count, device=device)
+    return torch.where(i <= 2, i, torch.where(i >= n - 3, 6 - (n - 1 - i), 3))
+
+
+def _expand_from_tile(tile: torch.Tensor, h: int, w: int,
+                      band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Expand an (N, C, 7, 7) conv-on-constant-input result to (N, C, H, W),
     H, W >= 7: tile rows 0-2, row 3 repeated H - 6 times, rows 4-6 (the same
     along W). Slices and a broadcast, so the backward is a sum over the
     repeats; an index gather would scatter back through one duplicated
-    index per pixel."""
+    index per pixel. ``band`` = (first, count): only those rows of H (a
+    height shard's band), gathered by global row."""
     def along(t, dim, n):
         mid = list(t.shape)
         mid[dim] = n - 6
         return torch.cat([t.narrow(dim, 0, 3), t.narrow(dim, 3, 1).expand(mid),
                           t.narrow(dim, 4, 3)], dim=dim)
-    return along(along(tile, 2, h), 3, w)
+    if band is None:
+        return along(along(tile, 2, h), 3, w)
+    return along(tile.index_select(2, _tile_rows(h, *band, tile.device)), 3, w)
 
 
-def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def resize_nearest(x: torch.Tensor, h: int, w: int,
+                   band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """NCHW nearest resize as ``jax.image.resize(method="nearest")`` samples:
     source index floor((i + 0.5) * in / out) in float32 (half-pixel
-    centres, which ``F.interpolate(mode="nearest")`` does not use)."""
+    centres, which ``F.interpolate(mode="nearest")`` does not use).
+    ``band`` = (first, count): only those output rows of H (a height
+    shard's band)."""
     for dim, out in ((2, h), (3, w)):
         m = x.shape[dim]
-        if m != out:
-            pos = (torch.arange(out, dtype=torch.float32, device=x.device)
-                   + 0.5) * m / out
+        first, count = band if dim == 2 and band is not None else (0, out)
+        if m != out or count != out:
+            pos = (torch.arange(first, first + count, dtype=torch.float32,
+                                device=x.device) + 0.5) * m / out
             x = x.index_select(dim, torch.floor(pos).long())
     return x
 
@@ -72,7 +106,13 @@ class SPADE(nn.Module):
     border, clipped at 2, so this equals the full-resolution maps exactly.
     Smaller maps, and 4-D (N, label_nc, h, w) segmaps (resized to x's size
     first), take the full-resolution convs.
+
+    With a height shard attached, x is a band of rows: the maps are built
+    for the band's global rows (the tile's rows by global row, the segmap
+    resized by global source row, the full-resolution convs on the band).
     """
+
+    shard = None  # a parallel.spatial.HeightShard: x is a band of rows
 
     def __init__(self, norm_nc: int, label_nc: int, hidden_nc: int = 128,
                  kernel_size: int = 3, dtype: torch.dtype = torch.float32):
@@ -85,23 +125,30 @@ class SPADE(nn.Module):
         self.mlp_gamma = Conv2d(hidden_nc, norm_nc, ks, **conv)
         self.mlp_beta = Conv2d(hidden_nc, norm_nc, ks, **conv)
 
-    def _mlp(self, seg: torch.Tensor):
-        actv = F.relu(self.mlp_shared(seg))
-        return self.mlp_gamma(actv), self.mlp_beta(actv)
+    def _mlp(self, seg: torch.Tensor, shard=None):
+        actv = F.relu(self.mlp_shared.run(seg, shard))
+        return self.mlp_gamma.run(actv, shard), self.mlp_beta.run(actv, shard)
 
     def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
         n, _, h, w = x.shape
-        normalized = instance_norm(x)
-        if segmap.dim() == 2 and h >= 7 and w >= 7:
+        shard = self.shard
+        # the image's rows at this scale, and the band's (first, count)
+        rows, band = h, None
+        if shard is not None:
+            first, rows = shard.rows(h)
+            band = (first, h)
+        normalized = instance_norm(x, shard=shard)
+        if segmap.dim() == 2 and rows >= 7 and w >= 7:
             seg = segmap[:, :, None, None].to(self.dtype).expand(
                 n, self.label_nc, 7, 7)
             g7, b7 = self._mlp(seg)
-            scale = _expand_from_tile(1.0 + g7, h, w)
-            beta = _expand_from_tile(b7, h, w)
+            scale = _expand_from_tile(1.0 + g7, rows, w, band)
+            beta = _expand_from_tile(b7, rows, w, band)
         else:
             if segmap.dim() == 2:
                 segmap = segmap[:, :, None, None]
-            gamma, beta = self._mlp(resize_nearest(segmap, h, w).to(self.dtype))
+            gamma, beta = self._mlp(
+                resize_nearest(segmap, rows, w, band).to(self.dtype), shard)
             scale = 1.0 + gamma
         return (normalized * scale + beta).to(x.dtype)
 
@@ -109,6 +156,8 @@ class SPADE(nn.Module):
 class AdaIN(nn.Module):
     """Adaptive instance norm driven by a style vector: two dense heads give
     per-(n, c) gamma and beta for the fused modulated instance norm."""
+
+    shard = None  # a parallel.spatial.HeightShard: x is a band of rows
 
     def __init__(self, norm_nc: int, hidden_nc: int = 128,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = True):
@@ -126,8 +175,16 @@ class AdaIN(nn.Module):
                 f"style feature must be ({n}, {self.hidden_nc}), got {got}")
         gamma = self.mlp_gamma(style_feat)
         beta = self.mlp_beta(style_feat)
-        return modulated_instance_norm(x, gamma, beta,
-                                       use_kernel=self.use_pallas)
+        return _styled_norm(x, gamma, beta, self.shard, self.use_pallas)
+
+
+def _styled_norm(x, gamma, beta, shard, use_kernel):
+    """The modulated instance norm of whole images, or of a height shard's
+    band of rows."""
+    if shard is None:
+        return modulated_instance_norm(x, gamma, beta, use_kernel=use_kernel)
+    return sharded_modulated_instance_norm(x, gamma, beta, shard=shard,
+                                           use_kernel=use_kernel)
 
 
 def sean_label_index(labels: torch.Tensor) -> torch.Tensor:
@@ -167,6 +224,8 @@ class SEAN(nn.Module):
     right way round), ``sum``, ``sumsq`` (2**label_nc, hidden_nc) and
     ``count`` (2**label_nc,) accumulating until ``sean_update_stats``.
     """
+
+    shard = None  # a parallel.spatial.HeightShard: x is a band of rows
 
     def __init__(self, embed_nc: int, norm_nc: int, label_nc: int,
                  hidden_nc: int = 128, style_distill: bool = False,
@@ -217,7 +276,7 @@ class SEAN(nn.Module):
                                 _kl_with_logits(enc.mean(dim=1).float(), target)))
         gamma = self.mlp_gamma(mix)
         beta = self.mlp_beta(mix)
-        return modulated_instance_norm(x, gamma, beta, use_kernel=self.use_pallas)
+        return _styled_norm(x, gamma, beta, self.shard, self.use_pallas)
 
 
 @torch.no_grad()

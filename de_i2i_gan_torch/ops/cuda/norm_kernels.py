@@ -28,6 +28,13 @@ its outputs' shapes, so an exported graph holds the op and its artifact
 launches the kernel. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count the forward and backward kernels' launches, so a run can show its path
 went through them; ``TIER_LAUNCHES`` counts them by tier.
+
+The split forward, for rows split over ranks (height-sharded inference,
+``parallel/spatial.py``), is two more kernels of the same library and two
+more ops, forward only: ``modulated_instance_norm_moments`` (each row's f32
+sum and sum of squares, (2, N, C)) and ``modulated_instance_norm_apply`` (y
+from the row's mean and inv, given from outside). ``SPLIT_LAUNCHES`` counts
+their launches, apart from ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -71,8 +78,10 @@ SLICE_TENSORS = {"fwd": 1, "bwd": 2}  # x; x and dy
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 TIER_LAUNCHES = {op: dict.fromkeys(TIERS, 0) for op in SLICE_TENSORS}
+# the split forward's launches since the last reset
+SPLIT_LAUNCHES = {"moments": 0, "apply": 0}
 
-_fn = None  # (forward, backward, occupancy) entry points once loaded
+_fn = None  # (forward, backward, occupancy, moments, apply) once loaded
 
 
 class Plan(NamedTuple):
@@ -222,7 +231,17 @@ def _kernel():
                         ctypes.POINTER(ctypes.c_int),
                         ctypes.POINTER(ctypes.c_int)]
         occ.restype = ctypes.c_int
-        _fn = (fwd, bwd, occ)
+        moments = lib.dig_modulated_instance_norm_moments
+        moments.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        moments.restype = ctypes.c_int
+        apply = lib.dig_modulated_instance_norm_apply
+        apply.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        apply.restype = ctypes.c_int
+        _fn = (fwd, bwd, occ, moments, apply)
     return _fn
 
 
@@ -251,8 +270,7 @@ def occupancy(op: str, hw: int, dtype: torch.dtype, act: Optional[str] = None,
     return p, blocks.value, clusters.value
 
 
-def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-           act: Optional[str]) -> None:
+def _check_x(x: torch.Tensor) -> None:
     if not x.is_cuda:
         raise ValueError(
             f"the CUDA kernel takes CUDA tensors, got x on {x.device}; CPU "
@@ -263,6 +281,11 @@ def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"x must be non-empty NCHW, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("x must be NCHW-contiguous")
+
+
+def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+           act: Optional[str]) -> None:
+    _check_x(x)
     n, c = x.shape[:2]
     for name, t in (("gamma", gamma), ("beta", beta)):
         if t.shape != (n, c):
@@ -350,6 +373,47 @@ def modulated_instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor,
     return dx, dg, db
 
 
+def modulated_instance_norm_moments(x: torch.Tensor) -> torch.Tensor:
+    """Launch the moments kernel: the float32 (2, N, C) sums of x and of
+    x**2 over each (n, c) row of NCHW-contiguous CUDA x (this rank's rows
+    of it)."""
+    _check_x(x)
+    n, c, h, w = x.shape
+    sums = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _kernel()[3](x.data_ptr(), sums.data_ptr(), n * c, h * w,
+                      DTYPE_CODES[x.dtype], x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"moments kernel launch failed: cudaError {rc}")
+    SPLIT_LAUNCHES["moments"] += 1
+    return sums
+
+
+def modulated_instance_norm_apply(x: torch.Tensor, mean: torch.Tensor,
+                                  inv: torch.Tensor, gamma: torch.Tensor,
+                                  beta: torch.Tensor, act: Optional[str] = None
+                                  ) -> torch.Tensor:
+    """Launch the apply kernel: ``act((x - mean) * inv * (1 + gamma) +
+    beta)`` in x's dtype for NCHW-contiguous CUDA x and (N, C) mean, inv
+    (float32), gamma and beta."""
+    _check(x, gamma, beta, act)
+    n, c, h, w = x.shape
+    for name, t in (("mean", mean), ("inv", inv)):
+        if t.shape != (n, c) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name} must be float32 ({n}, {c}) on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    args = [t.to(torch.float32).contiguous() for t in (mean, inv, gamma, beta)]
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _kernel()[4](x.data_ptr(), *(t.data_ptr() for t in args), y.data_ptr(),
+                      n * c, h * w, ACT_CODES[act], DTYPE_CODES[x.dtype],
+                      x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"apply kernel launch failed: cudaError {rc}")
+    SPLIT_LAUNCHES["apply"] += 1
+    return y
+
+
 # ------------------------------------------------- the torch.library ops
 # Both kernels are custom ops, so that torch.export and FakeTensor tracing
 # see through them: a CUDA implementation (the launch above), a CPU one (the
@@ -430,3 +494,63 @@ def cuda_modulated_instance_norm(x: torch.Tensor, gamma: torch.Tensor,
                                  eps: float = 1e-5) -> torch.Tensor:
     """The forward op's y, differentiable through the backward op."""
     return _fwd_op(x, gamma, beta, act, eps)[0]
+
+
+# The split forward's ops: inference only, so no autograd formula; a call on
+# a tensor that requires grad raises before the op (``split_moments``,
+# ``split_apply``).
+@torch.library.custom_op(f"{OPS}::modulated_instance_norm_moments",
+                         mutates_args=(), device_types="cuda")
+def _moments_op(x: Tensor) -> Tensor:
+    return modulated_instance_norm_moments(x)
+
+
+@_moments_op.register_kernel("cpu")
+def _moments_op_cpu(x):
+    from de_i2i_gan_torch.ops.fused import modulated_instance_norm_moments_ref
+    return modulated_instance_norm_moments_ref(x)
+
+
+@_moments_op.register_fake
+def _moments_op_fake(x):
+    return x.new_empty((2, *x.shape[:2]), dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{OPS}::modulated_instance_norm_apply",
+                         mutates_args=(), device_types="cuda")
+def _apply_op(x: Tensor, mean: Tensor, inv: Tensor, gamma: Tensor,
+              beta: Tensor, act: Optional[str]) -> Tensor:
+    return modulated_instance_norm_apply(x, mean, inv, gamma, beta, act)
+
+
+@_apply_op.register_kernel("cpu")
+def _apply_op_cpu(x, mean, inv, gamma, beta, act):
+    from de_i2i_gan_torch.ops.fused import modulated_instance_norm_apply_ref
+    return modulated_instance_norm_apply_ref(x, mean, inv, gamma, beta,
+                                             act).contiguous()
+
+
+@_apply_op.register_fake
+def _apply_op_fake(x, mean, inv, gamma, beta, act):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _forward_only(*ts: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "the split modulated instance norm is inference only: call it "
+            "under torch.no_grad() on tensors that do not require grad")
+
+
+def split_moments(x: torch.Tensor) -> torch.Tensor:
+    """The moments op's (2, N, C) float32 sums; forward only."""
+    _forward_only(x)
+    return _moments_op(x)
+
+
+def split_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+                gamma: torch.Tensor, beta: torch.Tensor,
+                act: Optional[str] = None) -> torch.Tensor:
+    """The apply op's y; forward only."""
+    _forward_only(x, mean, inv, gamma, beta)
+    return _apply_op(x, mean, inv, gamma, beta, act)

@@ -14,6 +14,12 @@ Dispatch of ``modulated_instance_norm``:
                             the backward pass (each launches or raises)
     CPU        any          the plain version
     CUDA       False        the plain version (cfg.use_pallas=False)
+
+``sharded_modulated_instance_norm`` is the same function on a band of rows
+of each image (height-sharded inference, ``parallel/spatial.py``): the
+moments of the band (the moments kernel, or its plain version), their
+all-reduce over the band's group, and the apply (the apply kernel, or its
+plain version) with the whole row's mean and inv, dispatched as above.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from de_i2i_gan_torch.ops.cuda.norm_kernels import cuda_modulated_instance_norm
+from de_i2i_gan_torch.ops.cuda.norm_kernels import (
+    cuda_modulated_instance_norm, split_apply, split_moments)
 
 
 def _apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -96,6 +103,61 @@ def modulated_instance_norm(x: torch.Tensor, gamma: torch.Tensor,
     if use_kernel and x.is_cuda:
         return cuda_modulated_instance_norm(x, gamma, beta, act, eps)
     return modulated_instance_norm_ref(x, gamma, beta, act, eps)[0]
+
+
+def modulated_instance_norm_moments_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain moments: the float32 (2, N, C) sums of x and of x**2 over each
+    (n, c) row of NCHW x."""
+    xf = x.float()
+    return torch.stack([xf.sum(dim=(2, 3)), xf.square().sum(dim=(2, 3))])
+
+
+def moments_to_stats(sums: torch.Tensor, count: int, eps: float = 1e-5
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, inv) of rows of ``count`` elements from their (2, N, C) sums,
+    as the fused kernel computes them: var = max(E[x^2] - mean^2, 0), inv =
+    rsqrt(var + eps), in float32. The count divides as a tensor: a Python
+    number would divide on the card as a multiplication by its reciprocal,
+    an ulp off the kernel's division."""
+    n = sums.new_tensor(float(count))
+    mean = sums[0] / n
+    var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def modulated_instance_norm_apply_ref(x: torch.Tensor, mean: torch.Tensor,
+                                      inv: torch.Tensor, gamma: torch.Tensor,
+                                      beta: torch.Tensor,
+                                      act: Optional[str] = None) -> torch.Tensor:
+    """Plain apply: ``act(x * scale + shift)`` with scale = inv * (1 +
+    gamma) and shift = beta - mean * scale, per (n, c), in float32; y in
+    x's dtype."""
+    scale = inv.float() * (1.0 + gamma.float())
+    shift = beta.float() - mean.float() * scale
+    y = x.float() * scale[:, :, None, None] + shift[:, :, None, None]
+    return _apply_act(y, act).to(x.dtype)
+
+
+def sharded_modulated_instance_norm(x: torch.Tensor, gamma: torch.Tensor,
+                                    beta: torch.Tensor,
+                                    act: Optional[str] = None,
+                                    eps: float = 1e-5, shard=None,
+                                    use_kernel: bool = True) -> torch.Tensor:
+    """``modulated_instance_norm`` of images whose rows are split over the
+    ranks of ``shard`` (a ``parallel.spatial.HeightShard``; None: x holds
+    whole images): x is this rank's band. One all-reduce of the band's
+    (2, N, C) sums gives every rank the whole row's mean and inv. Forward
+    only: a tensor that requires grad raises on the kernel path."""
+    kernel = use_kernel and x.is_cuda
+    sums = split_moments(x) if kernel else modulated_instance_norm_moments_ref(x)
+    count = x.shape[2] * x.shape[3]
+    if shard is not None:
+        shard.all_reduce(sums)
+        count *= shard.size
+    mean, inv = moments_to_stats(sums, count, eps)
+    if kernel:
+        return split_apply(x, mean, inv, gamma, beta, act)
+    return modulated_instance_norm_apply_ref(x, mean, inv, gamma, beta, act)
 
 
 # loaders may ship images as u8 [0,255]; the first thing a step does is

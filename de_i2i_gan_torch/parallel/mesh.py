@@ -21,7 +21,8 @@ resolves ``--data_parallel`` as the JAX function does; ``replicate``
 broadcasts rank 0's state after init or resume (``put_replicated``);
 ``shard_batch`` takes this rank's rows of a global batch;
 ``make_parallel_step`` attaches the group to a steps object. The spatial
-mesh (``spatial_sharded_inference``) is not ported (ROADMAP A.9).
+axis (``make_mesh(n, spatial)``, ``spatial_sharded_inference``) is
+``parallel/spatial.py``.
 """
 from __future__ import annotations
 

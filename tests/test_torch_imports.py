@@ -15,9 +15,10 @@
   ``data/starganv2_data.py``, ``utils/translate.py``), serving
   (``serving.py``, ``cli/export_model.py``, ``cli/translate_folder.py``)
   and the metrics (``cli/fid.py``, ``metrics/eval_starganv2.py``), data
-  parallelism (``parallel/``) and the tools (``utils/profiling.py``,
-  ``cli/sweep.py``) parses no arguments, starts no thread, joins no process
-  group and writes nothing.
+  parallelism and height-sharded inference (``parallel/``), the reference
+  checkpoint import (``train/torch_import.py``) and the tools
+  (``utils/profiling.py``, ``cli/sweep.py``) parses no arguments, starts no
+  thread, joins no process group and writes nothing.
 """
 import os
 import subprocess
@@ -60,7 +61,7 @@ for want in ("cli.train_defectgan", "cli.test_defectgan", "config.options",
              "cli.translate_folder", "cli.fid", "metrics.inception",
              "metrics.lpips", "metrics.fid", "metrics.eval_starganv2",
              "parallel.distributed", "parallel.mesh", "utils.profiling",
-             "cli.sweep"):
+             "cli.sweep", "parallel.spatial", "train.torch_import"):
     assert "de_i2i_gan_torch." + want in names, want
 # the files that run on the card only: check their imports statically
 card = set()
@@ -141,6 +142,8 @@ import de_i2i_gan_torch.cli.fid
 import de_i2i_gan_torch.metrics.eval_starganv2
 import de_i2i_gan_torch.parallel.distributed
 import de_i2i_gan_torch.parallel.mesh
+import de_i2i_gan_torch.parallel.spatial
+import de_i2i_gan_torch.train.torch_import
 import de_i2i_gan_torch.utils.profiling
 import de_i2i_gan_torch.cli.sweep
 import torch.distributed

@@ -23,6 +23,13 @@ losses within rtol 2e-4, its gradients, as (after - before) / lr under SGD,
 within 1e-3 of each tensor's L2 norm plus 1e-5 per element in L2 (a ReLU
 gate whose input lies within rounding of 0 can fall either way on two
 devices and move single upstream elements past an element-wise bound).
+The split forward (moments, apply) against its plain versions: the (2, N,
+C) sums within 1e-5 of the sum of the absolute terms (f32 sums in another
+order), y within the forward's tolerances on the same mean and inv; one
+band through the split ops equals tier S of the fused kernel: the moments
+are its pass-1 sums bit for bit (the same loop), so mean is equal, inv
+within 2 f32 ulps (the fused kernel takes rsqrtf and may fuse var's
+multiply-subtract), y within that.
 """
 import pytest
 import torch
@@ -767,3 +774,92 @@ def test_exported_generator_on_card_launches_the_kernel(style, tmp_path):
         want = serving.defectgan_serving_module(steps)(*args)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
+
+
+def _split_inputs(shape, dt, gen):
+    n, c = shape[:2]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 1).to(dt)
+    g = torch.randn((n, c), generator=gen, device="cuda") * 0.5
+    b = torch.randn((n, c), generator=gen, device="cuda") * 0.5
+    return x, g, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_kernels_match_plain_on_card(dtype):
+    """The moments and apply kernels on an aligned band (vector loop), a
+    ragged one (scalar loop) and an unaligned view (scalar loop), every
+    activation; one launch each, counted apart from the fused kernels."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    aligned = _split_inputs((4, 8, 32, 64), dt, gen)
+    ragged = _split_inputs((3, 5, 7, 9), dt, gen)
+    x, g, b = _split_inputs((4, 8, 32, 64), dt, gen)
+    buf = torch.empty(x.numel() + 1, dtype=dt, device="cuda")
+    unaligned = (buf[1:].view(x.shape).copy_(x), g, b)  # 16-byte misaligned
+    assert unaligned[0].data_ptr() % 16
+    tol = (dict(atol=TOL, rtol=TOL) if dt == torch.float32
+           else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+    for x, g, b in (aligned, ragged, unaligned):
+        before = dict(norm_kernels.SPLIT_LAUNCHES)
+        fused_before = norm_kernels.LAUNCHES
+        sums = norm_kernels.modulated_instance_norm_moments(x)
+        ref = fused.modulated_instance_norm_moments_ref(x)
+        xf = x.float()
+        terms = torch.stack([xf.abs().sum(dim=(2, 3)),
+                             xf.square().sum(dim=(2, 3))])
+        assert ((sums - ref).abs() <= SUM_BAND * terms).all()
+        mean, inv = fused.moments_to_stats(ref, x.shape[2] * x.shape[3])
+        for act in ACTS:
+            y = norm_kernels.modulated_instance_norm_apply(x, mean, inv, g, b,
+                                                           act)
+            torch.cuda.synchronize()
+            ry = fused.modulated_instance_norm_apply_ref(x, mean, inv, g, b,
+                                                         act)
+            assert y.dtype == dt and y.shape == x.shape
+            torch.testing.assert_close(y.float(), ry.float(), **tol)
+        assert norm_kernels.SPLIT_LAUNCHES == {
+            "moments": before["moments"] + 1,
+            "apply": before["apply"] + len(ACTS)}
+        assert norm_kernels.LAUNCHES == fused_before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_band_equals_the_fused_kernel(dtype):
+    _need_card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for shape in [(4, 16, 64, 64), (3, 5, 7, 9)]:
+        x, g, b = _split_inputs(shape, dt, gen)
+        for act in ACTS:
+            y, mean, inv = norm_kernels.modulated_instance_norm_fwd(
+                x, g, b, act, tier="S")
+            sums = norm_kernels.split_moments(x)
+            smean, sinv = fused.moments_to_stats(sums, shape[2] * shape[3])
+            assert torch.equal(smean, mean)
+            torch.testing.assert_close(sinv, inv, rtol=2 ** -22, atol=0)
+            sy = norm_kernels.split_apply(x, smean, sinv, g, b, act)
+            tol = (dict(atol=TOL, rtol=TOL) if dt == torch.float32
+                   else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+            torch.testing.assert_close(sy.float(), y.float(), **tol)
+            out = fused.sharded_modulated_instance_norm(x, g, b, act)
+            torch.testing.assert_close(out.float(), y.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_split_ops_on_card():
+    """opcheck of the split ops' CUDA implementations; a CUDA tensor that
+    requires grad is refused."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, g, b = _split_inputs((2, 16, 32, 32), torch.bfloat16, gen)
+    moments = torch.ops.de_i2i_gan_torch.modulated_instance_norm_moments
+    apply = torch.ops.de_i2i_gan_torch.modulated_instance_norm_apply
+    torch.library.opcheck(moments.default, (x,))
+    mean, inv = fused.moments_to_stats(moments(x), 32 * 32)
+    for act in ACTS:
+        torch.library.opcheck(apply.default, (x, mean, inv, g, b, act))
+    with pytest.raises(RuntimeError, match="inference only"):
+        norm_kernels.split_moments(x.clone().requires_grad_())

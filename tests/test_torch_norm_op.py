@@ -3,8 +3,9 @@
 registrations (``torch.library.opcheck``), their CPU implementations (the
 plain versions of ``ops/fused.py``, bit for bit), and a module that calls
 the forward op exported with ``torch.export``, its node kept through a
-save and a load. The CUDA implementations run on the card only
-(``tests/test_torch_kernel_gpu.py``).
+save and a load. The split forward's two ops (moments, apply; inference
+only) the same way, and refusing a tensor that requires grad. The CUDA
+implementations run on the card only (``tests/test_torch_kernel_gpu.py``).
 """
 import pytest
 import torch
@@ -17,6 +18,8 @@ torch.set_num_threads(1)
 
 FWD = torch.ops.de_i2i_gan_torch.modulated_instance_norm_fwd
 BWD = torch.ops.de_i2i_gan_torch.modulated_instance_norm_bwd
+MOMENTS = torch.ops.de_i2i_gan_torch.modulated_instance_norm_moments
+APPLY = torch.ops.de_i2i_gan_torch.modulated_instance_norm_apply
 ACTS = [None, "relu", "leaky_relu"]
 DTYPES = ["float32", "bfloat16"]
 
@@ -127,3 +130,31 @@ def test_module_calling_the_op_exports(tmp_path):
         s = torch.randn(n, 5, generator=gen)
         with torch.no_grad():
             assert torch.equal(loaded.module()(x, s), net(x, s))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ACTS)
+def test_split_ops(dtype, act):
+    """opcheck of the moments and apply ops; their CPU results are the
+    plain versions bit for bit."""
+    x, g, b = _inputs(dtype, 4)
+    torch.library.opcheck(MOMENTS.default, (x,))
+    sums = MOMENTS(x)
+    assert torch.equal(sums, fused.modulated_instance_norm_moments_ref(x))
+    mean, inv = fused.moments_to_stats(sums, x.shape[2] * x.shape[3])
+    torch.library.opcheck(APPLY.default, (x, mean, inv, g, b, act))
+    assert torch.equal(APPLY(x, mean, inv, g, b, act),
+                       fused.modulated_instance_norm_apply_ref(
+                           x, mean, inv, g, b, act))
+
+
+def test_split_ops_are_inference_only():
+    x, g, b = _inputs("float32", 5)
+    mean, inv = fused.moments_to_stats(
+        fused.modulated_instance_norm_moments_ref(x), 20)
+    with pytest.raises(RuntimeError, match="inference only"):
+        norm_kernels.split_moments(x.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="inference only"):
+        norm_kernels.split_apply(x, mean, inv, g.requires_grad_(), b)
+    with torch.no_grad():
+        assert norm_kernels.split_moments(x.requires_grad_()).shape == (2, 2, 3)

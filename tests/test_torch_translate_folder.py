@@ -2,8 +2,8 @@
 tail), SEAN and SPADE, from a checkpoint of weights carried from one JAX
 init (``tests/test_torch_serving.py::defectgan``); the written PNGs agree
 within 1 count with the JAX package's ``G.apply`` on the same
-``EvalTransform`` inputs (float32). ``--spatial 2`` waits for ROADMAP A.9
-and AdaIN, which needs a style code a folder does not give, is refused.
+``EvalTransform`` inputs (float32). AdaIN, which needs a style code a folder
+does not give, is refused. ``--spatial``: ``tests/test_torch_spatial_cli.py``.
 """
 import numpy as np
 import pytest
@@ -67,11 +67,6 @@ def test_translate_folder_matches_jax(style, tmp_path):
         got = np.asarray(Image.open(tmp_path / "out" / name))
         assert got.shape == (32, 32, 3) and got.dtype == np.uint8
         assert np.abs(got.astype(int) - w.astype(int)).max() <= COUNT, name
-
-
-def test_spatial_waits_for_a9(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.9"):
-        translate_folder.main(_argv(tmp_path, "sean", "--spatial", "2"))
 
 
 def test_adain_needs_a_style(tmp_path):
