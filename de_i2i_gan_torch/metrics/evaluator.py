@@ -27,6 +27,7 @@ from de_i2i_gan_torch.metrics.fid import (
 from de_i2i_gan_torch.metrics.inception import (
     BLOCK_INDEX_BY_DIM, seeded_inception)
 from de_i2i_gan_torch.metrics.lpips import pairwise_lpips, seeded_lpips
+from de_i2i_gan_torch.utils import profiling
 
 
 class Evaluator:
@@ -49,7 +50,7 @@ class Evaluator:
         """NHWC images in [-1, 1] -> (N, dims) float32 features on the
         device (a map tap averaged over space), in the profiler range
         ``evaluator.inception``."""
-        with torch.profiler.record_function("evaluator.inception"):
+        with profiling.span("evaluator.inception"):
             feats = self.inception(torch.as_tensor(imgs, device=self.device)
                                    )[self.block]
             return feats.mean(dim=(1, 2)) if feats.dim() == 4 else feats

@@ -35,6 +35,7 @@ from de_i2i_gan_torch.nn.normalization import (
     DistillTerms,
     instance_norm,
 )
+from de_i2i_gan_torch.utils import profiling
 
 Padding = Union[int, str]
 
@@ -167,7 +168,7 @@ class BatchNorm(nn.Module):
             raise ValueError(
                 f"batch {x.shape[0]} not divisible into {bn_groups} BN groups")
         if self.group is not None:
-            with torch.profiler.record_function("parallel.batch_norm"):
+            with profiling.span("parallel.batch_norm"):
                 return self._global(x, bn_groups)
         parts = []
         for part in x.chunk(bn_groups, dim=0):

@@ -27,7 +27,9 @@ plain version, and under FakeTensor tracing (``torch.export``) each gives
 its outputs' shapes, so an exported graph holds the op and its artifact
 launches the kernel. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count the forward and backward kernels' launches, so a run can show its path
-went through them; ``TIER_LAUNCHES`` counts them by tier.
+went through them; ``TIER_LAUNCHES`` counts them by tier. Their sum is the
+counter source ``norm.launches`` of ``utils/profiling.py``, so each
+recorded span carries the launches made inside it.
 
 The split forward, for rows split over ranks (height-sharded inference,
 ``parallel/spatial.py``), is two more kernels of the same library and two
@@ -49,6 +51,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from de_i2i_gan_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "modulated_instance_norm.cu"
@@ -80,6 +84,8 @@ BWD_LAUNCHES = 0
 TIER_LAUNCHES = {op: dict.fromkeys(TIERS, 0) for op in SLICE_TENSORS}
 # the split forward's launches since the last reset
 SPLIT_LAUNCHES = {"moments": 0, "apply": 0}
+# a span's change in the fused kernels' launches, forward and backward
+profiling.register_counter("norm.launches", lambda: LAUNCHES + BWD_LAUNCHES)
 
 _fn = None  # (forward, backward, occupancy, moments, apply) once loaded
 

@@ -45,6 +45,7 @@ import torch.distributed as dist
 from torch import nn
 
 from de_i2i_gan_torch.nn.layers import Pads, pad_image
+from de_i2i_gan_torch.utils import profiling
 
 # the widest halo a band of the DefectGAN generator sends at full
 # resolution (the 7x7 stem) and at every lower scale (3x3 convs; the 4x4
@@ -73,7 +74,7 @@ class HeightShard:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the spatial group, in place."""
-        with torch.profiler.record_function("spatial.moments"):
+        with profiling.span("spatial.moments"):
             dist.all_reduce(t, group=self.group)
         return t
 
@@ -83,7 +84,7 @@ class HeightShard:
         below; returns (the rows the band above sent, the rows the band below
         sent), None at the image's top and bottom. Every band sends the same
         shapes, so each receives the shape it sends the other way."""
-        with torch.profiler.record_function("spatial.halo"):
+        with profiling.span("spatial.halo"):
             device = to_prev.device
             prev = self.ranks[self.index - 1] if self.index > 0 else None
             nxt = self.ranks[self.index + 1] if self.index + 1 < self.size else None

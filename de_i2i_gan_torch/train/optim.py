@@ -25,6 +25,7 @@ import torch
 
 from de_i2i_gan_torch.config import TrainConfig
 from de_i2i_gan_torch.parallel import distributed
+from de_i2i_gan_torch.utils import profiling
 
 
 def lr_schedule(tcfg: TrainConfig, base_lr: float, iters_per_epoch: int,
@@ -109,7 +110,7 @@ class Optimizer:
     (``parallel/mesh.py::make_parallel_step``) an update applies the mean
     of the ranks' gradients: one flattened all-reduce of the network's
     gradients, the per-network all-reduce GSPMD inserts in the JAX step, in
-    the profiler range ``parallel.grad_all_reduce``."""
+    the span ``parallel.grad_all_reduce`` (``utils/profiling.py``)."""
 
     group = None
 
@@ -123,20 +124,22 @@ class Optimizer:
         self.count = 0
 
     def step(self, grads) -> None:
-        """One update from ``grads`` (one per parameter, in order)."""
-        lr = self.schedule(self.count)
-        if self.group is not None:
-            with torch.profiler.record_function("parallel.grad_all_reduce"):
-                grads = [g.clone() for g in grads]
-                distributed.all_reduce_(grads, self.group, average=True)
-        for p, g in zip(self.params, grads, strict=True):
-            p.grad = g
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
-        for p in self.params:
-            p.grad = None
-        self.count += 1
+        """One update from ``grads`` (one per parameter, in order), in the
+        span ``optim.step``."""
+        with profiling.span("optim.step"):
+            lr = self.schedule(self.count)
+            if self.group is not None:
+                with profiling.span("parallel.grad_all_reduce"):
+                    grads = [g.clone() for g in grads]
+                    distributed.all_reduce_(grads, self.group, average=True)
+            for p, g in zip(self.params, grads, strict=True):
+                p.grad = g
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            self.opt.step()
+            for p in self.params:
+                p.grad = None
+            self.count += 1
 
 
 def make_optimizer(tcfg: TrainConfig, params: Iterable[torch.Tensor],

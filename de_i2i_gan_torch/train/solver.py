@@ -68,6 +68,7 @@ from de_i2i_gan_torch.models.starganv2 import (
     sean_v2_update_stats)
 from de_i2i_gan_torch.nn.blocks import MaskToken
 from de_i2i_gan_torch.train.optim import ema_update, make_solver_optimizer
+from de_i2i_gan_torch.utils import profiling
 from de_i2i_gan_torch.utils.diffaug import diff_augment
 from de_i2i_gan_torch.utils.masks import generate_shifted_mask
 
@@ -169,14 +170,14 @@ class StarGANv2Solver:
         """The frozen ViT's CLS embedding of x_fake, (N, 1, hidden) (JAX
         :174); differentiable in x_fake only. Its ops run in the profiler
         range ``solver.embed_fake``."""
-        with torch.profiler.record_function("solver.embed_fake"):
+        with profiling.span("solver.embed_fake"):
             return self.vit(x_fake)[:, 0, :][:, None, :]
 
     def _heatmaps(self, x: torch.Tensor):
         """FAN get_heatmap of NHWC x (wing.py:248-261, JAX ``_heatmaps_fake``
         :186): the two masks, without gradients, in the profiler range
         ``solver.heatmaps``."""
-        with torch.profiler.record_function("solver.heatmaps"):
+        with profiling.span("solver.heatmaps"):
             return wing.fan_masks(self.fan, x.detach())
 
     def nets(self) -> Dict[str, torch.nn.Module]:

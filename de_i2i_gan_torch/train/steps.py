@@ -34,6 +34,10 @@ updates, as ``state.step`` does. Random draws (noise injection,
 DiffAugment) come from the ``generator`` a call is given, or torch's
 default generator of the device.
 
+Each step runs in a span of ``utils/profiling.py`` (``train.super_step``,
+``train.d_step``, ``train.g_step``), each backward pass in
+``train.backward``; the optimizers' updates are ``optim.step``.
+
 D and the three optimizers are built at the first training call
 (``init_training``), so a ``DefectGanSteps`` that only serves holds G and E
 alone. With ``remat`` the G step's G forwards keep no activations and run
@@ -56,6 +60,7 @@ from de_i2i_gan_torch.nn.normalization import sean_update_stats
 from de_i2i_gan_torch.ops.fused import batch_images_to_float
 from de_i2i_gan_torch.train.optim import ema_update, make_optimizer
 from de_i2i_gan_torch.train.remat import remat
+from de_i2i_gan_torch.utils import profiling
 from de_i2i_gan_torch.utils.diffaug import diff_augment
 from de_i2i_gan_torch.utils.labels import normal_labels
 
@@ -152,129 +157,138 @@ class DefectGanSteps:
         """One D update. batch: NHWC ``bg``, ``df`` and (B, label_nc)
         ``df_labels`` (SEAN: also (B, num_embeds, embed_nc) ``nm_embeds``
         and ``df_embeds``). Returns the loss terms as 0-d tensors."""
-        self.init_training()
-        cfg, tcfg = self.cfg, self.tcfg
-        batch = self._batch(batch)
-        bg, df, df_labels = batch["bg"], batch["df"], batch["df_labels"]
-        nm_labels = normal_labels(df_labels)
-        b = bg.shape[0]
+        with profiling.span("train.d_step"):
+            self.init_training()
+            cfg, tcfg = self.cfg, self.tcfg
+            batch = self._batch(batch)
+            bg, df, df_labels = batch["bg"], batch["df"], batch["df_labels"]
+            nm_labels = normal_labels(df_labels)
+            b = bg.shape[0]
 
-        # fakes from the frozen generator, in eval mode
-        self.G.eval()
-        with torch.no_grad():
-            nm_feat, df_feat = self._style_feats(batch, nm_labels, generator)
-            if cfg.fused_g_forward:
-                fakes, _ = self.G(torch.cat([bg, df]),
-                                  torch.cat([df_labels, nm_labels]),
-                                  _cat(df_feat, nm_feat), generator=generator)
-                fake_df, fake_nm = fakes[:b], fakes[b:]
-            else:
-                fake_df, _ = self.G(bg, df_labels, df_feat, generator=generator)
-                fake_nm, _ = self.G(df, nm_labels, nm_feat, generator=generator)
+            # fakes from the frozen generator, in eval mode
+            self.G.eval()
+            with torch.no_grad():
+                nm_feat, df_feat = self._style_feats(batch, nm_labels, generator)
+                if cfg.fused_g_forward:
+                    fakes, _ = self.G(torch.cat([bg, df]),
+                                      torch.cat([df_labels, nm_labels]),
+                                      _cat(df_feat, nm_feat), generator=generator)
+                    fake_df, fake_nm = fakes[:b], fakes[b:]
+                else:
+                    fake_df, _ = self.G(bg, df_labels, df_feat,
+                                        generator=generator)
+                    fake_nm, _ = self.G(df, nm_labels, nm_feat,
+                                        generator=generator)
 
-        quad = diff_augment(torch.cat([fake_df, fake_nm, df, bg]),
-                            tcfg.diff_aug, generator)
-        self.D.train()
-        src, cls = self.D(quad)
-        self.D.eval()
-        fd_src, fn_src, rd_src, rn_src = src.split(b)
-        rd_cls, rn_cls = cls[2 * b:3 * b], cls[3 * b:]
-        gan_loss = (bce_logits(fd_src, torch.zeros_like(fd_src)) +
-                    bce_logits(fn_src, torch.zeros_like(fn_src)) +
-                    bce_logits(rd_src, torch.ones_like(rd_src)) +
-                    bce_logits(rn_src, torch.ones_like(rn_src))) / 4.0
-        clf_loss = (cal_loss(rd_cls, df_labels, tcfg.clf_loss_type) +
-                    cal_loss(rn_cls, nm_labels, tcfg.clf_loss_type)) / 2.0
-        d_loss = gan_loss + clf_loss * tcfg.loss_weight[0]
-        self.tx_D.step(torch.autograd.grad(d_loss, self.tx_D.params))
-        self.step += 1
-        return {"gan_D": gan_loss.detach(), "clf_D": clf_loss.detach()}
+            quad = diff_augment(torch.cat([fake_df, fake_nm, df, bg]),
+                                tcfg.diff_aug, generator)
+            self.D.train()
+            src, cls = self.D(quad)
+            self.D.eval()
+            fd_src, fn_src, rd_src, rn_src = src.split(b)
+            rd_cls, rn_cls = cls[2 * b:3 * b], cls[3 * b:]
+            gan_loss = (bce_logits(fd_src, torch.zeros_like(fd_src)) +
+                        bce_logits(fn_src, torch.zeros_like(fn_src)) +
+                        bce_logits(rd_src, torch.ones_like(rd_src)) +
+                        bce_logits(rn_src, torch.ones_like(rn_src))) / 4.0
+            clf_loss = (cal_loss(rd_cls, df_labels, tcfg.clf_loss_type) +
+                        cal_loss(rn_cls, nm_labels, tcfg.clf_loss_type)) / 2.0
+            d_loss = gan_loss + clf_loss * tcfg.loss_weight[0]
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(d_loss, self.tx_D.params)
+            self.tx_D.step(grads)
+            self.step += 1
+            return {"gan_D": gan_loss.detach(), "clf_D": clf_loss.detach()}
 
     def g_step(self, batch, generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
         """One G (and E) update against the frozen D. Returns the loss terms
         as 0-d tensors (SEAN with ``style_distill``: also the means of the
         distillation terms, ``distill_latent`` and ``distill_embed``)."""
-        self.init_training()
-        cfg, tcfg = self.cfg, self.tcfg
-        _, w_clf_g, w_rec, w_sd_cyc, w_sd_con = tcfg.loss_weight
-        batch = self._batch(batch)
-        bg, df, df_labels = batch["bg"], batch["df"], batch["df_labels"]
-        nm_labels = normal_labels(df_labels)
-        b = bg.shape[0]
+        with profiling.span("train.g_step"):
+            self.init_training()
+            cfg, tcfg = self.cfg, self.tcfg
+            _, w_clf_g, w_rec, w_sd_cyc, w_sd_con = tcfg.loss_weight
+            batch = self._batch(batch)
+            bg, df, df_labels = batch["bg"], batch["df"], batch["df_labels"]
+            nm_labels = normal_labels(df_labels)
+            b = bg.shape[0]
 
-        sean = cfg.style_norm_block_type == "sean"
-        distill = [] if sean and cfg.style_distill else None
-        g_kw = dict(track_stats=sean and cfg.use_running_stats,
-                    distill=distill, generator=generator)
-        self.G.train()
-        nm_feat, df_feat = self._style_feats(batch, nm_labels, generator)
-        if cfg.fused_g_forward:
-            # both directions of each hop in one 2B call; BatchNorm keeps
-            # its statistics per direction (bn_groups=2)
-            h1_out, h1_p = self._g_train(torch.cat([bg, df]),
-                                         torch.cat([df_labels, nm_labels]),
-                                         _cat(df_feat, nm_feat), bn_groups=2,
-                                         **g_kw)
-            fake_df, fake_nm = h1_out[:b], h1_out[b:]
-            p_df, p_nm = h1_p[:b], h1_p[b:]
-            h2_out, h2_p = self._g_train(h1_out,
-                                         torch.cat([nm_labels, df_labels]),
-                                         _cat(nm_feat, df_feat), bn_groups=2,
-                                         **g_kw)
-            rec_nm, rec_df = h2_out[:b], h2_out[b:]
-            p_rec_df, p_rec_nm = h2_p[:b], h2_p[b:]
-        else:
-            fake_df, p_df = self._g_train(bg, df_labels, df_feat, **g_kw)
-            rec_nm, p_rec_df = self._g_train(fake_df, nm_labels, nm_feat, **g_kw)
-            fake_nm, p_nm = self._g_train(df, nm_labels, nm_feat, **g_kw)
-            rec_df, p_rec_nm = self._g_train(fake_nm, df_labels, df_feat, **g_kw)
-        self.G.eval()
+            sean = cfg.style_norm_block_type == "sean"
+            distill = [] if sean and cfg.style_distill else None
+            g_kw = dict(track_stats=sean and cfg.use_running_stats,
+                        distill=distill, generator=generator)
+            self.G.train()
+            nm_feat, df_feat = self._style_feats(batch, nm_labels, generator)
+            if cfg.fused_g_forward:
+                # both directions of each hop in one 2B call; BatchNorm keeps
+                # its statistics per direction (bn_groups=2)
+                h1_out, h1_p = self._g_train(torch.cat([bg, df]),
+                                             torch.cat([df_labels, nm_labels]),
+                                             _cat(df_feat, nm_feat), bn_groups=2,
+                                             **g_kw)
+                fake_df, fake_nm = h1_out[:b], h1_out[b:]
+                p_df, p_nm = h1_p[:b], h1_p[b:]
+                h2_out, h2_p = self._g_train(h1_out,
+                                             torch.cat([nm_labels, df_labels]),
+                                             _cat(nm_feat, df_feat), bn_groups=2,
+                                             **g_kw)
+                rec_nm, rec_df = h2_out[:b], h2_out[b:]
+                p_rec_df, p_rec_nm = h2_p[:b], h2_p[b:]
+            else:
+                fake_df, p_df = self._g_train(bg, df_labels, df_feat, **g_kw)
+                rec_nm, p_rec_df = self._g_train(fake_df, nm_labels, nm_feat,
+                                                 **g_kw)
+                fake_nm, p_nm = self._g_train(df, nm_labels, nm_feat, **g_kw)
+                rec_df, p_rec_nm = self._g_train(fake_nm, df_labels, df_feat,
+                                                 **g_kw)
+            self.G.eval()
 
-        # the frozen D, in eval mode, on the augmented fakes (one batched 2B
-        # call); only G and E receive gradients
-        src, cls = self.D(diff_augment(torch.cat([fake_df, fake_nm]),
-                                       tcfg.diff_aug, generator))
-        fd_src, fn_src = src[:b], src[b:]
-        fd_cls, fn_cls = cls[:b], cls[b:]
-        gan_loss = (bce_logits(fd_src, torch.ones_like(fd_src)) +
-                    bce_logits(fn_src, torch.ones_like(fn_src))) / 2.0
-        clf_loss = (cal_loss(fd_cls, df_labels, tcfg.clf_loss_type) +
-                    cal_loss(fn_cls, nm_labels, tcfg.clf_loss_type)) / 2.0
-        rec_loss = (l1(rec_df, df) + l1(rec_nm, bg)) / 2.0
-        if cfg.cycle_gan:
-            sd_cyc = sd_con = torch.zeros((), device=self.device)
-        else:
-            sd_cyc = (l1(p_df, p_rec_df) + l1(p_nm, p_rec_nm)) / 2.0
-            zero = torch.zeros_like(p_df)
-            sd_con = (l1(p_df, zero) + l1(p_nm, zero) +
-                      l1(p_rec_df, zero) + l1(p_rec_nm, zero)) / 4.0
-        g_loss = (gan_loss + clf_loss * w_clf_g + rec_loss * w_rec +
-                  sd_cyc * w_sd_cyc + sd_con * w_sd_con)
-        metrics = {"gan_G": gan_loss, "clf_G": clf_loss, "rec": rec_loss,
-                   "sd_cyc": sd_cyc, "sd_con": sd_con}
-        if distill:
-            # every SEAN layer's terms of every forward, as the reference
-            # backpropagates each: 0.1 * latent + embed
-            latent = torch.stack([t[0] for t in distill])
-            embed = torch.stack([t[1] for t in distill])
-            g_loss = g_loss + 0.1 * latent.sum() + embed.sum()
-            metrics["distill_latent"] = latent.mean()
-            metrics["distill_embed"] = embed.mean()
+            # the frozen D, in eval mode, on the augmented fakes (one batched 2B
+            # call); only G and E receive gradients
+            src, cls = self.D(diff_augment(torch.cat([fake_df, fake_nm]),
+                                           tcfg.diff_aug, generator))
+            fd_src, fn_src = src[:b], src[b:]
+            fd_cls, fn_cls = cls[:b], cls[b:]
+            gan_loss = (bce_logits(fd_src, torch.ones_like(fd_src)) +
+                        bce_logits(fn_src, torch.ones_like(fn_src))) / 2.0
+            clf_loss = (cal_loss(fd_cls, df_labels, tcfg.clf_loss_type) +
+                        cal_loss(fn_cls, nm_labels, tcfg.clf_loss_type)) / 2.0
+            rec_loss = (l1(rec_df, df) + l1(rec_nm, bg)) / 2.0
+            if cfg.cycle_gan:
+                sd_cyc = sd_con = torch.zeros((), device=self.device)
+            else:
+                sd_cyc = (l1(p_df, p_rec_df) + l1(p_nm, p_rec_nm)) / 2.0
+                zero = torch.zeros_like(p_df)
+                sd_con = (l1(p_df, zero) + l1(p_nm, zero) +
+                          l1(p_rec_df, zero) + l1(p_rec_nm, zero)) / 4.0
+            g_loss = (gan_loss + clf_loss * w_clf_g + rec_loss * w_rec +
+                      sd_cyc * w_sd_cyc + sd_con * w_sd_con)
+            metrics = {"gan_G": gan_loss, "clf_G": clf_loss, "rec": rec_loss,
+                       "sd_cyc": sd_cyc, "sd_con": sd_con}
+            if distill:
+                # every SEAN layer's terms of every forward, as the reference
+                # backpropagates each: 0.1 * latent + embed
+                latent = torch.stack([t[0] for t in distill])
+                embed = torch.stack([t[1] for t in distill])
+                g_loss = g_loss + 0.1 * latent.sum() + embed.sum()
+                metrics["distill_latent"] = latent.mean()
+                metrics["distill_embed"] = embed.mean()
 
-        params = self.tx_G.params + (self.tx_E.params if self.E is not None
-                                     else [])
-        grads = torch.autograd.grad(g_loss, params, allow_unused=True,
-                                    materialize_grads=True)
-        n_g = len(self.tx_G.params)
-        self.tx_G.step(grads[:n_g])
-        if self.E is not None:
-            self.tx_E.step(grads[n_g:])
-        if self.ema_G is not None:
-            ema_update(self.ema_G.parameters(), self.G.parameters(),
-                       tcfg.ema_decay)
-            self._sync_ema_state()
-        return {k: v.detach() for k, v in metrics.items()}
+            params = self.tx_G.params + (self.tx_E.params if self.E is not None
+                                         else [])
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(g_loss, params, allow_unused=True,
+                                            materialize_grads=True)
+            n_g = len(self.tx_G.params)
+            self.tx_G.step(grads[:n_g])
+            if self.E is not None:
+                self.tx_E.step(grads[n_g:])
+            if self.ema_G is not None:
+                ema_update(self.ema_G.parameters(), self.G.parameters(),
+                           tcfg.ema_decay)
+                self._sync_ema_state()
+            return {k: v.detach() for k, v in metrics.items()}
 
     def _g_train(self, *args, **kw):
         """A train-mode G forward of the G step; with ``cfg.remat`` its
@@ -295,16 +309,17 @@ class DefectGanSteps:
         """``num_critics`` D updates, one per row of the leading axis of
         ``batches``, then one G update on the last row. Returns the D terms
         averaged over the critics and the G terms, as 0-d tensors."""
-        batches = {k: torch.as_tensor(v, device=self.device)
-                   for k, v in batches.items()}
-        rows = next(iter(batches.values())).shape[0]
-        d_metrics = [self.d_step({k: v[i] for k, v in batches.items()},
-                                 generator) for i in range(rows)]
-        metrics = {k: torch.stack([m[k] for m in d_metrics]).mean()
-                   for k in d_metrics[0]}
-        metrics.update(self.g_step({k: v[-1] for k, v in batches.items()},
-                                   generator))
-        return metrics
+        with profiling.span("train.super_step"):
+            batches = {k: torch.as_tensor(v, device=self.device)
+                       for k, v in batches.items()}
+            rows = next(iter(batches.values())).shape[0]
+            d_metrics = [self.d_step({k: v[i] for k, v in batches.items()},
+                                     generator) for i in range(rows)]
+            metrics = {k: torch.stack([m[k] for m in d_metrics]).mean()
+                       for k in d_metrics[0]}
+            metrics.update(self.g_step({k: v[-1] for k, v in batches.items()},
+                                       generator))
+            return metrics
 
     def update_per_epoch(self) -> None:
         """Between epochs (JAX ``DefectGanTrainer._update_per_epoch``):

@@ -526,6 +526,53 @@ def test_super_step_on_card_launches_both_kernels_and_matches_cpu():
 
 
 @pytest.mark.gpu
+def test_super_step_spans_have_device_time_inside_their_parents():
+    """A tiny AdaIN super-step recorded on the card: every span has device
+    ms, each child's interval lies inside its parent's (events resolve to
+    about half a microsecond), and the super-step's ``norm.launches``
+    equal the kernels' counters."""
+    from de_i2i_gan_torch.utils import profiling
+
+    _need_card()
+    cfg = DefectGanConfig(image_size=32, label_nc=4, ngf=8, ndf=8, num_res=2,
+                          hidden_nc=16, num_layers=2,
+                          style_norm_block_type="adain", use_pallas=True)
+    steps = DefectGanSteps(cfg, TrainConfig(batch_size=2, num_critics=2),
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batches = {"bg": torch.rand((2, 2, 32, 32, 3), generator=gen,
+                                device="cuda") * 2 - 1,
+               "df": torch.rand((2, 2, 32, 32, 3), generator=gen,
+                                device="cuda") * 2 - 1,
+               "df_labels": torch.eye(4, device="cuda")[torch.randint(
+                   0, 4, (2, 2), generator=gen, device="cuda")]}
+    steps.super_step(batches)  # builds D and the optimizers
+    torch.cuda.synchronize()
+    profiling.reset()
+    fwd0, bwd0 = norm_kernels.LAUNCHES, norm_kernels.BWD_LAUNCHES
+    with profiling.recording():
+        steps.super_step(batches)
+    launches = (norm_kernels.LAUNCHES - fwd0) + (norm_kernels.BWD_LAUNCHES - bwd0)
+    recs = profiling.records()
+    report = profiling.report()
+    profiling.reset()
+    assert {k: v["count"] for k, v in report.items()} == {
+        "train.super_step": 1, "train.d_step": 2, "train.g_step": 1,
+        "train.backward": 3, "optim.step": 4}
+    assert report["train.super_step"]["counters"]["norm.launches"] == launches > 0
+    by_id = {r["id"]: r for r in recs}
+    for r in recs:
+        assert r["device_ms"] is not None and r["device_ms"] > 0, r
+        if r["parent"] is not None:
+            p = by_id[r["parent"]]
+            assert r["device_start_ms"] >= p["device_start_ms"] - 1e-3, r
+            assert (r["device_start_ms"] + r["device_ms"]
+                    <= p["device_start_ms"] + p["device_ms"] + 1e-3), r
+    for e in report.values():
+        assert 0 <= e["self_device_ms"] <= e["device_ms"]
+
+
+@pytest.mark.gpu
 def test_device_prefetch_on_card_pinned_and_on_a_side_stream(tmp_path):
     """Super-batches out of device_prefetch equal the host's bit for bit;
     their copies come from pinned memory, on a stream that none of the

@@ -1,12 +1,11 @@
 """The port's tools against the JAX package's: ``utils/profiling.py``
-(``StepTimer``'s summary on the same recorded times, ``trace`` writing a
-Chrome trace, ``start_trace_server`` refusing), ``cli/sweep.py``
+(``trace`` writing a Chrome trace; its spans are in
+``tests/test_torch_spans.py``), ``cli/sweep.py``
 (``build_commands``, ``_filter`` and ``--dry_run`` equal to JAX's with the
 package names swapped; one real one-value sweep with ``--eval`` on the CPU,
 its runs executed in this process) and ``utils/visualize.py::draw_ablation``.
 """
 import importlib
-import itertools
 import json
 import types
 
@@ -15,7 +14,6 @@ import pytest
 import torch
 
 from de_i2i_gan_tpu.cli import sweep as jax_sweep
-from de_i2i_gan_tpu.utils import profiling as jax_profiling
 from de_i2i_gan_torch.cli import sweep
 from de_i2i_gan_torch.utils import profiling
 from de_i2i_gan_torch.utils.visualize import draw_ablation
@@ -26,43 +24,12 @@ torch.set_num_threads(1)
 SWAP = ("de_i2i_gan_tpu.", "de_i2i_gan_torch.")
 
 
-def _timed(module, times, warmup):
-    """A ``StepTimer`` of ``module`` over a clock that reads ``times``."""
-    clock = itertools.chain.from_iterable((0.0, t) for t in times)
-    timer = module.StepTimer(warmup=warmup)
-    real = module.time.perf_counter
-    module.time.perf_counter = lambda: next(clock)
-    try:
-        for _ in times:
-            with timer:
-                pass
-    finally:
-        module.time.perf_counter = real
-    return timer
-
-
-@pytest.mark.parametrize("warmup", [0, 2, 7])
-def test_step_timer_summary_matches_jax(warmup):
-    times = [0.5, 0.25, 0.125, 0.3, 0.2, 0.7, 0.1]
-    got = _timed(profiling, times, warmup)
-    want = _timed(jax_profiling, times, warmup)
-    assert got.times == want.times
-    assert got.summary() == want.summary()
-    assert got.summary() == {} if warmup >= len(times) else \
-        sorted(got.summary()) == ["mean_s", "n", "p50_s", "p95_s"]
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(tmp_path / "t") as prof:
         torch.ones(8, 8).matmul(torch.ones(8, 8))
     trace = json.loads((tmp_path / "t" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "aten::matmul" in names and prof is not None
-
-
-def test_start_trace_server_has_no_counterpart():
-    with pytest.raises(NotImplementedError, match="no PyTorch counterpart"):
-        profiling.start_trace_server()
 
 
 # ------------------------------------------------------------------ sweep
