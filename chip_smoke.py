@@ -1312,6 +1312,7 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
     step schedule) and DiffAugment policy, random draws from a seeded
     generator on the card."""
     from de_i2i_gan_torch.config import TrainConfig
+    from de_i2i_gan_torch.train import graphed
 
     tcfg = TrainConfig(batch_size=BATCH, num_critics=CRITICS, lr=(2e-4, 1e-4),
                        diff_aug=diff_aug)
@@ -1325,6 +1326,7 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
     torch.cuda.reset_peak_memory_stats()
 
     nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the training path's run starts here
+    replays = graphed.REPLAYS
     times, metrics = [], []
     for i, batch in enumerate(batches):
         fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
@@ -1340,7 +1342,14 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
             times.append(dt_ms)
         metrics.append({k: v.item() for k, v in m.items()})
     launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    # the graph's activations live in its private pool: the allocator's
+    # peak leaves them out, the reserved memory holds them
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    reserved_mb = torch.cuda.max_memory_reserved() / 2**20
+    replayed = graphed.REPLAYS - replays
+    check(replayed == len(batches) - 1,
+          f"{label}: {replayed} of {len(batches)} super-steps replayed the "
+          f"CUDA graph, expected all but the first")
 
     for i, m in enumerate(metrics):
         check(all(math.isfinite(v) for v in m.values()),
@@ -1355,14 +1364,18 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
           f"critics, diff_aug={diff_aug!r}: super-step ms "
           f"{[round(v, 3) for v in times]} mean {mean_ms:.3f} "
           f"({BATCH * 1e3 / mean_ms:.1f} img/s through G), peak memory "
-          f"{peak_mb:.1f} MiB, launches over {len(batches)} super-steps: "
+          f"{peak_mb:.1f} MiB allocated, {reserved_mb:.1f} MiB reserved, "
+          f"{replayed} of {len(batches)} super-steps replayed the CUDA graph, "
+          f"launches counted on the host over {len(batches)} super-steps: "
           f"forward {launches['fwd']}, backward {launches['bwd']} [{smi}]")
     print(f"{label} losses, super-step 1: "
           f"{json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}")
     print(f"{label} losses, super-step {len(metrics)}: "
           f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})}")
-    return dict(launches=launches, ms=mean_ms, peak_mb=peak_mb, steps=steps,
-                batch=batches[-1], draws=draws, super_steps=len(batches))
+    return dict(launches=launches, ms=mean_ms, peak_mb=peak_mb,
+                reserved_mb=reserved_mb, steps=steps, batch=batches[-1],
+                draws=draws, super_steps=len(batches),
+                per_step=(per_fwd, per_bwd))
 
 
 def phase_sean_stats_request(nk, steps, smi):
@@ -1643,9 +1656,31 @@ def phase_bwd_timing(nk, fused, smi, shapes=TRAIN_SHAPES,
 
 
 def profile_super_step(run, label, smi):
-    return profile_device(lambda: run["steps"].super_step(run["batch"],
-                                                          run["draws"]),
-                          1, f"{label} super-step", run["ms"], smi)
+    """One super-step of the eager body profiled (a replay of the CUDA graph
+    calls no wrapper, so only this one feeds the tally by shape,
+    check_train_calls), then one that replays the graph, as training runs:
+    the device's records of the norm kernels in the replay are held to the
+    launches a super-step makes. Returns the replay's kernel ms."""
+    from de_i2i_gan_torch.train import graphed
+
+    steps, batch, draws = run["steps"], run["batch"], run["draws"]
+    profile_device(lambda: steps._super_step(batch, draws), 1,
+                   f"{label} eager super-step", run["ms"], smi)
+    replays = graphed.REPLAYS
+    prof = profiled(lambda: steps.super_step(batch, draws), 1)
+    check(graphed.REPLAYS - replays == 1,
+          f"{label}: the profiled super-step did not replay the graph")
+    seen = {kind: sum(e.count for e in device_kernels(prof)
+                      if f"modulated_instance_norm_{kind}" in e.key)
+            for kind in ("fwd", "bwd")}
+    print(f"{label} replayed super-step: the device ran {seen['fwd']} forward "
+          f"and {seen['bwd']} backward norm kernels, expected "
+          f"{run['per_step'][0]} and {run['per_step'][1]}")
+    check((seen["fwd"], seen["bwd"]) == run["per_step"],
+          f"{label} replayed super-step ran {seen} norm kernels on the "
+          f"device, expected {run['per_step']}")
+    return report_profile(prof, 1, f"{label} replayed super-step", run["ms"],
+                          smi)
 
 
 def check_train_calls(calls, label):
@@ -4443,18 +4478,29 @@ def leaves(out):
 @contextlib.contextmanager
 def counted_forwards(cls):
     """Counts the calls of ``cls.forward`` while the block runs (a G
-    forward of any batch launches the forward kernel once a styled norm)."""
+    forward of any batch launches the forward kernel once a styled norm).
+    The count is a registered host count while it runs, so a replay of a
+    training super-step's CUDA graph adds the calls its capture made, as it
+    adds their launches."""
+    from de_i2i_gan_torch.utils import profiling
+
     real, n = cls.forward, [0]
+    name = f"chip_smoke.forwards.{id(n)}"
 
     def forward(self, *args, **kw):
         n[0] += 1
         return real(self, *args, **kw)
 
+    def add(delta):
+        n[0] += delta["calls"]
+
     cls.forward = forward
+    profiling.register_host_counts(name, lambda: {"calls": n[0]}, add)
     try:
         yield n
     finally:
         cls.forward = real
+        del profiling.REGISTRY.host[name]
 
 
 def host_us(fn, iters):

@@ -29,7 +29,9 @@ launches the kernel. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count the forward and backward kernels' launches, so a run can show its path
 went through them; ``TIER_LAUNCHES`` counts them by tier. Their sum is the
 counter source ``norm.launches`` of ``utils/profiling.py``, so each
-recorded span carries the launches made inside it.
+recorded span carries the launches made inside it. All four counts are
+registered as host counts there, so a CUDA graph's replay adds the
+launches its capture counted.
 
 The split forward, for rows split over ranks (height-sharded inference,
 ``parallel/spatial.py``), is two more kernels of the same library and two
@@ -47,7 +49,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -86,6 +88,29 @@ TIER_LAUNCHES = {op: dict.fromkeys(TIERS, 0) for op in SLICE_TENSORS}
 SPLIT_LAUNCHES = {"moments": 0, "apply": 0}
 # a span's change in the fused kernels' launches, forward and backward
 profiling.register_counter("norm.launches", lambda: LAUNCHES + BWD_LAUNCHES)
+
+
+def _counts() -> Dict[str, int]:
+    """Every launch count of this module, flat."""
+    counts = {"fwd": LAUNCHES, "bwd": BWD_LAUNCHES}
+    counts.update({f"{op}.{t}": n for op, tiers in TIER_LAUNCHES.items()
+                   for t, n in tiers.items()})
+    counts.update({f"split.{k}": n for k, n in SPLIT_LAUNCHES.items()})
+    return counts
+
+
+def _add_counts(delta: Dict[str, int]) -> None:
+    global LAUNCHES, BWD_LAUNCHES
+    LAUNCHES += delta["fwd"]
+    BWD_LAUNCHES += delta["bwd"]
+    for op, tiers in TIER_LAUNCHES.items():
+        for t in tiers:
+            tiers[t] += delta[f"{op}.{t}"]
+    for k in SPLIT_LAUNCHES:
+        SPLIT_LAUNCHES[k] += delta[f"split.{k}"]
+
+
+profiling.register_host_counts("norm_kernels", _counts, _add_counts)
 
 _fn = None  # (forward, backward, occupancy, moments, apply) once loaded
 

@@ -38,6 +38,13 @@ Each step runs in a span of ``utils/profiling.py`` (``train.super_step``,
 ``train.d_step``, ``train.g_step``), each backward pass in
 ``train.backward``; the optimizers' updates are ``optim.step``.
 
+On a CUDA device, without a process group or ``remat``, ``super_step``
+replays its body as one CUDA graph from the second call of its first
+repeated batch shape on (``train/graphed.py``; other shapes run eagerly):
+the same kernels in the same order, launched at once; the optimizers then
+keep their step count and learning rate on the device (Adam's
+``capturable``).
+
 D and the three optimizers are built at the first training call
 (``init_training``), so a ``DefectGanSteps`` that only serves holds G and E
 alone. With ``remat`` the G step's G forwards keep no activations and run
@@ -58,6 +65,7 @@ from de_i2i_gan_torch.models.extractor import StyleExtractor
 from de_i2i_gan_torch.models.generator import DefectGanGenerator
 from de_i2i_gan_torch.nn.normalization import sean_update_stats
 from de_i2i_gan_torch.ops.fused import batch_images_to_float
+from de_i2i_gan_torch.train import graphed
 from de_i2i_gan_torch.train.optim import ema_update, make_optimizer
 from de_i2i_gan_torch.train.remat import remat
 from de_i2i_gan_torch.utils import profiling
@@ -97,6 +105,7 @@ class DefectGanSteps:
         self.D = None
         self.tx_D = self.tx_G = self.tx_E = None
         self.step = 0  # D updates
+        self._graph = graphed.SuperStepGraph()
 
     # ------------------------------------------------------------- serving
     @torch.no_grad()
@@ -308,18 +317,31 @@ class DefectGanSteps:
                    ) -> Dict[str, torch.Tensor]:
         """``num_critics`` D updates, one per row of the leading axis of
         ``batches``, then one G update on the last row. Returns the D terms
-        averaged over the critics and the G terms, as 0-d tensors."""
+        averaged over the critics and the G terms, as 0-d tensors. Where
+        ``train/graphed.py`` finds the call eligible, it replays this body
+        as a CUDA graph captured on an earlier call of the same shapes."""
         with profiling.span("train.super_step"):
             batches = {k: torch.as_tensor(v, device=self.device)
                        for k, v in batches.items()}
-            rows = next(iter(batches.values())).shape[0]
-            d_metrics = [self.d_step({k: v[i] for k, v in batches.items()},
-                                     generator) for i in range(rows)]
-            metrics = {k: torch.stack([m[k] for m in d_metrics]).mean()
-                       for k in d_metrics[0]}
-            metrics.update(self.g_step({k: v[-1] for k, v in batches.items()},
-                                       generator))
-            return metrics
+            if graphed.eligible(self, generator):
+                metrics = self._graph(self, batches, generator)
+                if metrics is not None:
+                    return metrics
+            graphed.count_eager()
+            return self._super_step(batches, generator)
+
+    def _super_step(self, batches: Batch,
+                    generator: Optional[torch.Generator]
+                    ) -> Dict[str, torch.Tensor]:
+        """The super-step's body, eager: what a graph captures."""
+        rows = next(iter(batches.values())).shape[0]
+        d_metrics = [self.d_step({k: v[i] for k, v in batches.items()},
+                                 generator) for i in range(rows)]
+        metrics = {k: torch.stack([m[k] for m in d_metrics]).mean()
+                   for k in d_metrics[0]}
+        metrics.update(self.g_step({k: v[-1] for k, v in batches.items()},
+                                   generator))
+        return metrics
 
     def update_per_epoch(self) -> None:
         """Between epochs (JAX ``DefectGanTrainer._update_per_epoch``):

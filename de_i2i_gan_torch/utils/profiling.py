@@ -14,13 +14,29 @@
     * where CUDA is in use and the current stream is not capturing a graph,
       two timing ``torch.cuda.Event``s on the current stream: the span's
       time on the device clock, from its first to its last work, idle
-      inside it included;
+      inside it included (inside ``captured()``, external timing events
+      that become nodes of the graph);
     * its parent (the span open on this thread when it opened) and its
       root (the outermost such span), so every span of one step shares the
       root's id;
     * the change, over its extent, of every registered counter source.
 - ``register_counter(name, read)``: a counter source, ``read()`` giving the
   counter's running total (the norm kernels register ``norm.launches``).
+- ``register_host_counts(name, read, add)``: counts the host keeps as it
+  launches work, which a CUDA graph's replay does not move: ``read()``
+  gives them as a dict, ``add(delta)`` adds such a dict to them. A module
+  whose counter source reads such counts registers them here too, and
+  ``train/graphed.py`` takes back what a capture counted and adds it again
+  after each replay, for every registration (``host_counts()``,
+  ``add_host_counts(delta)``).
+- ``captured()`` and ``replayed(spans, anchor)``: the spans of a CUDA
+  graph. Inside ``captured()`` every span records (recording is forced
+  on) into a list of its own, not the registry, its edges timing events
+  captured into the graph; after each replay, while recording is on,
+  ``replayed`` keeps a record of each of them, nested as at capture under
+  the span open at the replay, its counters as at capture, no host time,
+  and its device ms read from the graph's events (``train/graphed.py``
+  replays DefectGAN's super-step so).
 - ``report()``: by span name, the count, the summed host and device ms,
   the self ms on each clock (a span's duration less the part of it its
   child spans cover) and the summed counter changes. Events are resolved
@@ -75,11 +91,17 @@ class _Span:
             self.range.__enter__()
         self.start_counts = {k: read() for k, read in reg.sources.items()}
         self.events = None
-        if torch.cuda.is_initialized() and \
-                not torch.cuda.is_current_stream_capturing():
-            self.events = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
-            self.events[0].record()
+        if torch.cuda.is_initialized():
+            if not torch.cuda.is_current_stream_capturing():
+                self.events = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+            elif reg._capture() is not None:
+                # external: the capture records them as nodes of the graph
+                self.events = (
+                    torch.cuda.Event(enable_timing=True, external=True),
+                    torch.cuda.Event(enable_timing=True, external=True))
+            if self.events is not None:
+                self.events[0].record()
         self.t0 = time.perf_counter_ns()
         return self
 
@@ -132,6 +154,7 @@ class Registry:
     def __init__(self, cap: int = CAP):
         self.cap = cap
         self.sources: Dict[str, Callable[[], float]] = {}
+        self.host: Dict[str, tuple] = {}  # name: (read, add)
         self._forced = 0
         self._local = threading.local()
         self._ids = itertools.count()
@@ -139,6 +162,9 @@ class Registry:
         self._dropped = 0
         self._ref = None  # the device clock's zero: a kept start event
         self._lock = threading.Lock()
+
+    def is_recording(self) -> bool:
+        return bool(self._forced) or _profiler_enabled()
 
     def span(self, name: str):
         if self._forced or _profiler_enabled():
@@ -155,8 +181,70 @@ class Registry:
             with self._lock:
                 self._forced -= 1
 
+    @contextlib.contextmanager
+    def captured(self):
+        """Every span this thread opens inside records, into the yielded
+        list and not the registry: a CUDA graph's capture. Their timing
+        events are nodes of the graph; see ``replayed``."""
+        spans: List[_Span] = []
+        self._local.capture = spans
+        try:
+            with self.recording():
+                yield spans
+        finally:
+            self._local.capture = None
+
+    def replayed(self, spans: List[_Span], anchor) -> None:
+        """While recording is on, a record of each of ``spans`` (what a
+        ``captured()`` capture recorded) for one replay of its graph: ids of
+        their own, nested as at capture, their top level under the span
+        open on this thread; their counters as at capture; 0 host ms; device
+        ms read from the graph's events, placed on the device clock after
+        ``anchor``, an event recorded before the replay on its stream.
+        Synchronizes the device first: the next replay records the same
+        events again."""
+        if not spans or not self.is_recording():
+            return
+        if any(s.events is not None for s in spans):
+            torch.cuda.synchronize()
+        stack = self._stack()
+        top = stack[-1] if stack else None
+        t0 = time.perf_counter_ns()
+        ids: Dict[int, int] = {}
+        roots: Dict[int, int] = {}
+        for s in sorted(spans, key=lambda s: s.id):
+            r = _Span(self, s.name)
+            r.id = ids[s.id] = next(self._ids)
+            r.parent = ids.get(s.parent, None if top is None else top.id)
+            r.root = (r.id if r.parent is None else
+                      roots.get(r.parent, None if top is None else top.root))
+            roots[r.id] = r.root
+            r.t0, r.host_ns, r.counters = t0, 0, dict(s.counters)
+            r.range = r.start_counts = None
+            r.events = r.device_ms = r.device_start_ms = None
+            if s.events is not None:
+                start, end = s.events
+                r.events = (anchor, None)
+                r.device_start_ms = anchor.elapsed_time(start)
+                r.device_ms = start.elapsed_time(end)
+            self._keep(r)
+
     def register_counter(self, name: str, read: Callable[[], float]) -> None:
         self.sources[name] = read
+
+    def register_host_counts(self, name: str,
+                             read: Callable[[], Dict[str, int]],
+                             add: Callable[[Dict[str, int]], None]) -> None:
+        self.host[name] = (read, add)
+
+    def host_counts(self) -> Dict[str, Dict[str, int]]:
+        """Every registration's counts, by its name."""
+        return {name: read() for name, (read, _) in self.host.items()}
+
+    def add_host_counts(self, delta: Dict[str, Dict[str, int]]) -> None:
+        """Adds ``delta`` (a difference of two ``host_counts``) to them."""
+        for name, counts in delta.items():
+            self.host[name][1](counts)
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -164,7 +252,14 @@ class Registry:
             stack = self._local.stack = []
         return stack
 
+    def _capture(self):
+        return getattr(self._local, "capture", None)
+
     def _keep(self, span: _Span) -> None:
+        capture = self._capture()
+        if capture is not None:
+            capture.append(span)
+            return
         with self._lock:
             if len(self._records) < self.cap:
                 self._records.append(span)
@@ -182,8 +277,9 @@ class Registry:
 
     def _resolve(self, records: List[_Span]) -> None:
         """Device ms of each record whose events are not read yet; starts
-        from the start event of the first span read since the last
-        reset."""
+        from the start event of the first span read since the last reset.
+        A replayed record (``replayed``) holds its anchor and no end: its
+        ms are read already, its start from the anchor."""
         todo = [r for r in records if r.events is not None]
         if not todo:
             return
@@ -192,8 +288,12 @@ class Registry:
             self._ref = min(todo, key=lambda r: r.id).events[0]
         for r in todo:
             start, end = r.events
-            r.device_start_ms = self._ref.elapsed_time(start)
-            r.device_ms = start.elapsed_time(end)
+            base = self._ref.elapsed_time(start)
+            if end is None:
+                r.device_start_ms += base
+            else:
+                r.device_start_ms = base
+                r.device_ms = start.elapsed_time(end)
             r.events = None
 
     def records(self) -> List[dict]:
@@ -241,7 +341,13 @@ class Registry:
 REGISTRY = Registry()
 span = REGISTRY.span
 recording = REGISTRY.recording
+is_recording = REGISTRY.is_recording
+captured = REGISTRY.captured
+replayed = REGISTRY.replayed
 register_counter = REGISTRY.register_counter
+register_host_counts = REGISTRY.register_host_counts
+host_counts = REGISTRY.host_counts
+add_host_counts = REGISTRY.add_host_counts
 report = REGISTRY.report
 records = REGISTRY.records
 dropped = REGISTRY.dropped

@@ -1,8 +1,10 @@
 """The port's span and counter registry (``utils/profiling.py``), the spans
-on DefectGAN's super-step, and the benchmark's per-layer metrics that read
+on DefectGAN's super-step, eager and replayed as a graph
+(``train/graphed.py``), and the benchmark's per-layer metrics that read
 them (``perfbench/metrics``), on the CPU. The device clock is exercised with
-stand-in CUDA events; ``tests/test_torch_kernel_gpu.py`` holds it on the
-card."""
+stand-in CUDA events, the graph with ``tests/torch_fake_graph.py``;
+``tests/test_torch_kernel_gpu.py`` and the ``gpu`` test here hold them on
+the card."""
 import itertools
 import json
 import re
@@ -14,9 +16,11 @@ import torch
 
 from de_i2i_gan_torch.config import DefectGanConfig, TrainConfig
 from de_i2i_gan_torch.ops.cuda import norm_kernels
+from de_i2i_gan_torch.train import graphed
 from de_i2i_gan_torch.train.steps import DefectGanSteps
 from de_i2i_gan_torch.utils import profiling
 from perfbench.lib import spec
+import torch_fake_graph
 
 torch.set_num_threads(1)
 
@@ -30,9 +34,12 @@ MIGRATED = ("parallel.batch_norm", "parallel.grad_all_reduce", "spatial.halo",
             "evaluator.inception")
 READERS = {"step.d_update_ms.train": 150.0, "step.g_update_ms.train": 75.0,
            "model.backward_ms.train": 100.0, "model.optim_step_ms.train": 20.0,
-           "kernel.norm_launches_per_step.train": 72.0}
+           "kernel.norm_launches_per_step.train": 72.0,
+           "host.graph_replay_pct.train": 50.0}
 REPORT = {"train.super_step": {"count": 2, "device_ms": 460.0,
-                               "counters": {"norm.launches": 144}},
+                               "counters": {"norm.launches": 144,
+                                            "train.graph_replays": 1,
+                                            "train.eager_super_steps": 1}},
           "train.d_step": {"count": 10, "device_ms": 300.0, "counters": {}},
           "train.g_step": {"count": 2, "device_ms": 150.0, "counters": {}},
           "train.backward": {"count": 12, "device_ms": 200.0, "counters": {}},
@@ -204,6 +211,182 @@ def test_device_clock_from_events_on_the_stream(monkeypatch, capturing):
     assert report["b"]["device_ms"] == report["c"]["device_ms"] == 1
     recs = {r["name"]: r for r in profiling.records()}
     assert recs["c"]["device_start_ms"] - recs["a"]["device_start_ms"] == 3
+
+
+def _count_launches(monkeypatch, steps, per_d=8, per_g=16):
+    """The CPU path launches no kernel: each of D's updates counts
+    ``per_d`` launches, each of G's and E's ``per_g`` (inside the update
+    spans, as the norm kernels count theirs on the card)."""
+    from de_i2i_gan_torch.train.optim import Optimizer
+
+    step = Optimizer.step
+
+    def counted(self, grads):
+        norm_kernels.LAUNCHES += per_d if self is steps.tx_D else per_g
+        return step(self, grads)
+
+    monkeypatch.setattr(Optimizer, "step", counted)
+    return CRITICS * per_d + 2 * per_g
+
+
+def test_replayed_super_step_keeps_the_tree_and_the_counters(monkeypatch):
+    """Through the stand-in graph: the eager first call, the capture (which
+    records into its own list) and three replays, the last two recorded. A
+    replay keeps the eager tree under its root; its ``norm.launches`` are
+    the captured launches once, not twice; ``train.graph_replays`` counts 1
+    a replay and ``train.eager_super_steps`` 1 an eager call."""
+    torch_fake_graph.install(monkeypatch)
+    cfg = DefectGanConfig(image_size=32, label_nc=4, ngf=8, ndf=8, num_res=2,
+                          hidden_nc=16, num_layers=2,
+                          style_norm_block_type="adain")
+    s = DefectGanSteps(cfg, TrainConfig(batch_size=2, num_critics=CRITICS),
+                       device="cpu")
+    s.init_training()
+    per_step = _count_launches(monkeypatch, s)
+    launches = norm_kernels.LAUNCHES + norm_kernels.BWD_LAUNCHES
+    with profiling.recording():
+        s.super_step(_batches())
+    eager = profiling.report()["train.super_step"]["counters"]
+    assert eager["train.eager_super_steps"] == 1
+    assert eager["train.graph_replays"] == 0
+    assert eager["norm.launches"] == per_step
+    s.super_step(_batches())  # the capture and its first replay
+    profiling.reset()
+    with profiling.recording():
+        for _ in range(2):
+            s.super_step(_batches())
+    assert (norm_kernels.LAUNCHES + norm_kernels.BWD_LAUNCHES - launches
+            == 4 * per_step)
+    report = profiling.report()
+    assert {k: v["count"] for k, v in report.items()} == {
+        k: 2 * n for k, n in TABLE.items()}
+    root = report["train.super_step"]["counters"]
+    assert root == {"norm.launches": 2 * per_step, "train.graph_replays": 2,
+                    "train.eager_super_steps": 0}
+    assert report["train.d_step"]["counters"]["norm.launches"] == 2 * CRITICS * 8
+    assert report["train.g_step"]["counters"]["norm.launches"] == 2 * 2 * 16
+    recs = profiling.records()
+    by_id = {r["id"]: r for r in recs}
+    roots = [r for r in recs if r["parent"] is None]
+    assert [r["name"] for r in roots] == ["train.super_step"] * 2
+    kids = {r["id"]: [] for r in recs}
+    for r in recs:
+        if r["parent"] is not None:
+            kids[r["parent"]].append(r["name"])
+            assert by_id[r["root"]]["parent"] is None
+            assert r["host_ms"] == 0 and r["device_ms"] is None
+    for r in roots:
+        assert kids[r["id"]] == ["train.d_step"] * CRITICS + ["train.g_step"]
+    for r in recs:
+        if r["name"] == "train.d_step":
+            assert kids[r["id"]] == ["train.backward", "optim.step"]
+        if r["name"] == "train.g_step":
+            assert kids[r["id"]] == ["train.backward", "optim.step", "optim.step"]
+
+
+def test_replayed_spans_read_the_graph_events_after_their_anchor(
+        monkeypatch):
+    """``replayed`` on a made-up device clock: a record's start is the
+    anchor's place plus the graph event's offset from it, its ms the graph
+    events' difference."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    reg = profiling.Registry()
+    clock = {}
+
+    class Ev:
+        def __init__(self, t):
+            self.t = t
+
+        def record(self, stream=None):
+            pass
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    with reg.captured() as spans:
+        with reg.span("outer"):
+            with reg.span("inner"):
+                pass
+    assert reg.records() == []
+    spans[0].events, spans[1].events = (Ev(12.0), Ev(13.5)), (Ev(10.0), Ev(20.0))
+    spans[0].counters, spans[1].counters = {"n": 2}, {"n": 5}
+    assert [s.name for s in spans] == ["inner", "outer"]
+    clock["ref"] = Ev(1.0)  # the registry's zero: the root's start
+    with reg.recording(), reg.span("root") as root:
+        root.events = (clock["ref"], Ev(30.0))
+        reg.replayed(spans, Ev(7.0))
+    recs = {r["name"]: r for r in reg.records()}
+    assert recs["outer"]["parent"] == recs["root"]["id"]
+    assert recs["inner"]["parent"] == recs["outer"]["id"]
+    assert recs["inner"]["root"] == recs["outer"]["root"] == recs["root"]["id"]
+    assert recs["outer"]["device_start_ms"] == (7.0 - 1.0) + (10.0 - 7.0)
+    assert recs["outer"]["device_ms"] == 10.0
+    assert recs["inner"]["device_start_ms"] == (7.0 - 1.0) + (12.0 - 7.0)
+    assert recs["inner"]["device_ms"] == 1.5
+    assert recs["inner"]["counters"] == {"n": 2}
+    assert recs["outer"]["host_ms"] == 0.0
+    # off, a replay records nothing
+    reg.replayed(spans, Ev(40.0))
+    assert len(reg.records()) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["recording", "profiler"])
+def test_replayed_super_step_spans_on_the_card(mode):
+    """The benchmark's depth (6 residual blocks, 2 scales, 5 critics: 72
+    norm launches a super-step) at tiny widths, on the card: two replayed
+    super-steps recorded, each with the eager tree of spans, every span's
+    device ms above 0 and inside its parent's, ``norm.launches`` 72 a
+    replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = DefectGanConfig(image_size=32, label_nc=6, ngf=8, ndf=8, num_res=6,
+                          num_scales=2, hidden_nc=16, num_layers=2,
+                          style_norm_block_type="adain", use_pallas=True)
+    s = DefectGanSteps(cfg, TrainConfig(batch_size=2, num_critics=5),
+                       device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (5, 2, 32, 32, 3)
+    batches = {"bg": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+               "df": torch.rand(shape, generator=gen, device="cuda") * 2 - 1,
+               "df_labels": torch.eye(6, device="cuda")[torch.randint(
+                   0, 6, (5, 2), generator=gen, device="cuda")]}
+    s.super_step(batches)
+    s.super_step(batches)  # the capture and its first replay
+    torch.cuda.synchronize()
+    launches = norm_kernels.LAUNCHES + norm_kernels.BWD_LAUNCHES
+    replays = graphed.REPLAYS
+    on = (profiling.recording() if mode == "recording" else
+          torch.profiler.profile(activities=[
+              torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]))
+    with on:
+        for _ in range(2):
+            s.super_step(batches)
+        torch.cuda.synchronize()
+    assert norm_kernels.LAUNCHES + norm_kernels.BWD_LAUNCHES - launches == 144
+    assert graphed.REPLAYS - replays == 2
+    report = profiling.report()
+    recs = profiling.records()
+    assert {k: v["count"] for k, v in report.items()} == {
+        "train.super_step": 2, "train.d_step": 10, "train.g_step": 2,
+        "train.backward": 12, "optim.step": 14}
+    assert report["train.super_step"]["counters"] == {
+        "norm.launches": 144, "train.graph_replays": 2,
+        "train.eager_super_steps": 0}
+    assert report["train.d_step"]["counters"]["norm.launches"] == 80
+    by_id = {r["id"]: r for r in recs}
+    for r in recs:
+        assert r["device_ms"] is not None and r["device_ms"] > 0, r
+        if r["parent"] is not None:
+            p = by_id[r["parent"]]
+            assert r["device_start_ms"] >= p["device_start_ms"] - 1e-3, r
+            assert (r["device_start_ms"] + r["device_ms"]
+                    <= p["device_start_ms"] + p["device_ms"] + 1e-3), r
+    for e in report.values():
+        assert 0 <= e["self_device_ms"] <= e["device_ms"]
+    assert (report["train.d_step"]["device_ms"] + report["train.g_step"]["device_ms"]
+            <= report["train.super_step"]["device_ms"] + 1e-3)
 
 
 def test_counter_deltas_land_on_the_enclosing_spans():
