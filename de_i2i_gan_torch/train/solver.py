@@ -287,6 +287,19 @@ class StarGANv2Solver:
         cfg = self.cfg
         return max(0.0, cfg.lambda_ds * (1.0 - step / max(cfg.ds_iter, 1)))
 
+    @staticmethod
+    def _r1(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """R1 of D's output ``out`` on ``x``, its ``create_graph`` gradient
+        in the span ``sgv2.r1``."""
+        with profiling.span("sgv2.r1"):
+            return r1_penalty(out, x)
+
+    def _d_grads(self, loss: torch.Tensor):
+        """D's gradients of ``loss`` (R1's double backward included), in the
+        span ``train.backward``."""
+        with profiling.span("train.backward"):
+            return torch.autograd.grad(loss, self.tx_D.params)
+
     def d_loss_fn(self, batch: Batch, *, latent: bool,
                   x_fake: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None
@@ -301,7 +314,7 @@ class StarGANv2Solver:
                                   ).detach().requires_grad_()
         out_real = self.D(x_real_aug, y_org)
         loss_real = bce_logits(out_real, torch.ones_like(out_real))
-        loss_reg = r1_penalty(out_real, x_real_aug)
+        loss_reg = self._r1(out_real, x_real_aug)
         if x_fake is None:
             with torch.no_grad():
                 s_trg = self._code(batch, y_trg, "ref", latent)
@@ -399,8 +412,10 @@ class StarGANv2Solver:
         txs = [self.tx_G]
         if latent and self.M is not None:
             txs += [self.tx_M, self.tx_S]
-        grads = torch.autograd.grad(loss, [p for tx in txs for p in tx.params],
-                                    allow_unused=True, materialize_grads=True)
+        with profiling.span("train.backward"):
+            grads = torch.autograd.grad(
+                loss, [p for tx in txs for p in tx.params],
+                allow_unused=True, materialize_grads=True)
         start = 0
         for tx in txs:
             tx.step(grads[start:start + len(tx.params)])
@@ -409,18 +424,24 @@ class StarGANv2Solver:
     def d_step(self, batch: Batch, latent: bool,
                generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
-        """One D update on the pass ``latent`` picks; the loss terms."""
-        loss, metrics = self.d_loss_fn(batch, latent=latent, generator=generator)
-        self.tx_D.step(torch.autograd.grad(loss, self.tx_D.params))
-        return {k: v.detach() for k, v in metrics.items()}
+        """One D update on the pass ``latent`` picks, in the span
+        ``train.d_step``; the loss terms."""
+        with profiling.span("train.d_step"):
+            loss, metrics = self.d_loss_fn(batch, latent=latent,
+                                           generator=generator)
+            self.tx_D.step(self._d_grads(loss))
+            return {k: v.detach() for k, v in metrics.items()}
 
     def g_step(self, batch: Batch, latent: bool,
                generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
-        """One G (and M, S) update against the current D; the loss terms."""
-        loss, metrics = self.g_loss_fn(batch, latent=latent, generator=generator)
-        self._step_generators(loss, latent)
-        return {k: v.detach() for k, v in metrics.items()}
+        """One G (and M, S) update against the current D, in the span
+        ``train.g_step``; the loss terms."""
+        with profiling.span("train.g_step"):
+            loss, metrics = self.g_loss_fn(batch, latent=latent,
+                                           generator=generator)
+            self._step_generators(loss, latent)
+            return {k: v.detach() for k, v in metrics.items()}
 
     def fused_pair_step(self, batch: Batch, latent: bool,
                         generator: Optional[torch.Generator] = None
@@ -440,7 +461,7 @@ class StarGANv2Solver:
                                 generator=generator)
         lg, gm = self.g_loss_fn(batch, latent=latent,
                                 shared_fake=(s_trg, x_fake), generator=generator)
-        d_grads = torch.autograd.grad(ld, self.tx_D.params)
+        d_grads = self._d_grads(ld)
         self._step_generators(lg, latent)
         self.tx_D.step(d_grads)
         return ({k: v.detach() for k, v in dm.items()},
@@ -449,17 +470,18 @@ class StarGANv2Solver:
     @torch.no_grad()
     def _ema(self) -> None:
         """EMA of the nets (solver.py:549-563) and of all five SEAN
-        statistics of G (accumulators included)."""
+        statistics of G (accumulators included), in the span ``sgv2.ema``."""
         beta = self.cfg.ema_beta
-        for name in ("G", "M", "S"):
-            net = getattr(self, name)
-            if net is not None:
-                ema_update(getattr(self, f"ema_{name}").parameters(),
-                           net.parameters(), beta)
-        for e, g in zip(self.ema_G.modules(), self.G.modules()):
-            if isinstance(g, SEANv2):
-                for stat in SEAN_STATS:
-                    getattr(e, stat).lerp_(getattr(g, stat), 1.0 - beta)
+        with profiling.span("sgv2.ema"):
+            for name in ("G", "M", "S"):
+                net = getattr(self, name)
+                if net is not None:
+                    ema_update(getattr(self, f"ema_{name}").parameters(),
+                               net.parameters(), beta)
+            for e, g in zip(self.ema_G.modules(), self.G.modules()):
+                if isinstance(g, SEANv2):
+                    for stat in SEAN_STATS:
+                        getattr(e, stat).lerp_(getattr(g, stat), 1.0 - beta)
 
     def train_step(self, batch, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -470,27 +492,30 @@ class StarGANv2Solver:
         ``z_ref``, ``z_ref2`` (AdaIN) or ``s_ref``, ``s_ref2``, ``s_src``
         (SEAN), and the two NHWC ``masks`` of ``w_hpf > 0``, which the FAN
         makes from x_src when attached and the batch has none. Returns the
-        loss terms under the JAX names as 0-d tensors."""
+        loss terms under the JAX names as 0-d tensors. The iteration is the
+        span ``train.super_step``, the root of the spans inside it."""
         self.init_training()
-        batch = self._batch(batch)
-        if self.cfg.w_hpf > 0 and self.fan is not None and "masks" not in batch:
-            batch["masks"] = self._heatmaps(batch["x_src"])
-        passes = ((True, "latent"), (False, "ref")) if self.M is not None \
-            else ((False, "ref"),)
-        metrics = {}
-        if self.cfg.fused_prop:
-            for latent, tag in passes:
-                dm, gm = self.fused_pair_step(batch, latent, generator)
-                metrics.update({f"D/{tag}_{k}": v for k, v in dm.items()})
-                metrics.update({f"G/{tag}_{k}": v for k, v in gm.items()})
-        else:
-            for latent, tag in passes:
-                m = self.d_step(batch, latent, generator)
-                metrics.update({f"D/{tag}_{k}": v for k, v in m.items()})
-            for latent, tag in passes:
-                m = self.g_step(batch, latent, generator)
-                metrics.update({f"G/{tag}_{k}": v for k, v in m.items()})
-        self._ema()
+        with profiling.span("train.super_step"):
+            batch = self._batch(batch)
+            if self.cfg.w_hpf > 0 and self.fan is not None \
+                    and "masks" not in batch:
+                batch["masks"] = self._heatmaps(batch["x_src"])
+            passes = ((True, "latent"), (False, "ref")) if self.M is not None \
+                else ((False, "ref"),)
+            metrics = {}
+            if self.cfg.fused_prop:
+                for latent, tag in passes:
+                    dm, gm = self.fused_pair_step(batch, latent, generator)
+                    metrics.update({f"D/{tag}_{k}": v for k, v in dm.items()})
+                    metrics.update({f"G/{tag}_{k}": v for k, v in gm.items()})
+            else:
+                for latent, tag in passes:
+                    m = self.d_step(batch, latent, generator)
+                    metrics.update({f"D/{tag}_{k}": v for k, v in m.items()})
+                for latent, tag in passes:
+                    m = self.g_step(batch, latent, generator)
+                    metrics.update({f"G/{tag}_{k}": v for k, v in m.items()})
+            self._ema()
         self.step += 1
         metrics["G/lambda_ds"] = torch.tensor(self._lambda_ds(self.step))
         return metrics
@@ -537,7 +562,7 @@ class StarGANv2Solver:
         x_req = x_real.detach().requires_grad_()
         out_real = self.D(x_req, y_org)
         loss_real = bce_logits(out_real, torch.ones_like(out_real))
-        loss_reg = r1_penalty(out_real, x_req)
+        loss_reg = self._r1(out_real, x_req)
         with torch.no_grad():
             s = self._code(batch, y_org, "ref", latent)
             x_fake = self._repair(x_real, s, y_org, batch.get("masks"),
@@ -600,7 +625,7 @@ class StarGANv2Solver:
         for latent, tag in passes:
             loss, m = self.mae_d_loss_fn(batch, latent=latent,
                                          generator=generator)
-            self.tx_D.step(torch.autograd.grad(loss, self.tx_D.params))
+            self.tx_D.step(self._d_grads(loss))
             metrics.update({f"D/{tag}_{k}": v.detach() for k, v in m.items()})
         for latent, tag in passes:
             loss, m = self.mae_g_loss_fn(batch, latent=latent,

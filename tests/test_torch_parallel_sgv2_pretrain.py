@@ -6,14 +6,15 @@ sweep of two batches.
 """
 import torch
 
-from tests.test_torch_parallel_steps import check_agree, flat, two_ranks
+from tests.test_torch_parallel_steps import (MOMENT_ATOL, MOMENT_REL_L2,
+                                             check_agree, flat, two_ranks)
 
 torch.set_num_threads(1)
 
 
 def test_starganv2_pretrain_iteration_over_two_ranks(tmp_path):
     check_agree(*two_ranks("sgv2_pretrain", tmp_path, continued=True),
-                moments_l2=True)
+                moments_l2=(MOMENT_REL_L2, MOMENT_ATOL))
 
 
 def test_starganv2_update_stats_over_two_ranks(tmp_path):

@@ -54,6 +54,10 @@ SGV2_IMG, SGV2_BATCH = 64, 2
 SGV2 = dict(img_size=SGV2_IMG, num_domains=3, style_dim=8, latent_dim=4,
             hidden_nc=16, embed_nc=12, w_hpf=0.0, max_conv_dim=64,
             num_embeds=5, ds_iter=10, allow_degraded_losses=True)
+# the training iteration's comparison runs in float64 (parameters, Adam's
+# state, activations and inputs): in float32 its L1 terms' near-ties take
+# another sign under another batch split, and G's gradient with them
+FLOAT64_KINDS = ("sgv2_train",)
 
 # the batch axis of each kind's input: super-batches carry a leading
 # (critics | iterations) axis
@@ -92,12 +96,19 @@ def build(kind: str):
         from de_i2i_gan_torch.train.solver import (
             StarGANv2Config, StarGANv2Solver)
         norm = "sean" if kind == "sgv2_stats" else "adain"
-        steps = StarGANv2Solver(StarGANv2Config(**SGV2, norm_type=norm),
-                                device="cpu")
-        if kind == "sgv2_pretrain":
-            steps.init_pretrain(MAE["mask_ratio"], 8, "position")
-        steps.init_training()
-        init_starganv2_weights(steps, 0)
+        dtype = torch.float64 if kind in FLOAT64_KINDS else torch.float32
+        saved = torch.get_default_dtype()
+        torch.set_default_dtype(dtype)  # every parameter and Adam moment
+        try:
+            steps = StarGANv2Solver(StarGANv2Config(
+                **SGV2, norm_type=norm,
+                compute_dtype=str(dtype).removeprefix("torch.")), device="cpu")
+            if kind == "sgv2_pretrain":
+                steps.init_pretrain(MAE["mask_ratio"], 8, "position")
+            steps.init_training()
+            init_starganv2_weights(steps, 0)
+        finally:
+            torch.set_default_dtype(saved)
         return steps
     init_weights(steps, 0)
     return steps
@@ -164,6 +175,9 @@ def make_batch(kind: str, seed: int = 0) -> dict:
     if kind == "sgv2_pretrain":
         b["mask"] = (rng.uniform(size=(n, size, size, 1)) > 0.65).astype(
             np.float32)
+    if kind in FLOAT64_KINDS:
+        b = {k: v.astype(np.float64) if v.dtype.kind == "f" else v
+             for k, v in b.items()}
     return b
 
 
