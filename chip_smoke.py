@@ -1670,17 +1670,24 @@ def profile_super_step(run, label, smi):
     prof = profiled(lambda: steps.super_step(batch, draws), 1)
     check(graphed.REPLAYS - replays == 1,
           f"{label}: the profiled super-step did not replay the graph")
-    seen = {kind: sum(e.count for e in device_kernels(prof)
-                      if f"modulated_instance_norm_{kind}" in e.key)
-            for kind in ("fwd", "bwd")}
-    print(f"{label} replayed super-step: the device ran {seen['fwd']} forward "
-          f"and {seen['bwd']} backward norm kernels, expected "
-          f"{run['per_step'][0]} and {run['per_step'][1]}")
-    check((seen["fwd"], seen["bwd"]) == run["per_step"],
-          f"{label} replayed super-step ran {seen} norm kernels on the "
-          f"device, expected {run['per_step']}")
+    check_norm_kernels_on_device(prof, run["per_step"],
+                                 f"{label} replayed super-step")
     return report_profile(prof, 1, f"{label} replayed super-step", run["ms"],
                           smi)
+
+
+def check_norm_kernels_on_device(prof, want, label):
+    """The norm kernels the device ran under ``prof`` are ``want``, a
+    (forward, backward) pair: where a CUDA graph replays, the host counts
+    them only by adding what its capture made, and these records back
+    that."""
+    seen = tuple(sum(e.count for e in device_kernels(prof)
+                     if f"modulated_instance_norm_{kind}" in e.key)
+                 for kind in ("fwd", "bwd"))
+    print(f"{label}: the device ran {seen[0]} forward and {seen[1]} backward "
+          f"norm kernels, expected {want[0]} and {want[1]}")
+    check(seen == tuple(want), f"{label} ran {seen} norm kernels on the "
+          f"device, expected {tuple(want)}")
 
 
 def check_train_calls(calls, label):
@@ -1799,19 +1806,21 @@ class SuperStepClock:
     """Wraps ``DefectGanSteps.super_step`` (or ``target``, a (class, method
     name) pair whose method takes a batch dict and a generator) while an
     entry point runs: every call ends in ``torch.cuda.synchronize()``, and
-    its end on the host clock, the kernels' launch counts and its batch's
-    keys and devices are kept; calls ``profile_at`` .. ``profile_at +
+    its end on the host clock, the kernels' launch counts, the CUDA graph
+    replays so far and its batch's keys and devices are kept; calls ``profile_at`` .. ``profile_at +
     PROFILED_SUPER_STEPS - 1`` run under torch.profiler."""
 
     def __init__(self, nk, profile_at=None, target=None):
         self.nk, self.profile_at = nk, profile_at
         self.target = target
         self.ends, self.launches, self.keys, self.on_card = [], [], [], []
-        self.dtypes = []
+        self.dtypes, self.replays = [], []
         self.prof = None
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
+
+        from de_i2i_gan_torch.train import graphed
 
         if self.target is None:
             from de_i2i_gan_torch.train.steps import DefectGanSteps
@@ -1833,6 +1842,7 @@ class SuperStepClock:
                 self.prof.__exit__(None, None, None)
             self.ends.append(time.perf_counter())
             self.launches.append((self.nk.LAUNCHES, self.nk.BWD_LAUNCHES))
+            self.replays.append(graphed.REPLAYS)
             self.keys.append(sorted(batches))
             self.dtypes.append({k: v.dtype for k, v in batches.items()})
             self.on_card.append(all(v.device.type == CARD
@@ -2555,6 +2565,8 @@ def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
     finalized every iteration, as the CLI does (sean). The exact launch
     tally by shape, host-clock and profiler device time an iteration, peak
     memory, finite losses and weights, the update counts."""
+    from de_i2i_gan_torch.train import graphed
+
     cfg = sgv2_train_config("sean" if kind == "sean" else "adain",
                             fused_prop=kind == "fused")
     solver = sgv2_trainer(cfg)
@@ -2569,28 +2581,35 @@ def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
             solver.update_sean_stats()
         return metrics
 
+    # AdaIN replays its iteration's CUDA graph from the second on; the
+    # others run eagerly
+    graph = kind == "adain"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    replays = graphed.REPLAYS
     times, metrics = [], []
-    with tally_calls(nk) as calls:
-        for i, batch in enumerate(batches):
-            fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
-            t0 = time.perf_counter()
-            m = step(batch)
-            torch.cuda.synchronize()
-            dt_ms = (time.perf_counter() - t0) * 1e3
-            check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == (per_fwd, per_bwd),
-                  f"{label} iteration {i} launched {nk.LAUNCHES - fwd0} forward "
-                  f"and {nk.BWD_LAUNCHES - bwd0} backward kernels, expected "
-                  f"{per_fwd} and {per_bwd}")
-            if i >= warmup:
-                times.append(dt_ms)
-            metrics.append({k: v.item() for k, v in m.items()})
+    for i, batch in enumerate(batches):
+        fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        check((nk.LAUNCHES - fwd0, nk.BWD_LAUNCHES - bwd0) == (per_fwd, per_bwd),
+              f"{label} iteration {i} launched {nk.LAUNCHES - fwd0} forward "
+              f"and {nk.BWD_LAUNCHES - bwd0} backward kernels, expected "
+              f"{per_fwd} and {per_bwd}")
+        if i >= warmup:
+            times.append(dt_ms)
+        metrics.append({k: v.item() for k, v in m.items()})
     launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    reserved_mb = torch.cuda.max_memory_reserved() / 2**20
     n = len(batches)
-    check_sgv2_train_calls(calls, kind, n, label)
+    replayed = graphed.REPLAYS - replays
+    check(replayed == (n - 1 if graph else 0),
+          f"{label}: {replayed} of {n} iterations replayed the CUDA graph, "
+          f"expected {'all but the first' if graph else 'none'}")
     for i, m in enumerate(metrics):
         check(all(math.isfinite(v) for v in m.values()),
               f"{label} iteration {i}: non-finite loss {m}")
@@ -2606,19 +2625,34 @@ def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
     print(f"training StarGAN v2 AFHQ {kind} {SGV2_IMAGE}^2 bf16 batch "
           f"{SGV2_TRAIN_BATCH}: iteration ms {[round(v, 3) for v in times]} "
           f"mean {mean_ms:.3f} ({SGV2_TRAIN_BATCH * 1e3 / mean_ms:.1f} img/s), "
-          f"peak memory {peak_mb:.1f} MiB, launches over {n} iterations: "
+          f"peak memory {peak_mb:.1f} MiB allocated, {reserved_mb:.1f} MiB "
+          f"reserved, {replayed} of {n} iterations replayed the CUDA graph, "
+          f"launches counted on the host over {n} iterations: "
           f"forward {launches['fwd']}, backward {launches['bwd']} "
           f"({per_fwd}/{per_bwd} an iteration) [{smi}]")
     print(f"{label} losses, iteration 1: "
           f"{json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}")
     print(f"{label} losses, iteration {n}: "
           f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})}")
-    dev_ms = profile_device(lambda: step(batches[-1]), 1, f"{label} iteration",
-                            mean_ms, smi, conv_shapes=kind == "adain")
-    del solver, batches
+    # the tally by shape from one eager body (a replay calls no wrapper),
+    # then one iteration profiled as the loop ran it: the device's records
+    # of the norm kernels are held to the launches an iteration makes
+    with tally_calls(nk) as calls:
+        solver._super_step(solver._batch(batches[-1]), draws)
+    check_sgv2_train_calls(calls, kind, 1, label)
+    replays = graphed.REPLAYS
+    prof = profiled(lambda: step(batches[-1]), 1, record_shapes=graph)
+    check(graphed.REPLAYS - replays == graph,
+          f"{label}: the profiled iteration "
+          f"{'did not replay' if graph else 'replayed'} the CUDA graph")
+    check_norm_kernels_on_device(prof, (per_fwd, per_bwd),
+                                 f"{label} profiled iteration")
+    dev_ms = report_profile(prof, 1, f"{label} iteration", mean_ms, smi,
+                            conv_shapes=graph)
+    del solver, batches, prof
     free_memory()
     return dict(launches=launches, ms=mean_ms, dev_ms=dev_ms, peak_mb=peak_mb,
-                calls=calls, iterations=n)
+                reserved_mb=reserved_mb, calls=calls, iterations=1)
 
 
 def sgv2_trainer_like(solver, compute_dtype):
@@ -2788,6 +2822,7 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
     checkpoints), a resume with ``--resume_iter`` whose loaded state equals
     the saved one, then ``--mode sample`` from it."""
     from de_i2i_gan_torch.cli import starganv2_main as sgv2_cli
+    from de_i2i_gan_torch.train import graphed
     from de_i2i_gan_torch.train.checkpoint import read_checkpoint
     from de_i2i_gan_torch.train.solver import StarGANv2Solver
 
@@ -2805,6 +2840,7 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's runs start here
+    replays = graphed.REPLAYS
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT,
                         target=(StarGANv2Solver, "train_step")) as clock, \
@@ -2825,11 +2861,25 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
               f"{cur[1] - prev[1]} kernels, expected {per_fwd}/{per_bwd}")
         prev = cur
     check(all(clock.on_card), "sgv2 CLI: a batch reached the step off the card")
-    # the iterations, then the debug grid's two G forwards of the val batch
-    want = Counter({s: n * 8 * c for s, c in SGV2_TRAIN_SHAPES.items()})
+    # the graph replays from the second iteration on: the host adds each
+    # replay's launches, the profiled ones' device records back them
+    replayed = clock.replays[-1] - replays
+    check(replayed == n - 1, f"sgv2 CLI: {replayed} of {n} iterations "
+          "replayed the CUDA graph, expected all but the first")
+    first, last = PROFILE_AT, PROFILE_AT + PROFILED_SUPER_STEPS - 1
+    check(clock.replays[last] - clock.replays[first - 1] == PROFILED_SUPER_STEPS,
+          "sgv2 CLI: a profiled iteration did not replay the CUDA graph")
+    check_norm_kernels_on_device(
+        clock.prof, (PROFILED_SUPER_STEPS * per_fwd, PROFILED_SUPER_STEPS * per_bwd),
+        f"sgv2 CLI {PROFILED_SUPER_STEPS} replayed iterations")
+    # the wrappers ran in the eager first iteration and in the capture (a
+    # replay calls none), then in the debug grid's two G forwards of the
+    # val batch
+    bodies = n - replayed + 1
+    want = Counter({s: bodies * 8 * c for s, c in SGV2_TRAIN_SHAPES.items()})
     want.update({s: 2 * c for s, c in val_calls.items()})
     check(calls["fwd"] == want and calls["bwd"] == Counter(
-        {s: n * 4 * c for s, c in SGV2_TRAIN_SHAPES.items()}),
+        {s: bodies * 4 * c for s, c in SGV2_TRAIN_SHAPES.items()}),
         f"sgv2 CLI calls by shape {dict(calls['fwd'])} / {dict(calls['bwd'])}")
     for name in ("G", "D", "M", "S"):
         for k, p in getattr(solver, name).named_parameters():

@@ -67,6 +67,7 @@ from de_i2i_gan_torch.models.starganv2 import (
     Generator, MappingNetwork, SEANv2, StarGANv2Discriminator, StyleEncoder,
     sean_v2_update_stats)
 from de_i2i_gan_torch.nn.blocks import MaskToken
+from de_i2i_gan_torch.train import graphed
 from de_i2i_gan_torch.train.optim import ema_update, make_solver_optimizer
 from de_i2i_gan_torch.utils import profiling
 from de_i2i_gan_torch.utils.diffaug import diff_augment
@@ -122,6 +123,22 @@ class StarGANv2Config:
 
 
 class StarGANv2Solver:
+    """The nets, their EMA copies and the optimizers of StarGAN v2; see the
+    module's docstring.
+
+    On a CUDA device, without a process group, with AdaIN and neither
+    FusedProp nor a high-pass (``w_hpf`` 0), ``train_step`` replays its
+    iteration (``_super_step``: the four updates with each net's Adam, R1's
+    create-graph gradient and its double backward, the EMA) as one CUDA
+    graph (``train/graphed.py``): a batch shape's first call runs eagerly,
+    its second captures the iteration and replays it, later calls replay;
+    other shapes, SEAN, FusedProp, the FAN's masks, data parallel and
+    ``pretrain_step`` run eagerly. The G loss's ``lambda_ds`` decays with
+    ``step`` every iteration; read as a Python float it would be baked into
+    the graph at its capture value, so the graph reads it from a device
+    slot (``graph_scalars``) that the host fills from ``_lambda_ds(step)``
+    before every replay, as it fills each learning rate."""
+
     # what a checkpoint holds (train/checkpoint.py::train_state)
     STATE_NETS = ("G", "D", "M", "S", "ema_G", "ema_M", "ema_S")
     STATE_OPTIMIZERS = ("G", "D", "M", "S")
@@ -151,6 +168,7 @@ class StarGANv2Solver:
         self.vit = self.fan = None  # the frozen nets (set_frozen_nets)
         self.step = 0  # iterations
         self._warned = set()
+        self._graph = graphed.SuperStepGraph()
 
     def set_frozen_nets(self, vit=None, fan=None) -> None:
         """Attach the frozen ViT (``models/vit.py::ViTEncoder``, run in the
@@ -493,32 +511,66 @@ class StarGANv2Solver:
         (SEAN), and the two NHWC ``masks`` of ``w_hpf > 0``, which the FAN
         makes from x_src when attached and the batch has none. Returns the
         loss terms under the JAX names as 0-d tensors. The iteration is the
-        span ``train.super_step``, the root of the spans inside it."""
+        span ``train.super_step``, the root of the spans inside it. Where
+        ``train/graphed.py`` finds the call eligible, it replays the
+        iteration as a CUDA graph captured on an earlier call of the same
+        shapes (see the class's docstring)."""
         self.init_training()
         with profiling.span("train.super_step"):
             batch = self._batch(batch)
             if self.cfg.w_hpf > 0 and self.fan is not None \
                     and "masks" not in batch:
                 batch["masks"] = self._heatmaps(batch["x_src"])
-            passes = ((True, "latent"), (False, "ref")) if self.M is not None \
-                else ((False, "ref"),)
-            metrics = {}
-            if self.cfg.fused_prop:
-                for latent, tag in passes:
-                    dm, gm = self.fused_pair_step(batch, latent, generator)
-                    metrics.update({f"D/{tag}_{k}": v for k, v in dm.items()})
-                    metrics.update({f"G/{tag}_{k}": v for k, v in gm.items()})
-            else:
-                for latent, tag in passes:
-                    m = self.d_step(batch, latent, generator)
-                    metrics.update({f"D/{tag}_{k}": v for k, v in m.items()})
-                for latent, tag in passes:
-                    m = self.g_step(batch, latent, generator)
-                    metrics.update({f"G/{tag}_{k}": v for k, v in m.items()})
-            self._ema()
+            metrics = None
+            if graphed.eligible(self, generator):
+                metrics = self._graph(self, batch, generator)
+            if metrics is None:
+                graphed.count_eager()
+                metrics = self._super_step(batch, generator)
         self.step += 1
         metrics["G/lambda_ds"] = torch.tensor(self._lambda_ds(self.step))
         return metrics
+
+    def _super_step(self, batch: Batch, generator: Optional[torch.Generator]
+                    ) -> Dict[str, torch.Tensor]:
+        """The iteration's body, eager: the updates of each pass, then the
+        EMA; what a graph captures."""
+        passes = ((True, "latent"), (False, "ref")) if self.M is not None \
+            else ((False, "ref"),)
+        metrics = {}
+        if self.cfg.fused_prop:
+            for latent, tag in passes:
+                dm, gm = self.fused_pair_step(batch, latent, generator)
+                metrics.update({f"D/{tag}_{k}": v for k, v in dm.items()})
+                metrics.update({f"G/{tag}_{k}": v for k, v in gm.items()})
+        else:
+            for latent, tag in passes:
+                m = self.d_step(batch, latent, generator)
+                metrics.update({f"D/{tag}_{k}": v for k, v in m.items()})
+            for latent, tag in passes:
+                m = self.g_step(batch, latent, generator)
+                metrics.update({f"G/{tag}_{k}": v for k, v in m.items()})
+        self._ema()
+        return metrics
+
+    def graph_ready(self) -> bool:
+        """What ``graphed.eligible`` asks of the solver besides the call:
+        AdaIN (SEAN's statistics and frozen ViT are not held to a replay),
+        no FusedProp, and ``w_hpf`` 0 (no FAN heatmaps inside the
+        iteration, no masks in the batch)."""
+        cfg = self.cfg
+        return (cfg.norm_type == "adain" and not cfg.fused_prop
+                and cfg.w_hpf == 0)
+
+    def graph_optimizers(self):
+        """The four optimizers, by net."""
+        return [(n, getattr(self, f"tx_{n}")) for n in self.STATE_OPTIMIZERS
+                if getattr(self, f"tx_{n}") is not None]
+
+    def graph_scalars(self):
+        """The G loss's ``lambda_ds``, a host float of ``step`` that a
+        graph reads from a slot (see the class's docstring)."""
+        return [(self, "_lambda_ds", self.step)]
 
     @torch.no_grad()
     def update_sean_stats(self) -> None:

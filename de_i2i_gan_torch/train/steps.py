@@ -330,6 +330,24 @@ class DefectGanSteps:
             graphed.count_eager()
             return self._super_step(batches, generator)
 
+    def graph_ready(self) -> bool:
+        """What ``graphed.eligible`` asks of the steps besides the call: no
+        ``remat`` (its rerun saves and restores G's state on the host,
+        which a replay cannot repeat), and Adam or AdamW (whose
+        ``capturable`` form reads its step and learning rate on the
+        device)."""
+        return (not self.cfg.remat
+                and self.tcfg.optimizer in graphed.GRAPHED_OPTIMIZERS)
+
+    def graph_optimizers(self):
+        """The optimizers a super-step updates, by name."""
+        return [(n, getattr(self, f"tx_{n}")) for n in ("D", "G", "E")
+                if getattr(self, f"tx_{n}") is not None]
+
+    def graph_scalars(self):
+        """Host floats the body reads besides the learning rates: none."""
+        return []
+
     def _super_step(self, batches: Batch,
                     generator: Optional[torch.Generator]
                     ) -> Dict[str, torch.Tensor]:

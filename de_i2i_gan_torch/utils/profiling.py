@@ -36,7 +36,7 @@
   ``replayed`` keeps a record of each of them, nested as at capture under
   the span open at the replay, its counters as at capture, no host time,
   and its device ms read from the graph's events (``train/graphed.py``
-  replays DefectGAN's super-step so).
+  replays DefectGAN's super-step and StarGAN v2's iteration so).
 - ``report()``: by span name, the count, the summed host and device ms,
   the self ms on each clock (a span's duration less the part of it its
   child spans cover) and the summed counter changes. Events are resolved

@@ -179,7 +179,7 @@ def test_replays_advance_the_host_as_eager(monkeypatch, counting_launches):
             "G": before["G"] + 1, "E": before["E"] + 1}
         if i:
             g = steps._graph.graph
-            assert g.lrs.tolist() == lrs
+            assert [float(v) for v in g.scalars] == lrs
             assert (len(set(lrs[:CRITICS])) > 1) == (i < 3)
         _equal(got, want)
         outs.append((got, {k: v.clone() for k, v in got.items()}))

@@ -1,6 +1,7 @@
-"""DefectGAN's super-step replayed as one CUDA graph (``train/graphed.py``)
-against the same super-steps run eagerly, on the card (``gpu`` marker; skips
-without one). This file imports torch and the port only. On the card:
+"""DefectGAN's super-step and StarGAN v2's iteration replayed as one CUDA
+graph (``train/graphed.py``) against the same steps run eagerly, on the card
+(``gpu`` marker; skips without one). This file imports torch and the port
+only. On the card:
 
     python -m pytest tests/test_torch_graph_gpu.py -m gpu --noconftest -q
 
@@ -25,6 +26,12 @@ step's losses within rtol 2e-4; each tensor's change over the steps
 u and v, the EMA generator, Adam's moments) within 1e-3 of the eager
 change's L2 norm plus 1e-5 per element in L2; Adam's step counts, the
 optimizers' update counts and ``steps.step`` equal.
+
+StarGAN v2 runs at the benchmark cell's shapes and precision (AFHQ, batch
+8, 256², bf16), 3 iterations from one drawn Adam state: the graph path and
+two eager runs of the same seed, the second of which sets the tolerance
+(cuDNN is left as the cell runs it, so the eager runs differ by its own
+spread).
 """
 import pytest
 import torch
@@ -225,3 +232,142 @@ def test_remat_and_data_parallel_stay_eager(card):
             steps.super_step(_batches(cfg, i))
         assert graphed.EAGER - eager == 3
         assert steps._graph.graph is None and not steps._graph.seen
+
+
+# StarGAN v2 at the benchmark's shapes: the AFHQ command, batch 8, 256², bf16
+SGV2_ITERS = 3
+SGV2_BATCH, SGV2_IMG = 8, 256
+SGV2_ADAM = (1000, 5e-3, 2e-2)  # resumed count, second moments' range
+SGV2_NETS = ("G", "D", "M", "S", "ema_G", "ema_M", "ema_S")
+# a replayed iteration's norm launches: 96 forward, 48 backward
+SGV2_LAUNCHES = 144
+# how far the graph may stray from eager, in units of the gap between two
+# eager runs of the same seed (cuDNN's and the atomic sums' own spread),
+# with a floor where that gap happens to be 0
+SGV2_GAP_FACTOR, SGV2_FLOOR = 4.0, 1e-6
+
+
+def _sgv2_solver():
+    from de_i2i_gan_torch.train.solver import StarGANv2Config, StarGANv2Solver
+
+    cfg = StarGANv2Config(img_size=SGV2_IMG, num_domains=3, latent_dim=16,
+                          style_dim=64, max_conv_dim=512, w_hpf=0.0,
+                          lambda_ds=2.0, batch_size=SGV2_BATCH,
+                          compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    s = StarGANv2Solver(cfg, device="cuda")
+    s.init_training()
+    # every Adam resumed from one drawn state, as the benchmark's check
+    # does, so that an update is continuous in its gradient (a fresh Adam
+    # with beta1 0 moves each weight by lr * sign(g))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    count, low, high = SGV2_ADAM
+    with torch.no_grad():
+        for _, tx in s.graph_optimizers():
+            for p in tx.params:
+                st = tx.opt.state[p]
+                st["step"].fill_(count)
+                st["exp_avg_sq"].uniform_(low, high, generator=gen)
+    return s
+
+
+def _sgv2_batches():
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for _ in range(SGV2_ITERS):
+        def imgs():
+            return torch.rand((SGV2_BATCH, SGV2_IMG, SGV2_IMG, 3), generator=gen,
+                              device="cuda") * 2 - 1
+
+        out.append({"x_src": imgs(), "x_ref": imgs(), "x_ref2": imgs(),
+                    "y_src": torch.randint(0, 3, (SGV2_BATCH,), generator=gen,
+                                           device="cuda"),
+                    "y_ref": torch.randint(0, 3, (SGV2_BATCH,), generator=gen,
+                                           device="cuda"),
+                    "z_ref": torch.randn((SGV2_BATCH, 16), generator=gen,
+                                         device="cuda"),
+                    "z_ref2": torch.randn((SGV2_BATCH, 16), generator=gen,
+                                          device="cuda")})
+    return out
+
+
+def _sgv2_leaves(s):
+    return {f"{n}.{k}": v.detach().float().clone() for n in SGV2_NETS
+            for k, v in getattr(s, n).state_dict().items()}
+
+
+def _sgv2_run(batches, graph: bool):
+    """3 iterations from the drawn state: the graph path (eager, capture
+    and replay, replay), or eager throughout with Adam capturable from the
+    second, as the graph's. Returns each iteration's losses, each leaf's
+    change, the norm launches and replays of each iteration."""
+    s = _sgv2_solver()
+    if not graph:
+        s.graph_ready = lambda: False
+    start = _sgv2_leaves(s)
+    losses, launches, replays = [], [], []
+    for i, batch in enumerate(batches):
+        if not graph and i == 1:
+            graphed.make_capturable(s)
+        n0, r0 = norm_kernels.LAUNCHES + norm_kernels.BWD_LAUNCHES, graphed.REPLAYS
+        out = s.train_step(batch)
+        torch.cuda.synchronize()
+        losses.append({k: v.item() for k, v in out.items()})
+        launches.append(norm_kernels.LAUNCHES + norm_kernels.BWD_LAUNCHES - n0)
+        replays.append(graphed.REPLAYS - r0)
+    now = _sgv2_leaves(s)
+    change = {k: now[k] - start[k] for k in start}
+    counts = {"step": s.step, **{n: tx.count for n, tx in s.graph_optimizers()}}
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 20
+    del s, start, now
+    torch.cuda.empty_cache()
+    return dict(losses=losses, change=change, launches=launches,
+                replays=replays, counts=counts, reserved_mib=reserved)
+
+
+def _by_net(a, b):
+    """L2 norm of ``a - b`` (two dicts of leaves' changes) by net."""
+    out = {}
+    for k in a:
+        net = k.split(".")[0]
+        out[net] = out.get(net, 0.0) + float((a[k] - b[k]).double().square().sum())
+    return {n: v ** 0.5 for n, v in out.items()}
+
+
+@pytest.mark.gpu
+def test_sgv2_graphed_iterations_equal_eager():
+    """StarGAN v2 at the cell's shapes (AFHQ, batch 8, 256², bf16), 3
+    iterations: the graph path against an eager run, within the gap that a
+    second eager run of the same seed shows, by loss and by net's change
+    (the 7 nets); 144 norm launches a replayed iteration; the update
+    counts equal. Prints each gap and the reserved memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.cuda.reset_peak_memory_stats()
+    batches = _sgv2_batches()
+    eager = _sgv2_run(batches, graph=False)
+    again = _sgv2_run(batches, graph=False)
+    torch.cuda.reset_peak_memory_stats()
+    graph = _sgv2_run(batches, graph=True)
+    print(f"sgv2 graph path: max_memory_reserved {graph['reserved_mib']:.1f} "
+          f"MiB (eager {eager['reserved_mib']:.1f}); norm launches "
+          f"{graph['launches']} (eager {eager['launches']})")
+    assert graph["replays"] == [0, 1, 1] and eager["replays"] == [0, 0, 0]
+    assert graph["launches"] == eager["launches"] == [SGV2_LAUNCHES] * 3
+    assert graph["counts"] == eager["counts"] == {
+        "step": 3, "G": 6, "D": 6, "M": 3, "S": 3}
+    for i in range(SGV2_ITERS):
+        for k, want in eager["losses"][i].items():
+            noise = abs(again["losses"][i][k] - want)
+            got = abs(graph["losses"][i][k] - want)
+            print(f"sgv2 iteration {i} {k}: eager {want!r} graph gap {got:.3e} "
+                  f"eager gap {noise:.3e}")
+            assert got <= SGV2_GAP_FACTOR * noise + SGV2_FLOOR * max(
+                abs(want), 1.0), (i, k)
+    noise = _by_net(again["change"], eager["change"])
+    got = _by_net(graph["change"], eager["change"])
+    size = _by_net(eager["change"], {k: 0.0 for k in eager["change"]})
+    for net in SGV2_NETS:
+        print(f"sgv2 change of {net}: norm {size[net]:.4e} graph gap "
+              f"{got[net]:.3e} eager gap {noise[net]:.3e}")
+        assert got[net] <= SGV2_GAP_FACTOR * noise[net] + SGV2_FLOOR * size[net], net

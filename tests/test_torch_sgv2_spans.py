@@ -148,9 +148,11 @@ def test_norm_launches_an_iteration(monkeypatch):
 # recorded iterations
 READERS = {"step.d_update_ms.sgv2": 350.0, "step.g_update_ms.sgv2": 500.0,
            "loss.r1_ms.sgv2": 18.0, "model.backward_ms.sgv2": 560.0,
-           "kernel.norm_launches_per_step.sgv2": 144.0}
+           "kernel.norm_launches_per_step.sgv2": 144.0,
+           "host.graph_replay_pct.sgv2": 100.0}
 REPORT = {"train.super_step": {"count": 2, "device_ms": 1800.0,
-                               "counters": {"norm.launches": 288}},
+                               "counters": {"norm.launches": 288,
+                                            "train.graph_replays": 2}},
           "train.d_step": {"count": 4, "device_ms": 700.0, "counters": {}},
           "train.g_step": {"count": 4, "device_ms": 1000.0, "counters": {}},
           "sgv2.r1": {"count": 4, "device_ms": 36.0, "counters": {}},

@@ -389,6 +389,25 @@ def test_replayed_super_step_spans_on_the_card(mode):
             <= report["train.super_step"]["device_ms"] + 1e-3)
 
 
+def test_adding_to_a_dropped_host_count_registration_raises():
+    """A count dropped while a graph still holds its difference is an
+    error: a replay would otherwise stop advancing it without a word."""
+    reg = profiling.Registry()
+    n = {"calls": 0}
+
+    def add(delta):
+        n["calls"] += delta["calls"]
+
+    reg.register_host_counts("block", lambda: dict(n), add)
+    delta = {"block": {"calls": 3}}
+    reg.add_host_counts(delta)
+    assert reg.host_counts() == {"block": {"calls": 3}}
+    del reg.host["block"]
+    with pytest.raises(KeyError):
+        reg.add_host_counts(delta)
+    assert n == {"calls": 3}
+
+
 def test_counter_deltas_land_on_the_enclosing_spans():
     reg = profiling.Registry()
     n = [0]

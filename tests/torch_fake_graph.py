@@ -1,19 +1,20 @@
 """Stand-ins that run ``de_i2i_gan_torch/train/graphed.py``'s graph path on
-the CPU, so that its host logic (which calls engage, the learning-rate
-slots, the counts it takes back and adds, the counters, the spans) is
-tested where no card is.
+the CPU, so that its host logic (which calls engage, the host-float slots,
+the counts it takes back and adds, the counters, the spans) is tested where
+no card is, for either owner: ``DefectGanSteps`` or ``StarGANv2Solver``.
 
-``install(monkeypatch)`` lets CPU steps engage the path (``GRAPH_DEVICES``
+``install(monkeypatch)`` lets CPU owners engage the path (``GRAPH_DEVICES``
 takes the CPU; Adam keeps its CPU form) and puts ``FakeGraph`` in place of
 ``torch.cuda.CUDAGraph``:
 
   * its capture runs the body on the CPU and then puts back every tensor
-    of the steps and the random state, since a capture runs nothing;
+    of the owner and the random state, since a capture runs nothing;
   * its ``replay`` runs the body again on the graph's static inputs, each
-    update's learning rate read from the graph's slots in order (as a
-    float, so that CPU Adam's arithmetic is eager's), writes the losses
-    into the static output and takes back what the rerun did on the host
-    (counts, spans), since a replay does nothing there.
+    host float (a learning rate, StarGAN v2's ``lambda_ds``) read from the
+    graph's slots in order (as a float, so that the CPU arithmetic is
+    eager's), writes the losses into the static output and takes back what
+    the rerun did on the host (counts, spans), since a replay does nothing
+    there.
 """
 from __future__ import annotations
 
@@ -24,18 +25,18 @@ import torch
 from de_i2i_gan_torch.train import graphed
 from de_i2i_gan_torch.utils import profiling
 
-NETS = ("G", "E", "D", "ema_G")
+NETS = ("G", "E", "M", "S", "D", "ema_G", "ema_M", "ema_S")
 
 
 def _tensors(steps):
-    """Every tensor a super-step moves: parameters, buffers, optimizer
+    """Every tensor an iteration moves: parameters, buffers, optimizer
     state."""
     out = []
     for n in NETS:
         net = getattr(steps, n, None)
         if net is not None:
             out += list(net.parameters()) + list(net.buffers())
-    for _, tx in graphed._optimizers(steps):
+    for _, tx in steps.graph_optimizers():
         for p in tx.params:
             out += [v for v in tx.opt.state[p].values()
                     if isinstance(v, torch.Tensor)]
@@ -64,7 +65,7 @@ def nothing_runs(steps, generator):
 def _host(steps):
     """The steps' counts and the registered host counts, read here and not
     through ``graphed``, so that a count ``graphed`` leaves out shows."""
-    own = [steps.step] + [tx.count for _, tx in graphed._optimizers(steps)]
+    own = [steps.step] + [tx.count for _, tx in steps.graph_optimizers()]
     return own, profiling.host_counts()
 
 
@@ -73,7 +74,7 @@ def _take_back(steps, before):
     host."""
     registered = profiling.host_counts()
     steps.step = before[0][0]
-    for (_, tx), count in zip(graphed._optimizers(steps), before[0][1:]):
+    for (_, tx), count in zip(steps.graph_optimizers(), before[0][1:]):
         tx.count = count
     profiling.add_host_counts({
         name: {k: before[1][name][k] - v for k, v in counts.items()}
@@ -81,25 +82,35 @@ def _take_back(steps, before):
 
 
 class FakeGraph:
+    """``reads``: each host float a replay read, as (attribute, value)."""
+
     def __init__(self):
         self.steps = self.g = None
+        self.reads = []
 
     def register_generator_state(self, generator):
         pass
 
     def replay(self):
         steps, g = self.steps, self.g
-        slots = iter(g.lrs)
-        schedules = {tx: tx.schedule for tx, _ in g.slots}
-        for tx in schedules:
-            tx.schedule = lambda count: float(next(slots))
+        slots = iter(g.scalars)
+
+        def reader(attribute):
+            def read(count):
+                value = float(next(slots))
+                self.reads.append((attribute, value))
+                return value
+            return read
+
         before = _host(steps)
         try:
-            with profiling.captured():
-                out = steps._super_step(g.inputs, g.generator)
+            with contextlib.ExitStack() as stack:
+                for holder, attribute, _ in graphed.schedules(steps):
+                    stack.enter_context(graphed._swapped(
+                        holder, attribute, reader(attribute)))
+                with profiling.captured():
+                    out = steps._super_step(g.inputs, g.generator)
         finally:
-            for tx, schedule in schedules.items():
-                tx.schedule = schedule
             _take_back(steps, before)
         with torch.no_grad():
             g.losses.copy_(torch.stack([out[k].float() for k in g.names]))
@@ -132,4 +143,7 @@ def install(monkeypatch) -> None:
                         lambda *a, **kw: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda *a, **kw: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "Event", _Event)
