@@ -47,7 +47,8 @@ injection. SEAN and SPADE train with DiffAugment on every policy.
 Phases, each of which raises on failure:
 
   1. device   card name, count, torch/CUDA versions, nvidia-smi name + power
-  2. build    nvcc builds both kernels, one library, from the checkout;
+  2. build    nvcc builds every kernel (the norm's, the reflect pad's), one
+              library, from the checkout;
               ptxas's lines for every instantiation, failing on any spill;
               each tier's occupancy at the paths' row lengths (blocks an SM,
               and cudaOccupancyMaxActiveClusters for each cluster plan)
@@ -88,6 +89,14 @@ Phases, each of which raises on failure:
               backward launches), losses, G's and E's deltas within 6c's
               band, G's within 6d's f32 band, G's BatchNorm statistics,
               peak memory of both
+  6h. pad     the reflect pad kernels at every pad shape of a DefectGAN
+              super-step at 256^2, batch 8, in bf16: the forward against
+              F.pad bit for bit, the backward within one bf16 ulp of the
+              float32 sum rounded once and bit-identical over two runs; each
+              timed beside its plain version (the gathers, index_add_), the
+              library call (F.pad, aten's reflection_pad2d_backward) and its
+              bound by bytes, summed over the super-step's calls; the host
+              cost of one eager call of the op beside F.pad's
   7a. sean    serving: 2 warm-up + 5 timed requests (the path's launch
               counts), against the use_pallas=False path within the band
               of phase 4; profile
@@ -640,6 +649,61 @@ def expected_launches(cfg, forwards, backwards):
     return forwards * per_g, backwards * per_g
 
 
+def pad_convs(cfg):
+    """(G, E, D): the convolutions of each of ``cfg``'s nets that
+    reflect-pad their input, one pad launch a call (0 for a net the
+    configuration has not); the nets are built on the meta device."""
+    from de_i2i_gan_torch.config import TrainConfig
+    from de_i2i_gan_torch.nn.layers import Conv2d
+    from de_i2i_gan_torch.train.steps import DefectGanSteps
+
+    steps = DefectGanSteps(cfg, TrainConfig(), device="meta")
+    steps.init_training()
+    return tuple(0 if net is None else sum(
+        isinstance(m, Conv2d) and m.padding_mode == "reflect"
+        and any(sum(m.pads, ())) for m in net.modules())
+        for net in (steps.G, steps.E, steps.D))
+
+
+def expected_pads(cfg, requests=0, super_steps=0, d_forwards=0):
+    """Pad launches (forward, backward) of ``requests`` requests (G, and E
+    where the configuration has one), ``d_forwards`` D forwards without a
+    gradient and ``super_steps`` super-steps of CRITICS D updates and a G
+    update. A super-step runs G G_FORWARDS_PER_SUPER_STEP times (under
+    remat the G update's two forwards again in its backward pass), E twice
+    an update and D once. Backward: the G update's pads but the first of
+    its first G forward and of each E forward (real images), and D's but
+    its first in each D update (images detached)."""
+    g, e, d = pad_convs(cfg)
+    g_forwards = G_FORWARDS_PER_SUPER_STEP + (
+        G_BACKWARDS_PER_SUPER_STEP if cfg.remat else 0)
+    step_fwd = g_forwards * g + 2 * (CRITICS + 1) * e + (CRITICS + 1) * d
+    step_bwd = (G_BACKWARDS_PER_SUPER_STEP * g - 1 + 2 * max(e - 1, 0)
+                + CRITICS * (d - 1) + d)
+    return (requests * (g + e) + d_forwards * d + super_steps * step_fwd,
+            super_steps * step_bwd)
+
+
+def reset_launches(nk):
+    """A path's run starts here: the norm and the pad kernels' launch
+    counts from 0."""
+    from de_i2i_gan_torch.ops.cuda import pad_kernels as pk
+    nk.LAUNCHES = nk.BWD_LAUNCHES = 0
+    pk.LAUNCHES = pk.BWD_LAUNCHES = 0
+
+
+def pad_launches():
+    """The pad kernels' launches since ``reset_launches``."""
+    from de_i2i_gan_torch.ops.cuda import pad_kernels as pk
+    return {"fwd": pk.LAUNCHES, "bwd": pk.BWD_LAUNCHES}
+
+
+def check_pads(label, got, want):
+    check(got == {"fwd": want[0], "bwd": want[1]},
+          f"{label} launched the pad kernels {got}, expected {want[0]} "
+          f"forward and {want[1]} backward")
+
+
 # ------------------------------------------------------------- 2. build
 
 
@@ -877,7 +941,7 @@ def phase_serving(nk, smi, cfg, label, compare=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the serving path's run starts here
+    reset_launches(nk)  # the serving path's run starts here
     latencies = []
     outputs = []
     for i, (data, labels, style) in enumerate(requests):
@@ -893,7 +957,9 @@ def phase_serving(nk, smi, cfg, label, compare=True):
             latencies.append(dt_ms)
         outputs.append((out, prob))
     launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    pads = pad_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check_pads(f"{label} serving", pads, expected_pads(cfg, requests=len(requests)))
     check(launches["bwd"] == 0,
           f"{label} serving launched the backward kernel {launches['bwd']} times")
 
@@ -907,9 +973,10 @@ def phase_serving(nk, smi, cfg, label, compare=True):
           f"({BATCH * 1e3 / mean_ms:.1f} img/s), peak memory "
           f"{peak_mb:.1f} MiB, forward kernel launches {launches['fwd']}, "
           f"backward kernel launches {launches['bwd']} over {len(requests)} "
-          f"forwards [{smi}]")
-    result = dict(launches=launches, ms=mean_ms, plain_ms=None,
-                  peak_mb=peak_mb, steps=steps, request=requests[2])
+          f"forwards, pad kernel launches {pads['fwd']} [{smi}]")
+    result = dict(launches=launches, pad_launches=pads, ms=mean_ms,
+                  plain_ms=None, peak_mb=peak_mb, steps=steps,
+                  request=requests[2])
     if not compare:
         return result
 
@@ -1322,14 +1389,16 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
     draws = torch.Generator(device="cuda").manual_seed(SEED + 6)
     per_fwd, per_bwd = expected_launches(cfg, G_FORWARDS_PER_SUPER_STEP,
                                          G_BACKWARDS_PER_SUPER_STEP)
+    pads_per_step = expected_pads(cfg, super_steps=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the training path's run starts here
+    reset_launches(nk)  # the training path's run starts here
     replays = graphed.REPLAYS
     times, metrics = [], []
     for i, batch in enumerate(batches):
         fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
+        pads0 = pad_launches()
         t0 = time.perf_counter()
         m = steps.super_step(batch, draws)
         torch.cuda.synchronize()
@@ -1338,10 +1407,14 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
               f"{label} super-step {i} launched {nk.LAUNCHES - fwd0} forward and "
               f"{nk.BWD_LAUNCHES - bwd0} backward kernels, expected {per_fwd} "
               f"and {per_bwd}")
+        check_pads(f"{label} super-step {i}",
+                   {k: v - pads0[k] for k, v in pad_launches().items()},
+                   pads_per_step)
         if i >= warmup:
             times.append(dt_ms)
         metrics.append({k: v.item() for k, v in m.items()})
     launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    pads = pad_launches()
     # the graph's activations live in its private pool: the allocator's
     # peak leaves them out, the reserved memory holds them
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -1367,15 +1440,16 @@ def phase_training(nk, smi, cfg, label, diff_aug="", warmup=2, timed=5):
           f"{peak_mb:.1f} MiB allocated, {reserved_mb:.1f} MiB reserved, "
           f"{replayed} of {len(batches)} super-steps replayed the CUDA graph, "
           f"launches counted on the host over {len(batches)} super-steps: "
-          f"forward {launches['fwd']}, backward {launches['bwd']} [{smi}]")
+          f"forward {launches['fwd']}, backward {launches['bwd']}; pad "
+          f"kernels forward {pads['fwd']}, backward {pads['bwd']} [{smi}]")
     print(f"{label} losses, super-step 1: "
           f"{json.dumps({k: round(v, 5) for k, v in metrics[0].items()})}")
     print(f"{label} losses, super-step {len(metrics)}: "
           f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})}")
-    return dict(launches=launches, ms=mean_ms, peak_mb=peak_mb,
-                reserved_mb=reserved_mb, steps=steps, batch=batches[-1],
-                draws=draws, super_steps=len(batches),
-                per_step=(per_fwd, per_bwd))
+    return dict(launches=launches, pad_launches=pads, ms=mean_ms,
+                peak_mb=peak_mb, reserved_mb=reserved_mb, steps=steps,
+                batch=batches[-1], draws=draws, super_steps=len(batches),
+                per_step=(per_fwd, per_bwd), pads_per_step=pads_per_step)
 
 
 def phase_sean_stats_request(nk, steps, smi):
@@ -1512,12 +1586,15 @@ def phase_train_remat(nk, smi):
         before = param_snapshot(steps)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+        reset_launches(nk)  # the path's run starts here
         m = steps.super_step(batch, torch.Generator(device="cuda")
                              .manual_seed(SEED + 10))
         torch.cuda.synchronize()
         launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+        pads = pad_launches()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        check_pads(f"adain super-step remat={remat}", pads,
+                   expected_pads(cfg, super_steps=1))
         fwd, bwd = expected_launches(
             cfg, G_FORWARDS_PER_SUPER_STEP
             + (G_BACKWARDS_PER_SUPER_STEP if remat else 0),
@@ -1529,7 +1606,7 @@ def phase_train_remat(nk, smi):
         check(all(math.isfinite(v) for v in metrics.values()),
               f"adain super-step remat={remat}: non-finite loss {metrics}")
         out[remat] = dict(steps=steps, metrics=metrics, launches=launches,
-                          peak_mb=peak_mb)
+                          pad_launches=pads, peak_mb=peak_mb)
         del steps, m
         free_memory()
     on, off = out[True], out[False]
@@ -1547,7 +1624,8 @@ def phase_train_remat(nk, smi):
     stats = max((a.float() - b.float()).abs().max().item() for a, b in zip(
         on["steps"].G.buffers(), off["steps"].G.buffers()))
     print(f"adain remat on vs off, one full-width f32 SGD super-step on the "
-          f"card: launches {on['launches']} vs {off['launches']}; max loss "
+          f"card: launches {on['launches']} vs {off['launches']}, pad "
+          f"launches {on['pad_launches']} vs {off['pad_launches']}; max loss "
           f"diff {loss:.3f} x (rtol {LOSS_RTOL}); (after-before)/lr of G and "
           f"E: max per-tensor L2 diff {rel:.3f} x (band {GRAD_REL_L2} |ref| + "
           f"atol {GRAD_ATOL} sqrt(n)); G's deltas relative L2 {whole:.3e} "
@@ -1558,8 +1636,8 @@ def phase_train_remat(nk, smi):
           and stats <= 1e-3,
           f"remat changed the adain super-step: losses {loss:.3f}, deltas "
           f"{rel:.3f}, G {whole:.3e}, statistics {stats:.2e}")
-    result = dict(launches=on["launches"], peak_mb=on["peak_mb"],
-                  off_peak_mb=off["peak_mb"])
+    result = dict(launches=on["launches"], pad_launches=on["pad_launches"],
+                  peak_mb=on["peak_mb"], off_peak_mb=off["peak_mb"])
     del out, on, off
     free_memory()
     return result
@@ -1655,6 +1733,160 @@ def phase_bwd_timing(nk, fused, smi, shapes=TRAIN_SHAPES,
     return rows
 
 
+# reflect pads of one DefectGAN super-step at 256^2, batch 8, 5 critics
+# (the benchmark cell's configuration): input shape, pads (top, bottom,
+# left, right), whether its input takes a gradient, calls a super-step;
+# 307 forward, 94 with a backward
+P1, P3 = (1, 1, 1, 1), (3, 3, 3, 3)
+PAD_CALLS = [
+    ((8, 3, 256, 256), P3, False, 12),
+    ((8, 64, 64, 64), P1, False, 10), ((8, 64, 64, 64), P1, True, 2),
+    ((8, 64, 128, 128), P1, False, 10), ((8, 64, 128, 128), P1, True, 2),
+    ((8, 128, 32, 32), P1, False, 10), ((8, 128, 32, 32), P1, True, 2),
+    ((8, 128, 64, 64), P1, False, 10), ((8, 128, 64, 64), P1, True, 2),
+    ((8, 256, 4, 4), P1, False, 10), ((8, 256, 4, 4), P1, True, 2),
+    ((8, 256, 8, 8), P1, False, 20), ((8, 256, 8, 8), P1, True, 4),
+    ((8, 256, 16, 16), P1, False, 20), ((8, 256, 16, 16), P1, True, 4),
+    ((8, 256, 32, 32), P1, False, 10), ((8, 256, 32, 32), P1, True, 2),
+    ((16, 3, 256, 256), P1, True, 1),
+    ((16, 3, 256, 256), P3, False, 6), ((16, 3, 256, 256), P3, True, 1),
+    ((16, 64, 128, 128), P1, True, 1),
+    ((16, 64, 256, 256), P1, False, 15), ((16, 64, 256, 256), P1, True, 6),
+    ((16, 128, 64, 64), P1, True, 1),
+    ((16, 128, 128, 128), P1, False, 5), ((16, 128, 128, 128), P1, True, 2),
+    ((16, 128, 256, 256), P1, False, 5), ((16, 128, 256, 256), P1, True, 2),
+    ((16, 256, 32, 32), P1, True, 1),
+    ((16, 256, 64, 64), P1, False, 60), ((16, 256, 64, 64), P1, True, 24),
+    ((16, 256, 128, 128), P1, False, 5), ((16, 256, 128, 128), P1, True, 2),
+    ((16, 512, 16, 16), P1, True, 1),
+    ((16, 1024, 8, 8), P1, True, 1),
+    ((16, 2048, 4, 4), P1, True, 1),
+    ((32, 3, 256, 256), P1, False, 5),
+    ((32, 64, 128, 128), P1, True, 5),
+    ((32, 128, 64, 64), P1, True, 5),
+    ((32, 256, 32, 32), P1, True, 5),
+    ((32, 512, 16, 16), P1, True, 5),
+    ((32, 1024, 8, 8), P1, True, 5),
+    ((32, 2048, 4, 4), P1, True, 5),
+]
+
+
+def phase_pad_timing(smi, host_iters=2000):
+    """6h. The reflect pad kernels at each pad shape of the super-step, in
+    bf16: checked (the forward against F.pad bit for bit, the backward
+    within one bf16 ulp of the plain float32 sum rounded once, twice
+    bit-identical), then timed as the norm kernels are (plain, library,
+    kernel, kernel, library, plain, over rotating copies beyond the L2)
+    beside the bound by bytes (input read once, output written once). Sums
+    each over the super-step's calls; the host cost of an eager call."""
+    from de_i2i_gan_torch.ops.cuda import pad_kernels as pk
+    want = expected_pads(full_config(), super_steps=1)  # (307, 94)
+    check((sum(n for *_, n in PAD_CALLS),
+           sum(n for _, _, bwd, n in PAD_CALLS if bwd)) == want,
+          f"PAD_CALLS does not hold the super-step's {want} calls")
+    calls = {"fwd": Counter(), "bwd": Counter()}
+    for shape, pads, bwd, n in PAD_CALLS:
+        calls["fwd"][(shape, pads)] += n
+        if bwd:
+            calls["bwd"][(shape, pads)] += n
+    rows = {"fwd": [], "bwd": []}
+    worst = {"fwd": 0.0, "bwd": 0.0}  # the forward is held to F.pad's bits
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    for kind in ("fwd", "bwd"):
+        for (shape, pads), n in sorted(calls[kind].items()):
+            pt, pb, pl, pr = pads
+            h, w = shape[2:]
+            padded = (*shape[:2], h + pt + pb, w + pl + pr)
+            src = torch.randn(shape if kind == "fwd" else padded, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            io_bytes = (math.prod(shape) + math.prod(padded)) * 2
+            # rotate through copies so the working set exceeds the 50 MB L2
+            copies = max(2, math.ceil(128e6 / io_bytes))
+            srcs = [src.clone() for _ in range(copies)]
+            iters = 4 * copies
+            if kind == "fwd":
+                out = pk.reflect_pad_fwd(src, pads)
+                check(torch.equal(out, F.pad(src, (pl, pr, pt, pb), mode="reflect")),
+                      f"pad forward {shape} {pads} differs from F.pad")
+
+                def kernel(i):
+                    pk.reflect_pad_fwd(srcs[i % copies], pads)
+
+                def plain(i):
+                    t = srcs[i % copies].index_select(
+                        2, pk.reflect_index(h, pt, pb, "cuda"))
+                    t.index_select(3, pk.reflect_index(w, pl, pr, "cuda"))
+
+                def library(i):
+                    F.pad(srcs[i % copies], (pl, pr, pt, pb), mode="reflect")
+            else:
+                out = pk.reflect_pad_bwd(src, pads, h, w)
+                ref = pk.reflect_pad_bwd_ref(src, pads, h, w).float()
+                size = pk.reflect_pad_bwd_ref(src.float().abs(), pads, h, w)
+                terms = pk.reflect_pad_bwd_ref(torch.ones_like(src, dtype=torch.float32),
+                                               pads, h, w)
+                band = 2.0 ** -8 * ref.abs() + 2 * terms * 2.0 ** -24 * size
+                check(bool(((out.float() - ref).abs() <= band).all())
+                      and torch.equal(out, pk.reflect_pad_bwd(src, pads, h, w)),
+                      f"pad backward {shape} {pads}: off the float32 sum by "
+                      f"more than a bf16 ulp, or not deterministic")
+                worst["bwd"] = max(worst["bwd"],
+                                   (out.float() - ref).abs().max().item())
+                like = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+
+                def kernel(i):
+                    pk.reflect_pad_bwd(srcs[i % copies], pads, h, w)
+
+                def plain(i):
+                    pk.reflect_pad_bwd_ref(srcs[i % copies], pads, h, w)
+
+                def library(i):
+                    torch.ops.aten.reflection_pad2d_backward(
+                        srcs[i % copies], like, [pl, pr, pt, pb])
+            p1 = device_ms(plain, iters)
+            l1 = device_ms(library, iters)
+            k1 = device_ms(kernel, iters)
+            k2 = device_ms(kernel, iters)
+            l2 = device_ms(library, iters)
+            p2 = device_ms(plain, iters)
+            bound_ms, bound_by = bound(io_bytes, 0)
+            row = dict(shape=list(shape), pads=list(pads), calls=n,
+                       ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                       library_ms=(l1 + l2) / 2, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            rows[kind].append(row)
+            print(f"pad {kind} {shape} pads {pads} bf16 ({n} a super-step): "
+                  f"kernel {k1:.4f}/{k2:.4f} ms, library {l1:.4f}/{l2:.4f} ms, "
+                  f"plain {p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({io_bytes / 1e6:.1f} MB), roofline share "
+                  f"{bound_ms / row['ms']:.1%}, library's "
+                  f"{bound_ms / row['library_ms']:.1%} [{smi}]")
+            del srcs, src, out
+    free_memory()
+    per_step = {kind: {"calls": sum(r["calls"] for r in rs),
+                       **{k: sum(r[k] * r["calls"] for r in rs)
+                          for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+                for kind, rs in rows.items()}
+    x = torch.randn((8, 256, 4, 4), generator=gen, device="cuda").to(torch.bfloat16)
+    host = {"op_us": host_us(lambda: pk.reflect_pad(x, P1), host_iters),
+            "wrapper_us": host_us(lambda: pk.reflect_pad_fwd(x, P1), host_iters),
+            "fpad_us": host_us(lambda: F.pad(x, (1, 1, 1, 1), mode="reflect"),
+                               host_iters),
+            "device_us": device_ms(lambda i: pk.reflect_pad_fwd(x, P1), 200) * 1e3}
+    for kind, t in per_step.items():
+        print(f"pad {kind} per super-step ({t['calls']} calls): kernel "
+              f"{t['ms']:.4f} ms, library {t['library_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, roofline "
+              f"share {t['bound_ms'] / t['ms']:.1%} (library "
+              f"{t['bound_ms'] / t['library_ms']:.1%}) [{smi}]")
+    print(f"pad host cost of an eager call at (8, 256, 4, 4) bf16: the op "
+          f"{host['op_us']:.2f} us, the ctypes wrapper alone "
+          f"{host['wrapper_us']:.2f} us, F.pad {host['fpad_us']:.2f} us; the "
+          f"kernel back to back {host['device_us']:.2f} us on the device [{smi}]")
+    return {"per_super_step": per_step, "per_call": rows, "host_us": host,
+            "max_abs_err": worst}
+
+
 def profile_super_step(run, label, smi):
     """One super-step of the eager body profiled (a replay of the CUDA graph
     calls no wrapper, so only this one feeds the tally by shape,
@@ -1672,6 +1904,8 @@ def profile_super_step(run, label, smi):
           f"{label}: the profiled super-step did not replay the graph")
     check_norm_kernels_on_device(prof, run["per_step"],
                                  f"{label} replayed super-step")
+    check_pad_kernels_on_device(prof, run["pads_per_step"],
+                                f"{label} replayed super-step")
     return report_profile(prof, 1, f"{label} replayed super-step", run["ms"],
                           smi)
 
@@ -1688,6 +1922,22 @@ def check_norm_kernels_on_device(prof, want, label):
           f"norm kernels, expected {want[0]} and {want[1]}")
     check(seen == tuple(want), f"{label} ran {seen} norm kernels on the "
           f"device, expected {tuple(want)}")
+
+
+def check_pad_kernels_on_device(prof, want, label):
+    """The pad kernels the device ran under ``prof`` are ``want``, a
+    (forward, backward) pair, and aten's reflect pads none."""
+    seen = tuple(sum(e.count for e in device_kernels(prof)
+                     if f"reflect_pad_{kind}_kernel" in e.key)
+                 for kind in ("fwd", "bwd"))
+    aten = sum(e.count for e in device_kernels(prof)
+               if "reflection_pad2d" in e.key)
+    print(f"{label}: the device ran {seen[0]} forward and {seen[1]} backward "
+          f"pad kernels, expected {want[0]} and {want[1]}; aten's reflect "
+          f"pad kernels {aten}")
+    check(seen == tuple(want) and aten == 0,
+          f"{label} ran {seen} pad kernels and {aten} of aten's on the "
+          f"device, expected {tuple(want)} and none")
 
 
 def check_train_calls(calls, label):
@@ -1814,6 +2064,7 @@ class SuperStepClock:
         self.nk, self.profile_at = nk, profile_at
         self.target = target
         self.ends, self.launches, self.keys, self.on_card = [], [], [], []
+        self.pads = []
         self.dtypes, self.replays = [], []
         self.prof = None
 
@@ -1842,6 +2093,7 @@ class SuperStepClock:
                 self.prof.__exit__(None, None, None)
             self.ends.append(time.perf_counter())
             self.launches.append((self.nk.LAUNCHES, self.nk.BWD_LAUNCHES))
+            self.pads.append(pad_launches())
             self.replays.append(graphed.REPLAYS)
             self.keys.append(sorted(batches))
             self.dtypes.append({k: v.dtype for k, v in batches.items()})
@@ -1865,10 +2117,20 @@ class SuperStepClock:
 
 
 def check_trainer_launches(nk, clock, label, cfg):
-    """Exact launches: 56 forward and 16 backward a super-step, no other."""
+    """Exact launches: 56 forward and 16 backward a super-step, no other,
+    and the pad kernels' ``expected_pads`` a super-step. Returns the norm
+    kernels' and the pad kernels' counts."""
     n = len(clock.ends)
     per_fwd, per_bwd = expected_launches(cfg, G_FORWARDS_PER_SUPER_STEP,
                                          G_BACKWARDS_PER_SUPER_STEP)
+    pads = expected_pads(cfg, super_steps=1)
+    check_pads(f"{label} over {n} super-steps", pad_launches(),
+               (pads[0] * n, pads[1] * n))
+    prev = {"fwd": 0, "bwd": 0}
+    for i, cur in enumerate(clock.pads):
+        check_pads(f"{label} super-step {i}",
+                   {k: v - prev[k] for k, v in cur.items()}, pads)
+        prev = cur
     check(n > 0 and (nk.LAUNCHES, nk.BWD_LAUNCHES) == (per_fwd * n, per_bwd * n),
           f"{label}: {nk.LAUNCHES} forward and {nk.BWD_LAUNCHES} backward "
           f"launches over {n} super-steps, expected {per_fwd} and {per_bwd} each")
@@ -1880,7 +2142,7 @@ def check_trainer_launches(nk, clock, label, cfg):
         prev = cur
     check(all(clock.on_card), f"{label}: a super-batch reached the step "
           "off the card")
-    return {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}
+    return {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}, pad_launches()
 
 
 def check_trained(trainer, label):
@@ -1945,15 +2207,15 @@ def phase_cli_train(nk, smi, preloaded_ms, name="adain", *extra):
     label = f"train CLI {name}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the trainer's run starts here
+    reset_launches(nk)  # the trainer's run starts here
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT) as clock:
         trainer = train_main(cli_args(name, "--style_norm_block_type",
                                       "adain", "--num_epochs", "1",
                                       "--save_ckpt_freq", "1", *extra))
     wall_s = time.perf_counter() - t0
-    launches = check_trainer_launches(nk, clock, label,
-                                      trainer.cfg)  # ... ends here
+    launches, pads = check_trainer_launches(nk, clock, label,
+                                            trainer.cfg)  # ... ends here
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     check_trained(trainer, label)
     n = len(clock.ends)
@@ -1990,7 +2252,8 @@ def phase_cli_train(nk, smi, preloaded_ms, name="adain", *extra):
           f"pinned memory, on stream(s) {sorted({c[1] for c in copies})}; the "
           f"kernels on stream(s) {sorted(streams)}: the copies ran on a side "
           f"stream and the step copied nothing itself")
-    result = dict(launches=launches, ms=fed_ms, dev_ms=dev_ms, peak_mb=peak_mb,
+    result = dict(launches=launches, pad_launches=pads, ms=fed_ms,
+                  dev_ms=dev_ms, peak_mb=peak_mb,
                   super_steps=n, state=cpu_state(trainer.steps),
                   image_dtypes=image_dtypes,
                   copy_mb=sum(c[2] for c in copies) / 2**20 / (len(copies) / keys))
@@ -2013,13 +2276,12 @@ def phase_cli_test(nk, smi):
     loader = DataLoader(SyntheticDefectDataset(CLI_IMAGE, 6, 64, "defects",
                                                seed=CLI_SEED), BATCH,
                         seed=CLI_SEED)
-    for _ in loader:
-        pass
+    d_forwards = sum(1 for _ in loader)  # --cal_clf: one a batch
     _, labels, _ = next(iter(loader))
     n_multi = len(np.unique(labels[labels.sum(axis=1) > 1], axis=0))
     g_forwards = 1 + n_multi + 5  # the grid request, one a diverse grid
     res = CLI_DIR / "results"
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the test CLI's run starts here
+    reset_launches(nk)  # the test CLI's run starts here
     t0 = time.perf_counter()
     out = test_main(cli_args("adain", "--style_norm_block_type", "adain",
                              "--which_epoch", "1", "--results_dir", str(res),
@@ -2028,6 +2290,9 @@ def phase_cli_test(nk, smi):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
+    pads = pad_launches()
+    check_pads("test CLI", pads, expected_pads(
+        full_config(), requests=g_forwards, d_forwards=d_forwards))
     want, _ = expected_launches(full_config(), g_forwards, 0)
     check(launches == {"fwd": want, "bwd": 0},
           f"test CLI launches {launches}, expected {want} forward "
@@ -2047,9 +2312,10 @@ def phase_cli_test(nk, smi):
           f"grids, {n_multi} multi-label + 5 single-label), classifier "
           f"accuracy {acc:.4f} (D after one epoch of random-weight training "
           f"on synthetic data), {launches['fwd']} forward kernel launches over "
-          f"{g_forwards} G forwards, {wall_s:.1f} s [{smi}]")
+          f"{g_forwards} G forwards, {pads['fwd']} pad kernel launches over "
+          f"them and {d_forwards} D forwards, {wall_s:.1f} s [{smi}]")
     free_memory()
-    return dict(launches=launches)
+    return dict(launches=launches, pad_launches=pads)
 
 
 def phase_cli_resume(nk, smi, trained):
@@ -2071,7 +2337,7 @@ def phase_cli_resume(nk, smi, trained):
         return real_train(self, *args, **kw)
 
     n = trained["super_steps"]
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the resumed run starts here
+    reset_launches(nk)  # the resumed run starts here
     DefectGanTrainer.train = capture
     try:
         with SuperStepClock(nk) as clock:
@@ -2080,8 +2346,8 @@ def phase_cli_resume(nk, smi, trained):
                                           "--save_ckpt_freq", "4"))
     finally:
         DefectGanTrainer.train = real_train
-    launches = check_trainer_launches(nk, clock, "resumed train CLI",
-                                      trainer.cfg)  # ... ends here
+    launches, pads = check_trainer_launches(nk, clock, "resumed train CLI",
+                                            trainer.cfg)  # ... ends here
     check_trained(trainer, "resumed train CLI")
     diff = same_state(entry["state"], saved)
     check(diff is None, f"the state loaded at resume differs at {diff}")
@@ -2101,7 +2367,7 @@ def phase_cli_resume(nk, smi, trained):
           f"[{smi}]")
     del trainer, clock, entry, saved
     free_memory()
-    return dict(launches=launches)
+    return dict(launches=launches, pad_launches=pads)
 
 
 def phase_cli_sean(nk, smi):
@@ -2121,13 +2387,13 @@ def phase_cli_sean(nk, smi):
                      rng.normal(0, 1, EMBEDS[1]).astype(np.float32))
     path = CLI_DIR / "bank.npz"
     bank.save(path)
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the SEAN trainer's run starts here
+    reset_launches(nk)  # the SEAN trainer's run starts here
     with SuperStepClock(nk) as clock:
         trainer = train_main(cli_args(
             "sean", "--style_norm_block_type", "sean", "--use_running_stats",
             "--style_distill", "--embed_path", str(path), "--num_epochs", "1"))
-    launches = check_trainer_launches(nk, clock, "train CLI sean",
-                                      trainer.cfg)  # ... ends here
+    launches, pads = check_trainer_launches(nk, clock, "train CLI sean",
+                                            trainer.cfg)  # ... ends here
     check_trained(trainer, "train CLI sean")
     check(all("df_embeds" in k and "nm_embeds" in k for k in clock.keys),
           "the bank's embeddings did not reach the step")
@@ -2143,7 +2409,7 @@ def phase_cli_sean(nk, smi):
           f"finalized statistics, launches {launches} [{smi}]")
     del trainer, clock
     free_memory()
-    return dict(launches=launches)
+    return dict(launches=launches, pad_launches=pads)
 
 
 def loader_pace(make_loader):
@@ -2395,7 +2661,7 @@ def phase_sgv2_adain(nk, fused, smi):
     reqs = sgv2_requests(cfg, 7, SEED + 11)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     with tally_calls(nk) as calls:
         ms = {mode: timed_requests(
             lambda r, latent=(mode == "latent"): sgv2_request(solver, r, latent),
@@ -2439,7 +2705,7 @@ def phase_sgv2_sean(nk, fused, smi):
     seans = [m for m in solver.ema_G.modules() if isinstance(m, SEANv2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     with tally_calls(nk) as calls:
         ms = timed_requests(lambda r: sgv2_request(solver, r), serve,
                             "sgv2 sean reference embeddings", smi)
@@ -2586,7 +2852,7 @@ def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
     graph = kind == "adain"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     replays = graphed.REPLAYS
     times, metrics = [], []
     for i, batch in enumerate(batches):
@@ -2839,7 +3105,7 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
     val_calls = Counter({(SGV2_BATCH, *s[1:]): c for s, c in SGV2_SHAPES.items()})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's runs start here
+    reset_launches(nk)  # the CLI's runs start here
     replays = graphed.REPLAYS
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT,
@@ -3087,7 +3353,7 @@ def phase_mae_train(nk, smi, warmup=2, timed=5):
     per_fwd, per_bwd = expected_launches(cfg, *MAE_G_PASSES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the MAE path's run starts here
+    reset_launches(nk)  # the MAE path's run starts here
     times, metrics = [], []
     with tally_calls(nk) as calls:
         for i, batch in enumerate(batches):
@@ -3130,7 +3396,7 @@ def phase_mae_train(nk, smi, warmup=2, timed=5):
 
     # eval_losses and repair_grid: the test CLI's calls
     last = {k: v[0] for k, v in batches[-1].items()}
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the evaluation path starts here
+    reset_launches(nk)  # the evaluation path starts here
     ev = steps.eval_losses(last, draws)
     grid = steps.repair_grid(last["imgs"][:4], last["labels"][:4], draws)
     torch.cuda.synchronize()
@@ -3170,7 +3436,7 @@ def phase_mae_cli(nk, smi, preloaded_ms, name, *extra):
     per_fwd, per_bwd = expected_launches(full_config(), *MAE_G_PASSES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the MAE trainer's run starts here
+    reset_launches(nk)  # the MAE trainer's run starts here
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT,
                         target=(MAESteps, "super_step")) as clock:
@@ -3236,7 +3502,7 @@ def phase_mae_test_cli(nk, smi):
         return grid
 
     per_fwd, _ = expected_launches(full_config(), 1, 0)
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the MAE test CLI's run starts here
+    reset_launches(nk)  # the MAE test CLI's run starts here
     MAESteps.repair_grid = checked
     try:
         out = test_main(mae_cli_args("mae", "--results_dir",
@@ -3287,7 +3553,7 @@ def phase_mae_warm_start(nk, smi):
         entry["state"] = cpu_state(self.steps)
         return real_train(self, _FirstSuperBatch(loader), *args, **kw)
 
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the warm-started run starts here
+    reset_launches(nk)  # the warm-started run starts here
     DefectGanTrainer.train = one_step
     try:
         with SuperStepClock(nk) as clock:
@@ -3296,8 +3562,8 @@ def phase_mae_warm_start(nk, smi):
                                           "--num_epochs", "1"))
     finally:
         DefectGanTrainer.train = real_train
-    launches = check_trainer_launches(nk, clock, "warm-started train CLI",
-                                      trainer.cfg)  # ... ends here
+    launches, pads = check_trainer_launches(nk, clock, "warm-started train CLI",
+                                            trainer.cfg)  # ... ends here
     check(len(clock.ends) == 1, f"{len(clock.ends)} super-steps")
     state, counts = entry["state"], {}
     for net in ("G", "E", "D"):
@@ -3311,7 +3577,7 @@ def phase_mae_warm_start(nk, smi):
           f"{launches} [{smi}]")
     del trainer, clock, entry, saved
     free_memory()
-    return dict(launches=launches)
+    return dict(launches=launches, pad_launches=pads)
 
 
 def phase_sgv2_pretrain(nk, smi, tree):
@@ -3334,7 +3600,7 @@ def phase_sgv2_pretrain(nk, smi, tree):
     per_fwd, per_bwd = (SGV2_FWD_PER_FORWARD * p for p in SGV2_PRETRAIN_PASSES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the pretrain run starts here
+    reset_launches(nk)  # the pretrain run starts here
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT,
                         target=(StarGANv2Solver, "pretrain_step")) as clock, \
@@ -3394,7 +3660,7 @@ def phase_sgv2_pretrain(nk, smi, tree):
 
     t_per_fwd, t_per_bwd = (SGV2_FWD_PER_FORWARD * p for p in SGV2_G_PASSES["adain"])
     sgv2_cli.train = spy
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the warm-started run starts here
+    reset_launches(nk)  # the warm-started run starts here
     try:
         trained = sgv2_cli.main(base + [
             "--mode", "train", "--pretrain_dir", str(root / "ckpt"),
@@ -3530,7 +3796,7 @@ def timed_super_steps(nk, steps, batches, label, warmup, smi, draws=None):
     then one profiled super-step's device time."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     times, metrics = [], []
     with tally_calls(nk) as calls:
         for i, batch in enumerate(batches):
@@ -3666,7 +3932,7 @@ def phase_p2p_cli(nk, smi, preloaded_ms, name, *extra):
     label = f"pix2pix CLI {name}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the trainer's run starts here
+    reset_launches(nk)  # the trainer's run starts here
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT,
                         target=(Pix2PixSteps, "super_step")) as clock:
@@ -3735,7 +4001,7 @@ def phase_p2p_resume(nk, smi, trained):
         return real_train(self, *args, **kw)
 
     n = trained["super_steps"]
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the resumed run starts here
+    reset_launches(nk)  # the resumed run starts here
     Pix2PixTrainer.train = capture
     try:
         trainer = p2p_main(p2p_cli_args("p2p", "--continue_training",
@@ -3775,7 +4041,7 @@ def phase_p2p_test_cli(nk, smi):
         finite.append(bool(torch.isfinite(out).all()))
         return out
 
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the test CLI's run starts here
+    reset_launches(nk)  # the test CLI's run starts here
     Pix2PixSteps.generate = checked
     try:
         out = test_main(p2p_cli_args("p2p", "--results_dir",
@@ -3917,7 +4183,7 @@ def phase_wgan_cli(nk, smi):
 
     out = {}
     for name, extra in (("wgan", ()), ("wgan_native", ("--native_loader",))):
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the run starts here
+        reset_launches(nk)  # the run starts here
         t0 = time.perf_counter()
         with SuperStepClock(nk, target=(WGanSteps, "super_step")) as clock:
             trainer = wgan_main(wgan_cli_args(name, "--num_epochs", "1", *extra))
@@ -3952,7 +4218,7 @@ def phase_wgan_cli(nk, smi):
                      state=cpu_state(self.steps))
         return real_train(self, *args, **kw)
 
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the resumed run starts here
+    reset_launches(nk)  # the resumed run starts here
     WGanTrainer.train = capture
     try:
         trainer = wgan_main(wgan_cli_args("wgan", "--continue_training",
@@ -4024,7 +4290,7 @@ def phase_vit(nk, smi):
             * 2 - 1 for _ in range(2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     times = []
     for i in range(2 + VIT_TIMED):
         t0 = time.perf_counter()
@@ -4066,7 +4332,7 @@ def phase_vit_cli(nk, smi):
             str(VIT_BATCH), "--ckpt_dir", str(root / "ckpt"), "--log_dir",
             str(root / "logs")]
     t0 = time.perf_counter()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the ViT CLIs' run starts here
+    reset_launches(nk)  # the ViT CLIs' run starts here
     steps = train_vit.main(base + ["--num_epochs", "1"])
     t1 = time.perf_counter()
     out = test_vit.main(base + ["--results_dir", str(root / "results"),
@@ -4085,13 +4351,14 @@ def phase_vit_cli(nk, smi):
           f"{int((bank.counts > 0).sum())} labels in "
           f"{time.perf_counter() - t1:.1f} s [{smi}]")
 
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the SEAN trainer's run starts here
+    reset_launches(nk)  # the SEAN trainer's run starts here
     with SuperStepClock(nk) as clock:
         trainer = train_main(cli_args(
             "vit_bank", "--style_norm_block_type", "sean", "--embed_path",
             str(out["embeddings_path"]), "--num_epochs", "1"))
-    launches = check_trainer_launches(nk, clock, "train CLI sean with the "
-                                      "ViT bank", trainer.cfg)  # ... ends here
+    launches, pads = check_trainer_launches(
+        nk, clock, "train CLI sean with the ViT bank",
+        trainer.cfg)  # ... ends here
     check_trained(trainer, "train CLI sean with the ViT bank")
     check(all("df_embeds" in k and "nm_embeds" in k for k in clock.keys),
           "the ViT bank's embeddings did not reach the step")
@@ -4102,7 +4369,8 @@ def phase_vit_cli(nk, smi):
           f"{launches['bwd'] // len(clock.ends)} a super-step) [{smi}]")
     del trainer, clock, steps
     free_memory()
-    return dict(launches=vit_launches), dict(launches=launches)
+    return dict(launches=vit_launches), dict(launches=launches,
+                                             pad_launches=pads)
 
 
 def phase_sgv2_sean_vit(nk, smi):
@@ -4128,7 +4396,7 @@ def phase_sgv2_sean_vit(nk, smi):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     times, metrics = [], []
     for i, batch in enumerate(batches):
         fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
@@ -4220,7 +4488,7 @@ def phase_sgv2_sean_cli(nk, smi):
             str(root / "samples"), "--device", CARD]
     per_fwd, per_bwd = (SGV2_FWD_PER_FORWARD * k for k in SGV2_G_PASSES["sean"])
     t0 = time.perf_counter()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's runs start here
+    reset_launches(nk)  # the CLI's runs start here
     with SuperStepClock(nk, target=(StarGANv2Solver, "train_step")) as clock:
         solver, out = run_cli(sgv2_cli.main, base + [
             "--mode", "train", "--total_iters", str(n), "--save_every", str(n),
@@ -4365,7 +4633,7 @@ def phase_fan(nk, smi):
     del cpu, ends, steps
     xb = torch.rand((SGV2_TRAIN_BATCH, 256, 256, 3), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(SEED + 66))
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     m1, m2 = wing.fan_masks(card, xb)
     fan_ms = device_ms(lambda i: wing.fan_masks(card, xb), 5)
     launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
@@ -4409,7 +4677,7 @@ def phase_sgv2_celeba_cli(nk, smi, fan):
         return masks
 
     wing.fan_masks = counted
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+    reset_launches(nk)  # the CLI's run starts here
     try:
         with tally_calls(nk) as calls, SuperStepClock(
                 nk, profile_at=CELEBA_PROFILE_AT,
@@ -4503,7 +4771,7 @@ def phase_align_cli(nk, smi, wing_ckpt):
     np.savez(root / "lm.npz", mean=rng.uniform(60, 200, (98, 2)).astype(np.float32))
     faces = sorted((root / "in" / "faces").glob("*.png"))
     t0 = time.perf_counter()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+    reset_launches(nk)  # the path's run starts here
     written = sgv2_cli.main(["--mode", "align", "--device", CARD, "--img_size",
                              str(SGV2_IMAGE), "--inp_dir", str(root / "in" / "faces"),
                              "--out_dir", str(root / "out"), "--lm_path",
@@ -4643,7 +4911,7 @@ def export_one(nk, name, export, live, args_of, batches, per_forward, smi):
         eager_ms = timed(lambda: live(*first))
         eager_dev = kernel_ms(profiled(lambda: live(*first), 2), 2)
         torch.cuda.synchronize()
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the artifact's runs start here
+        reset_launches(nk)  # the artifact's runs start here
 
         def serve(*a):
             before = nk.LAUNCHES
@@ -4749,7 +5017,7 @@ def phase_export(nk, smi):
         free_memory()
 
     # the CLI on the runs' checkpoints: an export and a validation each
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's runs start here
+    reset_launches(nk)  # the CLI's runs start here
     t0 = time.perf_counter()
     dg_cli, _ = run_cli(export_model.main, [
         "--model", "defectgan", "--validate", "--out",
@@ -4832,7 +5100,7 @@ def phase_folder(nk, fused, smi):
     batches = -(-FOLDER_FILES // FOLDER_BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+    reset_launches(nk)  # the CLI's run starts here
     t1 = time.perf_counter()
     with tally_calls(nk) as calls, counted_forwards(DefectGanGenerator) as g:
         out, _ = run_cli(translate_folder.main,
@@ -4940,7 +5208,7 @@ def phase_sgv2_video(nk, smi):
     root = CLI_DIR / "sgv2"
     out = root / "video"
     shutil.rmtree(out, ignore_errors=True)
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the sample run starts here
+    reset_launches(nk)  # the sample run starts here
     t0 = time.perf_counter()
     with counted_forwards(Generator) as g, grids_checked() as finite:
         _, printed = run_cli(sgv2_cli.main, sgv2_cli_base(root) + [
@@ -4974,7 +5242,7 @@ def phase_sgv2_video(nk, smi):
                        generator=torch.Generator(device="cuda").manual_seed(
                            SEED + 93))
     torch.cuda.synchronize()
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the grids' runs start here
+    reset_launches(nk)  # the grids' runs start here
     with tally_calls(nk) as calls:
         alpha = translate.translate_with_alpha_control(solver, x, y, pair,
                                                        steps=5)
@@ -5014,7 +5282,7 @@ def phase_metric_nets(nk, smi):
     from de_i2i_gan_torch.metrics.inception import seeded_inception
     from de_i2i_gan_torch.metrics.lpips import seeded_lpips
 
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the metric nets' runs start here
+    reset_launches(nk)  # the metric nets' runs start here
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED + 101)
@@ -5140,7 +5408,7 @@ def metric_clis(nk, smi):
     def run(label, fn, g_cls, per_forward, bwd=0, profile=True):
         torch.cuda.synchronize()
         prof_runs = []
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+        reset_launches(nk)  # the CLI's run starts here
         t0 = time.perf_counter()
         with counted_forwards(g_cls) as g:
             if profile:
@@ -5384,7 +5652,7 @@ def phase_dp_nccl(nk, smi, rounds=2):
             if label == "group":
                 make_parallel_step(steps, dist.group.WORLD)
             torch.cuda.synchronize()
-            nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+            reset_launches(nk)  # the path's run starts here
             with (batch_norm_in_float64() if label == "float64"
                   else contextlib.nullcontext()):
                 m = steps.super_step(batch, torch.Generator(device="cuda")
@@ -5494,7 +5762,7 @@ def dp_defectgan_rank(state_paths, batch_path, timed):
         before = {k: p.detach().float().cpu().clone()
                   for k, p in steps.G.named_parameters()}
         torch.cuda.synchronize()
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+        reset_launches(nk)  # the path's run starts here
         m = steps.super_step(rows)
         torch.cuda.synchronize()
         launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
@@ -5676,7 +5944,7 @@ def dp_trainers_rank(sgv2_state, sgv2_batch):
         make_parallel_step(steps)
         replicate(steps)
         torch.cuda.synchronize()
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the path's run starts here
+        reset_launches(nk)  # the path's run starts here
         m = run(steps)
         torch.cuda.synchronize()
         launches = {"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES}  # ... ends here
@@ -5846,7 +6114,7 @@ def dp_cli_rank(argvs):
     for argv in argvs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+        reset_launches(nk)  # the CLI's run starts here
         trainer = main(argv)
         torch.cuda.synchronize()
         out.append(dict(launches={"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES},
@@ -6131,7 +6399,7 @@ def spatial_rank(runs, timed):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the CLI's run starts here
+        reset_launches(nk)  # the CLI's run starts here
         nk.SPLIT_LAUNCHES.update(moments=0, apply=0)
         with counted_forwards(DefectGanGenerator) as g:
             result, _ = run_cli(translate_folder.main, argv)
@@ -6139,6 +6407,7 @@ def spatial_rank(runs, timed):
         out[label] = dict(
             launches={"fwd": nk.LAUNCHES, "bwd": nk.BWD_LAUNCHES,
                       **nk.SPLIT_LAUNCHES},  # ... end here
+            pad_launches=pad_launches(),
             forwards=g[0], seconds=time.perf_counter() - t0,
             written=[p.name for p in result["written"]])
         free_memory()
@@ -6261,6 +6530,7 @@ def phase_spatial(nk, smi, folder):
     host clock of a batch of 4, images/s, the halo's and moments' shares,
     the peak a rank."""
     from de_i2i_gan_torch.cli import translate_folder
+    from de_i2i_gan_torch.config.options import Options, to_defectgan_config
     from de_i2i_gan_torch.parallel import distributed
 
     root = CLI_DIR / "folder"
@@ -6291,9 +6561,18 @@ def phase_spatial(nk, smi, folder):
     names = [f"{i:02d}.png" for i in range(FOLDER_FILES)]
     spade_names = [f"{i:02d}.png" for i in range(SPATIAL_SPADE_FILES)]
     batches = -(-FOLDER_FILES // FOLDER_BATCH)
+    # a G forward's pads a rank: every reflect-padded convolution's band
+    # pads W with the kernel once (its rows come from the neighbours)
+    per_forward = {name: expected_pads(to_defectgan_config(Options(
+        "defectgan_test").parse(argv, save=False)), requests=1)[0]
+        for name, argv in (("sean", sean), ("spade", spade))}
+    pads_a_forward = {"bf16": per_forward["sean"], "f32": per_forward["sean"],
+                      "spade": per_forward["spade"]}
     for r, rank in enumerate(ranks):
         for label, _, _ in runs:
             run = rank[label]
+            check_pads(f"19b rank {r} {label}", run["pad_launches"],
+                       (pads_a_forward[label] * run["forwards"], 0))
             kernels = label != "spade"
             per = SPATIAL_PER_FORWARD if kernels else 0
             forwards = batches if kernels else -(-SPATIAL_SPADE_FILES
@@ -6456,7 +6735,7 @@ def phase_pth_import(nk, smi):
     labels = torch.eye(cfg.label_nc, device=CARD)[
         torch.randint(0, cfg.label_nc, (BATCH,), generator=gen, device=CARD)]
     feat = style_input(cfg, gen, BATCH)
-    nk.LAUNCHES = nk.BWD_LAUNCHES = 0  # the imported G's forward starts here
+    reset_launches(nk)  # the imported G's forward starts here
     with torch.no_grad():
         out_k, prob = dst.G(x, labels, feat)
         torch.cuda.synchronize()
@@ -6489,7 +6768,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from de_i2i_gan_torch.ops import fused
-    from de_i2i_gan_torch.ops.cuda import norm_kernels as nk
+    from de_i2i_gan_torch.ops.cuda import library, norm_kernels as nk
 
     started = time.perf_counter()
     # 1. device
@@ -6501,7 +6780,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
 
     # 2. build
-    info = nk.build()
+    info = library.build()
     print(f"build: {info.seconds:.2f} s -> {info.path.name}")
     phase_build_report(nk, info, smi)
 
@@ -6538,6 +6817,7 @@ def main() -> int:
     compare = phase_train_compare(smi, full_config, "adain")
     bwd_rows = phase_bwd_timing(nk, fused, smi)
     training_remat = phase_train_remat(nk, smi)
+    pads = phase_pad_timing(smi)
 
     # 7a. SEAN serving
     serving_sean = phase_serving(nk, smi, sean_config(), "sean")
@@ -6841,7 +7121,11 @@ def main() -> int:
              **{f"dp_cli_rank{r}_run{i}": {"launches": n}
                 for r, runs in enumerate(dp_cli["launches"])
                 for i, n in enumerate(runs)},
-             **{k: {"launches": v} for k, v in spatial_paths.items()},
+             **{f"spatial_{label}_rank{r}": {
+                 "launches": rank[label]["launches"],
+                 "pad_launches": rank[label]["pad_launches"]}
+                for r, rank in enumerate(spatial["ranks"])
+                for label in ("bf16", "f32", "spade")},
              "pth_import_sean": pth}
     unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over the "
             "kernel's calls in one training super-step, as in per_super_step; "
@@ -6938,6 +7222,31 @@ def main() -> int:
             "library_ms": summed(rows, "library_ms"),
             "per_spatial_forward": {"calls": sum(r["calls"] for r in rows)},
             "per_call": rows})
+    pad_unit = ("ms, plain_ms, bound_ms, library_ms: device ms summed over "
+                "the kernel's calls in one training super-step at the "
+                "benchmark cell's configuration (PAD_CALLS), bf16, as in "
+                "per_super_step; per_call rows: device ms per call and calls "
+                "a super-step; plain: the index_select gathers (forward), "
+                "index_add_ (backward); library: F.pad, aten's "
+                "reflection_pad2d_backward; host_us: an eager call's host "
+                "cost; launches_by_path: the DefectGAN paths that reflect-pad")
+    for kind in ("fwd", "bwd"):
+        by_path = {name: run["pad_launches"][kind]
+                   for name, run in paths.items() if "pad_launches" in run}
+        t = pads["per_super_step"][kind]
+        record["kernels"].append({
+            "name": f"reflect_pad_{kind}", "route": "cuda",
+            "source": "de_i2i_gan_torch/csrc/reflect_pad.cu",
+            "replaces": "aten::reflection_pad2d" + ("_backward" * (kind == "bwd"))
+            + " (no TPU kernel: the JAX package's jnp.pad, fused by XLA)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": pads["max_abs_err"][kind], "unit": pad_unit,
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes", "per_super_step": t,
+            "per_call": pads["per_call"][kind],
+            **({"host_us": pads["host_us"]} if kind == "fwd" else {})})
+        print(f"reflect_pad_{kind}: {sum(by_path.values())} launches over "
+              f"the paths, each checked against expected_pads: {by_path}")
     print(f"per super-step ({sum(train_calls['fwd'].values())} forward, "
           f"{sum(train_calls['bwd'].values())} backward calls): forward "
           f"kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
@@ -7077,7 +7386,7 @@ def main() -> int:
           f"{metric_nets['lpips_err']:.3e}, Inception batch {INCEPTION_BATCH} "
           f"{metric_nets['request_ms']:.3f} ms (TF32 off "
           f"{metric_nets['request_fp32_ms']:.3f}) [{smi}]")
-    for rec in record["kernels"][2:]:
+    for rec in (r for r in record["kernels"] if "per_spatial_forward" in r):
         print(f"{rec['name']} a rank's G forward of --spatial {SPATIAL} at "
               f"{FOLDER_IMAGE}^2 ({rec['per_spatial_forward']['calls']} calls): "
               f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "

@@ -15,6 +15,8 @@ Counterpart of ``de_i2i_gan_tpu/nn/layers.py``, in NCHW:
   * a ``Conv2d`` with a height shard attached (``parallel/spatial.py``)
     runs on a band of rows: H is padded with the neighbouring bands' rows,
     and as before at the image's top and bottom edges
+  * reflect padding of a CUDA tensor runs the hand-written pad kernels
+    (``ops/cuda/pad_kernels.py``), forward and backward
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from de_i2i_gan_torch.ops.cuda.pad_kernels import reflect_pad, reflect_pad_ref
 
 PaddingLike = Union[int, str, Tuple[int, int]]
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -55,20 +59,13 @@ def _resolve_padding(padding: PaddingLike, kernel_size: Tuple[int, int],
     return ((ph, ph), (pw, pw))
 
 
-def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
-    """Source rows of a reflect pad of (lo, hi) on an axis of length n, with
-    numpy's repeated-reflection semantics when the pad is >= the axis (the
-    case where ``F.pad(mode="reflect")`` raises)."""
-    idx = torch.arange(-lo, n + hi, device=device)
-    if n == 1:
-        return torch.zeros_like(idx)
-    period = 2 * (n - 1)
-    idx = torch.remainder(idx, period)
-    return torch.where(idx >= n, period - idx, idx)
-
-
 def pad_image(x: torch.Tensor, pads: Pads, mode: str) -> torch.Tensor:
-    """Pad an NCHW image on H and W. mode: 'zeros' | 'reflect' | 'replicate'."""
+    """Pad an NCHW image on H and W. mode: 'zeros' | 'reflect' | 'replicate'.
+
+    Reflect padding of a CUDA tensor runs the hand-written kernels (the
+    custom op ``ops/cuda/pad_kernels.py::reflect_pad``, which launches or
+    raises); of a CPU tensor, ``F.pad``, or repeated reflection where a pad
+    reaches its axis (``reflect_pad_ref``)."""
     (pt, pb), (pl, pr) = pads
     if pt == pb == pl == pr == 0:
         return x
@@ -78,12 +75,8 @@ def pad_image(x: torch.Tensor, pads: Pads, mode: str) -> torch.Tensor:
         return F.pad(x, (pl, pr, pt, pb), mode="replicate")
     if mode != "reflect":
         raise ValueError(f"unknown padding mode {mode}")
-    h, w = x.shape[-2:]
-    if max(pt, pb) < h and max(pl, pr) < w:
-        return F.pad(x, (pl, pr, pt, pb), mode="reflect")
-    # pad wider than the axis (tiny feature maps): repeated reflection
-    x = x.index_select(-2, _reflect_index(h, pt, pb, x.device))
-    return x.index_select(-1, _reflect_index(w, pl, pr, x.device))
+    pads4 = (pt, pb, pl, pr)
+    return reflect_pad(x, pads4) if x.is_cuda else reflect_pad_ref(x, pads4)
 
 
 def _unit(n: int, eps: float = 1e-12) -> torch.Tensor:

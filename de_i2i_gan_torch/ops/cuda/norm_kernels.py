@@ -4,8 +4,9 @@ forward and backward.
 Replace ``de_i2i_gan_tpu/ops/pallas/norm_kernels.py::_fwd_kernel`` and
 ``::_bwd_kernel``. Both live in ``de_i2i_gan_torch/csrc/modulated_instance_norm.cu``,
 built with ``nvcc`` at first use into ``build/de_i2i_gan_torch/`` beside the
-package (one shared library with a plain C interface, loaded once with
-ctypes). Importing this module neither needs nor runs ``nvcc``.
+package (``library.py``: one shared library of every ``csrc/`` source, with
+a plain C interface, loaded once with ctypes). Importing this module neither
+needs nor runs ``nvcc``.
 
 Each call is planned by ``plan``, a pure function of the row length, the
 dtype and the pointers' alignment, into one of four tiers (the ``.cu``
@@ -43,24 +44,15 @@ their launches, apart from ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from de_i2i_gan_torch.ops.cuda import library
 from de_i2i_gan_torch.utils import profiling
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "modulated_instance_norm.cu"
-BUILD_DIR = _PKG.parent / "build" / "de_i2i_gan_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = library.SOURCES[0]  # csrc/modulated_instance_norm.cu
 ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VECTOR_ELEMS = {torch.float32: 4, torch.bfloat16: 8}  # in 16 bytes
@@ -192,59 +184,12 @@ def longest_cluster_row(op: str, dtype: torch.dtype, cluster: int) -> int:
     return cluster * (SLICE_BUDGET // (16 * SLICE_TENSORS[op])) * _vector(dtype)
 
 
-class BuildInfo(NamedTuple):
-    path: Path
-    seconds: float
-    log: str  # nvcc's output, with the -Xptxas -v resource lines
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
-            "modulated instance norm kernel cannot be built")
-    return found
-
-
-def _library_path() -> Path:
-    """Build output named by a hash of the source and flags, so an edited
-    source never loads a stale library."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libdig_norm_{h.hexdigest()[:16]}.so"
-
-
-def build() -> BuildInfo:
-    """Compile the kernel source with nvcc; raises if nvcc fails."""
-    out = _library_path()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a torn file
-    return BuildInfo(out, seconds, log)
-
-
 def _kernel():
-    """The library's (forward, backward, occupancy) entry points; builds it
-    first if no library of this source exists."""
+    """The library's (forward, backward, occupancy, moments, apply) entry
+    points; builds it first if no library of these sources exists."""
     global _fn
     if _fn is None:
-        path = _library_path()
-        if not path.exists():
-            path = build().path
-        lib = ctypes.CDLL(str(path))
+        lib = library.load()
         plan_args = [ctypes.c_int] * 5  # tier, rows a block, threads, cluster, smem
         fwd = lib.dig_modulated_instance_norm_fwd
         fwd.argtypes = [ctypes.c_void_p] * 6 + [

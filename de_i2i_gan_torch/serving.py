@@ -11,8 +11,9 @@ so one artifact serves any batch. The weights go into the artifact.
 An exported program holds the device it was traced on: export on the card
 to serve on the card. There, the graph holds the norm kernels as the custom
 op ``de_i2i_gan_torch::modulated_instance_norm_fwd`` (8 nodes a DefectGAN
-AdaIN or SEAN generator, 12 a StarGAN v2 one at 256²), and no
-decomposition is run, so the served graph launches the kernels eager runs.
+AdaIN or SEAN generator, 12 a StarGAN v2 one at 256²) and DefectGAN's
+reflect pads as ``de_i2i_gan_torch::reflect_pad2d``, and no decomposition
+is run, so the served graph launches the kernels eager runs.
 On the CPU the graph holds the plain version's aten ops, as eager runs
 them. Loading a CUDA artifact on a machine without a card raises.
 
@@ -240,7 +241,8 @@ def save_exported(program: "torch.export.ExportedProgram", path) -> Path:
 
 
 def load_exported(path) -> "torch.export.ExportedProgram":
-    """Read a ``.pt2`` artifact; the norm kernels' ops are registered first,
-    so a graph that holds them loads."""
+    """Read a ``.pt2`` artifact; the kernels' ops (norm, reflect pad) are
+    registered first, so a graph that holds them loads."""
     import de_i2i_gan_torch.ops.cuda.norm_kernels  # noqa: F401
+    import de_i2i_gan_torch.ops.cuda.pad_kernels  # noqa: F401
     return torch.export.load(Path(path))

@@ -15,10 +15,12 @@ one arithmetic; cuDNN is held deterministic, so that a gradient that is
 zero in exact arithmetic rounds the same in both (Adam turns any such
 rounding into a step of about lr). ``iters_per_epoch`` 3 with 4 epochs of
 the step schedule moves the learning rate between two critics of a
-super-step. The paths compute in float32: in bfloat16 the atomic sums of
-aten's reflect-pad backward make two eager runs differ by more than these
-tolerances (the benchmark's check holds the bfloat16 graph against the
-plain reference).
+super-step. The paths compute in float32, the precision these tolerances
+were set in: in bfloat16 the atomic sums of aten's reflect-pad backward,
+which the port's pad kernels have since replaced, made two eager runs
+differ by more than them (the benchmark's check holds the bfloat16 graph
+against the plain reference). The reflect pads run inside the capture as
+the custom op of ``ops/cuda/pad_kernels.py``.
 
 Tolerances, the super-step's of ``tests/test_torch_kernel_gpu.py``: each
 step's losses within rtol 2e-4; each tensor's change over the steps

@@ -84,7 +84,7 @@ import subprocess
 def refuse(*a, **k):
     raise AssertionError("a process was started at import")
 subprocess.run = subprocess.Popen = refuse
-from de_i2i_gan_torch.ops.cuda import norm_kernels
+from de_i2i_gan_torch.ops.cuda import library, norm_kernels, pad_kernels
 from de_i2i_gan_torch.ops import fused
 from de_i2i_gan_torch.runtime import native_loader
 import de_i2i_gan_torch.train.steps
@@ -103,6 +103,8 @@ import de_i2i_gan_torch.cli.export_model
 import de_i2i_gan_torch.cli.translate_folder
 import de_i2i_gan_torch.metrics.evaluator
 assert norm_kernels._fn is None and norm_kernels.LAUNCHES == 0
+assert pad_kernels._fn is None and pad_kernels.LAUNCHES == 0
+assert library._lib is None
 assert native_loader._lib is None
 """
     _run(code, PATH="/nonexistent", CUDA_HOME="/nonexistent")
