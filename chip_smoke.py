@@ -80,7 +80,8 @@ Phases, each of which raises on failure:
               after one SGD super-step, kernel path against the
               use_pallas=False path, in bf16 and in an f32 control run
   6e. profile torch.profiler breakdown of one super-step, and the busy share
-              of the unprofiled super-step
+              of the unprofiled super-step; the replayed super-step makes
+              no conv double backward call (DefectGAN has no penalty)
   6f. timing  backward kernel at each training shape as in 5, beside the
               plain version, autograd of F.instance_norm and the bound
   6g. remat   one full-width f32 AdaIN super-step (SGD) with remat on
@@ -156,7 +157,10 @@ Phases, each of which raises on failure:
               iteration at the five shapes), host-clock and profiler device
               time an iteration, peak memory, finite losses; the same with
               FusedProp (72/48) and with SEANv2 and (8, 5, 768) embeddings,
-              its statistics finalized every iteration (48/24)
+              its statistics finalized every iteration (48/24); R1's
+              double backward: exactly 18 conv double backward calls a
+              penalty (36 an iteration, SEAN 18) and no indexed implicit
+              GEMM kernel on the device in the profiled iteration
   10c.        G's, M's and S's gradients of one latent G loss, kernel path
               against the plain version swapped in, relative L2 per net: f32
               control (TF32 off) within 5e-3 + 2x the distance the f32 plain
@@ -166,7 +170,9 @@ Phases, each of which raises on failure:
               PNGs at 256^2 made from a seed: ``--mode train`` for 12
               iterations (exact launches, loader-fed iteration time, the busy
               share of 3 profiled iterations, a debug grid, checkpoints
-              000012 and latest), a resume with ``--resume_iter 12`` whose
+              000012 and latest; 36 conv double backward calls an
+              iteration, no indexed implicit GEMM kernel in the profiled
+              replays), a resume with ``--resume_iter 12`` whose
               loaded state equals the saved one, ``--mode sample`` from it
               (grids of the expected sizes, finite pixels)
   11. mae     both kernels timed at the batch-32 MAE shapes as in 5 and 6f
@@ -453,6 +459,12 @@ SGV2_TRAIN_SHAPES = {(SGV2_TRAIN_BATCH, *s[1:]): c for s, c in SGV2_SHAPES.items
 # x_rec) and the backward of x_fake's and x_rec's; SEAN the reference
 # passes alone; FusedProp a pair a pass (the shared fake, x_fake2, x_rec)
 SGV2_G_PASSES = {"adain": (8, 4), "sean": (4, 2), "fused": (6, 4)}
+# R1's double backward: the second backward calls of nn/conv_grad.py's
+# convolution a penalty (D's 18 convolutions: from_rgb, 3 + 3 + 3 + 2 + 2 + 2
+# in the blocks, conv4, head), and the penalties an iteration (one a D
+# update: AdaIN and FusedProp 2, SEAN 1)
+SGV2_D_CONVS = 18
+SGV2_R1S = {"adain": 2, "sean": 1, "fused": 2}
 # a latent G loss's gradients, kernel path vs plain path, f32 control (TF32
 # off): relative L2 per net within this + F32_CONTROL_FACTOR x the distance
 # the plain path moves when only its norm is rounded otherwise (computed in
@@ -690,6 +702,29 @@ def reset_launches(nk):
     from de_i2i_gan_torch.ops.cuda import pad_kernels as pk
     nk.LAUNCHES = nk.BWD_LAUNCHES = 0
     pk.LAUNCHES = pk.BWD_LAUNCHES = 0
+
+
+def conv_double_backward():
+    """The running total of the counter source ``conv.double_backward``:
+    second backward calls of ``nn/conv_grad.py``'s convolution."""
+    from de_i2i_gan_torch.nn import conv_grad
+    return conv_grad.CALLS
+
+
+def check_double_backward(prof, calls, want, label):
+    """A gradient penalty's double backward under ``prof``: ``calls``
+    second backward calls of ``nn/conv_grad.py``'s convolution, expected
+    ``want``; where ``want`` is not 0, no kernel of cuDNN's indexed implicit
+    GEMM on the device (the engine of aten's weight term, a forward
+    convolution of transposed tensors; DefectGAN's own convolutions run it
+    at some shapes, so a path without a penalty only prints its count)."""
+    indexed = sum(e.count for e in device_kernels(prof)
+                  if "implicit_gemm_indexed" in e.key)
+    print(f"{label}: {calls} conv double backward calls, expected {want}; "
+          f"{indexed} indexed implicit GEMM kernels on the device")
+    check(calls == want and (want == 0 or indexed == 0),
+          f"{label}: {calls} conv double backward calls (expected {want}) "
+          f"and {indexed} indexed implicit GEMM kernels (expected none)")
 
 
 def pad_launches():
@@ -1898,10 +1933,12 @@ def profile_super_step(run, label, smi):
     steps, batch, draws = run["steps"], run["batch"], run["draws"]
     profile_device(lambda: steps._super_step(batch, draws), 1,
                    f"{label} eager super-step", run["ms"], smi)
-    replays = graphed.REPLAYS
+    replays, dbw0 = graphed.REPLAYS, conv_double_backward()
     prof = profiled(lambda: steps.super_step(batch, draws), 1)
     check(graphed.REPLAYS - replays == 1,
           f"{label}: the profiled super-step did not replay the graph")
+    check_double_backward(prof, conv_double_backward() - dbw0, 0,
+                          f"{label} replayed super-step")
     check_norm_kernels_on_device(prof, run["per_step"],
                                  f"{label} replayed super-step")
     check_pad_kernels_on_device(prof, run["pads_per_step"],
@@ -2064,7 +2101,7 @@ class SuperStepClock:
         self.nk, self.profile_at = nk, profile_at
         self.target = target
         self.ends, self.launches, self.keys, self.on_card = [], [], [], []
-        self.pads = []
+        self.pads, self.double_backwards = [], []
         self.dtypes, self.replays = [], []
         self.prof = None
 
@@ -2094,6 +2131,7 @@ class SuperStepClock:
             self.ends.append(time.perf_counter())
             self.launches.append((self.nk.LAUNCHES, self.nk.BWD_LAUNCHES))
             self.pads.append(pad_launches())
+            self.double_backwards.append(conv_double_backward())
             self.replays.append(graphed.REPLAYS)
             self.keys.append(sorted(batches))
             self.dtypes.append({k: v.dtype for k, v in batches.items()})
@@ -2853,7 +2891,8 @@ def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(nk)  # the path's run starts here
-    replays = graphed.REPLAYS
+    replays, dbw0 = graphed.REPLAYS, conv_double_backward()
+    per_r1s = SGV2_D_CONVS * SGV2_R1S[kind]
     times, metrics = [], []
     for i, batch in enumerate(batches):
         fwd0, bwd0 = nk.LAUNCHES, nk.BWD_LAUNCHES
@@ -2873,6 +2912,9 @@ def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
     reserved_mb = torch.cuda.max_memory_reserved() / 2**20
     n = len(batches)
     replayed = graphed.REPLAYS - replays
+    dbw = conv_double_backward() - dbw0
+    check(dbw == n * per_r1s, f"{label}: {dbw} conv double backward "
+          f"calls over {n} iterations, expected {per_r1s} an iteration")
     check(replayed == (n - 1 if graph else 0),
           f"{label}: {replayed} of {n} iterations replayed the CUDA graph, "
           f"expected {'all but the first' if graph else 'none'}")
@@ -2906,11 +2948,13 @@ def phase_sgv2_train(nk, smi, kind, warmup=2, timed=5):
     with tally_calls(nk) as calls:
         solver._super_step(solver._batch(batches[-1]), draws)
     check_sgv2_train_calls(calls, kind, 1, label)
-    replays = graphed.REPLAYS
+    replays, dbw0 = graphed.REPLAYS, conv_double_backward()
     prof = profiled(lambda: step(batches[-1]), 1, record_shapes=graph)
     check(graphed.REPLAYS - replays == graph,
           f"{label}: the profiled iteration "
           f"{'did not replay' if graph else 'replayed'} the CUDA graph")
+    check_double_backward(prof, conv_double_backward() - dbw0, per_r1s,
+                          f"{label} profiled iteration")
     check_norm_kernels_on_device(prof, (per_fwd, per_bwd),
                                  f"{label} profiled iteration")
     dev_ms = report_profile(prof, 1, f"{label} iteration", mean_ms, smi,
@@ -3106,7 +3150,7 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(nk)  # the CLI's runs start here
-    replays = graphed.REPLAYS
+    replays, dbw0 = graphed.REPLAYS, conv_double_backward()
     t0 = time.perf_counter()
     with SuperStepClock(nk, profile_at=PROFILE_AT,
                         target=(StarGANv2Solver, "train_step")) as clock, \
@@ -3137,6 +3181,14 @@ def phase_sgv2_cli(nk, smi, preloaded_ms):
           "sgv2 CLI: a profiled iteration did not replay the CUDA graph")
     check_norm_kernels_on_device(
         clock.prof, (PROFILED_SUPER_STEPS * per_fwd, PROFILED_SUPER_STEPS * per_bwd),
+        f"sgv2 CLI {PROFILED_SUPER_STEPS} replayed iterations")
+    per_r1s = SGV2_D_CONVS * SGV2_R1S["adain"]
+    counts = [b - a for a, b in zip([dbw0] + clock.double_backwards,
+                                    clock.double_backwards)]
+    check(counts == [per_r1s] * n, f"sgv2 CLI conv double backward calls "
+          f"by iteration {counts}, expected {per_r1s} each")
+    check_double_backward(
+        clock.prof, sum(counts[first:last + 1]), PROFILED_SUPER_STEPS * per_r1s,
         f"sgv2 CLI {PROFILED_SUPER_STEPS} replayed iterations")
     # the wrappers ran in the eager first iteration and in the capture (a
     # replay calls none), then in the debug grid's two G forwards of the

@@ -17,6 +17,11 @@ Counterpart of ``de_i2i_gan_tpu/nn/layers.py``, in NCHW:
     and as before at the image's top and bottom edges
   * reflect padding of a CUDA tensor runs the hand-written pad kernels
     (``ops/cuda/pad_kernels.py``), forward and backward
+  * a ``Conv2d`` of a CUDA tensor in grad mode, inside the scope
+    ``conv_grad.differentiated_twice()`` that a gradient penalty's owner
+    enters around the forward it differentiates twice, runs
+    ``conv_grad.conv2d``: the same forward, whose double backward takes its
+    weight term from cuDNN's wgrad (``nn/conv_grad.py``)
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from de_i2i_gan_torch.nn import conv_grad
 from de_i2i_gan_torch.ops.cuda.pad_kernels import reflect_pad, reflect_pad_ref
 
 PaddingLike = Union[int, str, Tuple[int, int]]
@@ -155,8 +161,11 @@ class Conv2d(_SpectralWeight):
             x = pad_image(x, self.pads, self.padding_mode)
         else:
             x = shard.pad(x, self.pads, self.padding_mode)
-        y = F.conv2d(x.to(self.dtype), self._weight().to(self.dtype),
-                     stride=self.strides)
+        x, w = x.to(self.dtype), self._weight().to(self.dtype)
+        if x.is_cuda and conv_grad.in_scope() and torch.is_grad_enabled():
+            y = conv_grad.conv2d(x, w, self.strides)
+        else:
+            y = F.conv2d(x, w, stride=self.strides)
         if self.bias is not None:
             y = y + self.bias[:, None, None]
         return y.to(self.dtype)

@@ -67,6 +67,7 @@ from de_i2i_gan_torch.models.starganv2 import (
     Generator, MappingNetwork, SEANv2, StarGANv2Discriminator, StyleEncoder,
     sean_v2_update_stats)
 from de_i2i_gan_torch.nn.blocks import MaskToken
+from de_i2i_gan_torch.nn.conv_grad import differentiated_twice
 from de_i2i_gan_torch.train import graphed
 from de_i2i_gan_torch.train.optim import ema_update, make_solver_optimizer
 from de_i2i_gan_torch.utils import profiling
@@ -324,13 +325,17 @@ class StarGANv2Solver:
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """As the JAX ``d_loss_fn``: (loss, {real, fake, reg}) with D's graph.
         R1 takes the gradient of D's real logits w.r.t. the augmented real
-        images in one D forward. The fakes come from G without gradients
-        unless ``x_fake`` (FusedProp's shared forward, detached) is given."""
+        images in one D forward, which runs inside
+        ``differentiated_twice()`` (``nn/conv_grad.py``: R1's double
+        backward takes its weight terms from cuDNN's wgrad). The fakes come
+        from G without gradients unless ``x_fake`` (FusedProp's shared
+        forward, detached) is given."""
         cfg = self.cfg
         x_real, y_org, y_trg = batch["x_src"], batch["y_src"], batch["y_ref"]
         x_real_aug = diff_augment(x_real, cfg.diff_aug, generator
                                   ).detach().requires_grad_()
-        out_real = self.D(x_real_aug, y_org)
+        with differentiated_twice():
+            out_real = self.D(x_real_aug, y_org)
         loss_real = bce_logits(out_real, torch.ones_like(out_real))
         loss_reg = self._r1(out_real, x_real_aug)
         if x_fake is None:
@@ -607,12 +612,13 @@ class StarGANv2Solver:
                       generator: Optional[torch.Generator] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """As the JAX ``mae_d_loss_fn``: (loss, {real, fake, reg}) with D's
-        graph; R1 on the real ``x_ref`` (no augmentation), the repair without
-        gradients."""
+        graph; R1 on the real ``x_ref`` (no augmentation; its D forward
+        inside ``differentiated_twice()``), the repair without gradients."""
         cfg = self.cfg
         x_real, y_org = batch["x_ref"], batch["y_ref"]
         x_req = x_real.detach().requires_grad_()
-        out_real = self.D(x_req, y_org)
+        with differentiated_twice():
+            out_real = self.D(x_req, y_org)
         loss_real = bce_logits(out_real, torch.ones_like(out_real))
         loss_reg = self._r1(out_real, x_req)
         with torch.no_grad():

@@ -32,6 +32,7 @@ import torch
 from de_i2i_gan_torch.config import TrainConfig, WGanConfig
 from de_i2i_gan_torch.models.discriminator import WGanDiscriminator
 from de_i2i_gan_torch.models.generator import WGanGenerator
+from de_i2i_gan_torch.nn.conv_grad import differentiated_twice
 from de_i2i_gan_torch.ops.fused import batch_images_to_float
 from de_i2i_gan_torch.train.optim import make_optimizer
 
@@ -73,10 +74,12 @@ class WGanSteps:
         (1 - eps) * fake, D in eval mode on a snapshot of its running
         statistics (the train-mode forwards move the live ones in place
         while this graph still needs them); a graph for the double
-        backward."""
+        backward, the critic's forward inside ``differentiated_twice()``
+        (``nn/conv_grad.py``)."""
         x_hat = (eps * real + (1 - eps) * fake).requires_grad_(True)
         stats = {k: v.clone() for k, v in self.D.named_buffers()}
-        critic = torch.func.functional_call(self.D, stats, (x_hat,))
+        with differentiated_twice():
+            critic = torch.func.functional_call(self.D, stats, (x_hat,))
         (g,) = torch.autograd.grad(critic.sum(), x_hat, create_graph=True)
         norms = torch.sqrt(g.float().square().sum(dim=(1, 2, 3)) + 1e-12)
         return self.gp_weight * (norms - 1.0).square().mean()

@@ -21,7 +21,9 @@
       root's id;
     * the change, over its extent, of every registered counter source.
 - ``register_counter(name, read)``: a counter source, ``read()`` giving the
-  counter's running total (the norm kernels register ``norm.launches``).
+  counter's running total (the norm kernels register ``norm.launches``, the
+  pad kernels ``pad.launches``, ``nn/conv_grad.py`` the second backward
+  calls of its convolution, ``conv.double_backward``).
 - ``register_host_counts(name, read, add)``: counts the host keeps as it
   launches work, which a CUDA graph's replay does not move: ``read()``
   gives them as a dict, ``add(delta)`` adds such a dict to them. A module

@@ -149,10 +149,12 @@ def test_norm_launches_an_iteration(monkeypatch):
 READERS = {"step.d_update_ms.sgv2": 350.0, "step.g_update_ms.sgv2": 500.0,
            "loss.r1_ms.sgv2": 18.0, "model.backward_ms.sgv2": 560.0,
            "kernel.norm_launches_per_step.sgv2": 144.0,
-           "host.graph_replay_pct.sgv2": 100.0}
+           "host.graph_replay_pct.sgv2": 100.0,
+           "model.conv_double_backward_per_step.sgv2": 36.0}
 REPORT = {"train.super_step": {"count": 2, "device_ms": 1800.0,
                                "counters": {"norm.launches": 288,
-                                            "train.graph_replays": 2}},
+                                            "train.graph_replays": 2,
+                                            "conv.double_backward": 72}},
           "train.d_step": {"count": 4, "device_ms": 700.0, "counters": {}},
           "train.g_step": {"count": 4, "device_ms": 1000.0, "counters": {}},
           "sgv2.r1": {"count": 4, "device_ms": 36.0, "counters": {}},
@@ -180,6 +182,16 @@ def test_reader_none_where_the_iteration_opens_no_root(name, monkeypatch):
     assert spec.metric_reader(name)(SUMMARY) is None
     monkeypatch.delattr(profiling, "report")
     assert spec.metric_reader(name)(SUMMARY) is None
+
+
+def test_conv_reader_none_without_the_counter(monkeypatch):
+    """A program without the counter source ``conv.double_backward`` (the
+    port before ``nn/conv_grad.py``) reads nothing."""
+    root = dict(REPORT["train.super_step"], counters={"norm.launches": 288})
+    monkeypatch.setattr(profiling, "report",
+                        lambda: dict(REPORT, **{"train.super_step": root}))
+    read = spec.metric_reader("model.conv_double_backward_per_step.sgv2")
+    assert read(SUMMARY) is None
 
 
 @pytest.mark.parametrize("name", sorted(READERS))

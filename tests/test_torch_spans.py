@@ -262,6 +262,7 @@ def test_replayed_super_step_keeps_the_tree_and_the_counters(monkeypatch):
         k: 2 * n for k, n in TABLE.items()}
     root = report["train.super_step"]["counters"]
     assert root == {"norm.launches": 2 * per_step, "pad.launches": 0,
+                    "conv.double_backward": 0,
                     "train.graph_replays": 2, "train.eager_super_steps": 0}
     assert report["train.d_step"]["counters"]["norm.launches"] == 2 * CRITICS * 8
     assert report["train.g_step"]["counters"]["norm.launches"] == 2 * 2 * 16
